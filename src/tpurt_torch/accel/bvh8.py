@@ -22,6 +22,7 @@ identical).  The numpy collapse helpers are tpurt's, copied.
 
 from __future__ import annotations
 
+import dataclasses
 import heapq
 from dataclasses import dataclass
 
@@ -69,6 +70,7 @@ class WideBVH:
     row_tids:   (R, 8) i32 triangle id per row slot (-1 pad).
     max_stack:  worst-case stack occupancy of a walk (0 = not computed).
     max_rows:   max rows any fat leaf spans; the walks' leaf-loop extent.
+    levels:     refit_levels of the topology (None = not computed).
     """
 
     wrow: torch.Tensor
@@ -82,6 +84,7 @@ class WideBVH:
     band: float = 0.0
     max_stack: int = 0
     max_rows: int = R_MAX_ROWS
+    levels: tuple | None = None
 
     @property
     def num_wides(self) -> int:
@@ -410,24 +413,126 @@ def rows_from_tids(tris: Triangles, row_tids: torch.Tensor) -> torch.Tensor:
     return _pad_rows(rows, R_MAX_ROWS + (-padded) % 8)
 
 
-def _assemble_wrow(node_lo, node_hi, entry_node, entry_meta, own_node, escape,
-                   has_int) -> torch.Tensor:
-    """Boxes + metas + own box + escape/flag -> packed (ceil(W/2) rounded up
-    to 8, 128) f32 rows."""
-    w = entry_node.shape[0]
-    valid = (entry_node >= 0)[..., None]
-    g = entry_node.clamp_min(0).long()
-    empty = torch.tensor(EMPTY_BOX, dtype=torch.float32, device=node_lo.device)
-    lo = torch.where(valid, node_lo[g], empty)
-    hi = torch.where(valid, node_hi[g], empty)
-    box = torch.cat([lo, hi], dim=-1).reshape(w, 48)
-    own = own_node.long()
+def rows_from_table(table: torch.Tensor, row_tids: torch.Tensor) -> torch.Tensor:
+    """rows_from_tids sourced from a (T, 15) tri_table [v0, e1, e2, albedo,
+    emission] built at the same vertices: one row gather, no arithmetic, so
+    the rows are the table's values bit for bit.  Pass a detached table:
+    rows are kernel structure, not a gradient path."""
+    r = row_tids.shape[0]
+    ok = (row_tids >= 0)[..., None]
+    full = torch.where(ok, table[row_tids.clamp_min(0).long()], 0.0)  # (r, 8, 15)
+    rows = torch.cat([full[..., 0:9].reshape(r, 72), encode_lane_i32(row_tids),
+                      full[..., 9:12].reshape(r, 24), full[..., 12:15].reshape(r, 24)],
+                     dim=-1)
+    return _pad_rows(rows, R_MAX_ROWS + (-(r + R_MAX_ROWS)) % 8)
+
+
+def _wrow_from_boxes(lo, hi, valid, entry_meta, own_lo, own_hi, escape,
+                     has_int) -> torch.Tensor:
+    """Entry boxes (W, 8, 3) + metas + own box + escape/flag -> packed
+    (ceil(W/2) rounded up to 8, 128) f32 rows; empty slots get EMPTY_BOX."""
+    w = entry_meta.shape[0]
+    valid = valid[..., None]
+    box = torch.cat([torch.where(valid, lo, EMPTY_BOX),
+                     torch.where(valid, hi, EMPTY_BOX)], dim=-1).reshape(w, 48)
     row64 = torch.cat([
-        box, encode_lane_i32(entry_meta), node_lo[own], node_hi[own],
+        box, encode_lane_i32(entry_meta), own_lo, own_hi,
         encode_lane_i32(escape)[:, None], encode_lane_i32(has_int)[:, None],
     ], dim=-1)
     wrow = _pad_rows(row64, w % 2).reshape(-1, 128)
     return _pad_rows(wrow, (-wrow.shape[0]) % 8)
+
+
+def _assemble_wrow(node_lo, node_hi, entry_node, entry_meta, own_node, escape,
+                   has_int) -> torch.Tensor:
+    """Binary node boxes gathered into the wide layout (_wrow_from_boxes)."""
+    g = entry_node.clamp_min(0).long()
+    own = own_node.long()
+    return _wrow_from_boxes(node_lo[g], node_hi[g], entry_node >= 0, entry_meta,
+                            node_lo[own], node_hi[own], escape, has_int)
+
+
+def refit_levels(entry_node, entry_meta, device) -> tuple:
+    """The wide tree's levels for refit_wide_direct's sweep, deepest first:
+    per level below the root, (node ids, parent ids, parent entry slots) as
+    int64 tensors on `device`.  Computed once on the host from the topology."""
+    en, em = np.asarray(entry_node), np.asarray(entry_meta)
+    internal = (en >= 0) & (em > 0)  # 0 is the root, never a child
+    levels, frontier = [], np.zeros(1, np.int64)
+    while True:
+        rows, slots = np.nonzero(internal[frontier])
+        if rows.size == 0:
+            break
+        parent = frontier[rows]
+        kids = em[parent, slots].astype(np.int64)
+        levels.append(tuple(torch.as_tensor(x, device=device)
+                            for x in (kids, parent, slots.astype(np.int64))))
+        frontier = kids
+    return tuple(reversed(levels))
+
+
+def refit_wide_direct(wide: WideBVH, tris: Triangles,
+                      table: torch.Tensor | None = None) -> WideBVH:
+    """Box and row refit after the vertices moved, topology frozen: triangle
+    boxes (band-inflated as build_lbvh does) fold into row boxes, leaf-entry
+    boxes, and up the wide tree in one bottom-up sweep, one level at a time
+    from the deepest.  Every child's level is below its parent's, so the
+    sweep is exact at any depth.  min and max are exact in f32, so the boxes
+    equal tpurt's fold bit for bit wherever that fold converged (it stops
+    after 64 passes).
+
+    table: the (T, 15) tri_table at the same vertices; corners are then
+    v0 + e1 and v0 + e2 as in tpurt, and the rows come from rows_from_table.
+    Runs without autograd: boxes and rows are kernel structure."""
+    with torch.no_grad():
+        if table is not None:
+            table = table.detach()
+            v0 = table[:, 0:3]
+            v1 = v0 + table[:, 3:6]
+            v2 = v0 + table[:, 6:9]
+        else:
+            v0, v1, v2 = (c.detach() for c in tris.corners())
+        tri_lo = torch.minimum(torch.minimum(v0, v1), v2)
+        tri_hi = torch.maximum(torch.maximum(v0, v1), v2)
+        if wide.band > 0.0:
+            pad = wide.band * ((v1 - v0).abs() + (v2 - v0).abs()) + 1e-7
+            tri_lo = tri_lo - pad
+            tri_hi = tri_hi + pad
+        big = 3.0e38
+
+        rt = wide.row_tids
+        ok = (rt >= 0)[..., None]
+        g = rt.clamp_min(0).long()
+        rlo = torch.where(ok, tri_lo[g], big).amin(dim=1)        # (R, 3)
+        rhi = torch.where(ok, tri_hi[g], -big).amax(dim=1)
+
+        em = wide.entry_meta
+        valid = wide.entry_node >= 0
+        is_leaf = valid & (em < 0)
+        row0 = ((~em) >> 3).clamp_min(0).long()
+        n_rows = ((~em) & 7) + 1
+        elo = torch.full(em.shape + (3,), big, dtype=torch.float32, device=em.device)
+        ehi = torch.full_like(elo, -big)
+        for r in range(wide.max_rows):
+            take = (is_leaf & (r < n_rows))[..., None]
+            idx = (row0 + r).clamp_max(rlo.shape[0] - 1)
+            elo = torch.where(take, torch.minimum(elo, rlo[idx]), elo)
+            ehi = torch.where(take, torch.maximum(ehi, rhi[idx]), ehi)
+
+        vm = valid[..., None]
+        levels = wide.levels
+        if levels is None:
+            levels = refit_levels(wide.entry_node.cpu(), em.cpu(), em.device)
+        for kids, parent, slot in levels:
+            elo[parent, slot] = torch.where(vm[kids], elo[kids], big).amin(dim=1)
+            ehi[parent, slot] = torch.where(vm[kids], ehi[kids], -big).amax(dim=1)
+
+        wrow = _wrow_from_boxes(
+            elo, ehi, valid, em, torch.where(vm, elo, big).amin(dim=1),
+            torch.where(vm, ehi, -big).amax(dim=1), wide.escape, wide.has_int)
+        rows = (rows_from_table(table, rt) if table is not None
+                else rows_from_tids(tris, rt))
+    return dataclasses.replace(wide, wrow=wrow, tri_rows=rows, levels=levels)
 
 
 def pack_wide(tris: Triangles, bvh: BVH, entry_node, entry_meta, own_node,
@@ -435,6 +540,7 @@ def pack_wide(tris: Triangles, bvh: BVH, entry_node, entry_meta, own_node,
     """Assemble the device arrays for a collapsed topology (numpy arrays
     from `collapse_wide`) on the triangles' device."""
     max_stack = stack_bound(entry_meta)
+    levels = refit_levels(entry_node, entry_meta, tris.device)
     entry_node, entry_meta, own_node, escape, has_int, row_first, row_len = (
         torch.as_tensor(x, device=tris.device) for x in
         (entry_node, entry_meta, own_node, escape, has_int, row_first, row_len))
@@ -448,7 +554,7 @@ def pack_wide(tris: Triangles, bvh: BVH, entry_node, entry_meta, own_node,
         tri_rows=rows_from_tids(tris, row_tids),
         entry_node=entry_node, entry_meta=entry_meta, own_node=own_node,
         escape=escape, has_int=has_int, row_tids=row_tids, band=bvh.band,
-        max_stack=max_stack, max_rows=max_rows,
+        max_stack=max_stack, max_rows=max_rows, levels=levels,
     )
 
 

@@ -10,7 +10,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from tpurt_torch.accel.bvh8 import WideBVH
+from tpurt_torch.accel.bvh8 import WideBVH, refit_levels
 from tpurt_torch.accel.lbvh import BVH
 from tpurt_torch.core.geometry import Camera, PointLight, Triangles
 from tpurt_torch.core.scene import Scene
@@ -24,20 +24,20 @@ def _t(x, dtype, device) -> torch.Tensor:
 
 def scene_from_numpy(*, verts, faces, albedo, emission, light_pos,
                      light_intensity, background, ambient,
-                     device="cpu") -> Scene:
+                     device="cuda") -> Scene:
     tris = Triangles.create(verts, faces, albedo, emission, device=device)
     lights = PointLight.create(light_pos, light_intensity, device=device)
     return Scene.create(tris, lights, background, ambient)
 
 
 def camera_from_numpy(*, eye, target, up, fov_y_deg, width, height,
-                      device="cpu") -> Camera:
+                      device="cuda") -> Camera:
     return Camera.create(eye, target, up, float(np.asarray(fov_y_deg)),
                          int(width), int(height), device=device)
 
 
 def bvh_from_numpy(*, left, right, parent, first, last, node_lo, node_hi,
-                   codes, tri_order, band=0.0, device="cpu") -> BVH:
+                   codes, tri_order, band=0.0, device="cuda") -> BVH:
     """codes may be uint32 (tpurt) or int64; the port keeps int64."""
     i32 = {k: _t(v, _I32, device) for k, v in dict(
         left=left, right=right, parent=parent, first=first, last=last,
@@ -49,11 +49,12 @@ def bvh_from_numpy(*, left, right, parent, first, last, node_lo, node_hi,
 
 def wide_from_numpy(*, wrow, tri_rows, entry_node, entry_meta, own_node,
                     escape, has_int, row_tids, max_stack, max_rows, band=0.0,
-                    device="cpu") -> WideBVH:
+                    device="cuda") -> WideBVH:
     i32 = {k: _t(v, _I32, device) for k, v in dict(
         entry_node=entry_node, entry_meta=entry_meta, own_node=own_node,
         escape=escape, has_int=has_int, row_tids=row_tids).items()}
+    levels = refit_levels(entry_node, entry_meta, device)
     return WideBVH(wrow=_t(wrow, np.float32, device),
                    tri_rows=_t(tri_rows, np.float32, device),
                    band=float(band), max_stack=int(max_stack),
-                   max_rows=int(max_rows), **i32)
+                   max_rows=int(max_rows), levels=levels, **i32)

@@ -1,5 +1,8 @@
 """Geometry core: rays, triangles, boxes, hits, camera and point lights.
 
+Factories put their tensors on the CUDA device unless the caller passes
+another ``device`` (the tests pass ``device="cpu"``).
+
 Counterpart of ``tpurt/core/geometry.py``.  Containers are dataclasses
 holding tensors in structure-of-arrays layout (float32 geometry, int32 ids);
 ``dataclasses.replace`` takes the place of the pytrees' ``.replace``.
@@ -46,7 +49,7 @@ class Triangles:
 
     @classmethod
     def create(cls, verts, faces, albedo=None, emission=None,
-               device="cpu") -> "Triangles":
+               device="cuda") -> "Triangles":
         verts = _f32(verts, device)
         faces = torch.from_numpy(np.array(faces, np.int32)).to(device)
         n = faces.shape[0]
@@ -99,6 +102,26 @@ class Hit:
 
 
 @dataclass
+class KHits:
+    """K nearest extended hits per ray, front to back (the soft path):
+    t, u, v (..., K) and int32 tri ids (..., K) padded with MISS.  Extended:
+    found with a barycentric tolerance band, so near misses are recorded."""
+
+    t: torch.Tensor
+    u: torch.Tensor
+    v: torch.Tensor
+    tri: torch.Tensor
+
+    @property
+    def valid(self) -> torch.Tensor:
+        return self.tri >= 0
+
+    @property
+    def k(self) -> int:
+        return self.tri.shape[-1]
+
+
+@dataclass
 class Camera:
     """Pinhole camera; eye/target/up (3,) and fov_y_deg () f32 tensors."""
 
@@ -112,7 +135,7 @@ class Camera:
     @classmethod
     def create(cls, eye, target, up=(0.0, 1.0, 0.0), fov_y_deg: float = 45.0,
                width: int = 256, height: int = 256,
-               device="cpu") -> "Camera":
+               device="cuda") -> "Camera":
         return cls(eye=_f32(eye, device), target=_f32(target, device),
                    up=_f32(up, device), fov_y_deg=_f32(fov_y_deg, device),
                    width=width, height=height)
@@ -130,7 +153,7 @@ class PointLight:
     intensity: torch.Tensor
 
     @classmethod
-    def create(cls, pos, intensity, device="cpu") -> "PointLight":
+    def create(cls, pos, intensity, device="cuda") -> "PointLight":
         pos = np.atleast_2d(np.asarray(pos, np.float32))
         inten = np.broadcast_to(
             np.atleast_2d(np.asarray(intensity, np.float32)), pos.shape)

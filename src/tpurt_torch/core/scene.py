@@ -84,7 +84,7 @@ def _merge(parts):
 
 
 def make_cornell_box(light_intensity: float = 2.8,
-                     device="cpu") -> tuple[Scene, Camera]:
+                     device="cuda") -> tuple[Scene, Camera]:
     """Cornell box, 30 triangles: 5 walls (10 tris) + two boxes without
     bottoms (2x10 tris). Camera on +z looking in."""
     white = (0.73, 0.73, 0.73)
@@ -157,7 +157,7 @@ def _torus_knot_mesh(n_u: int, n_v: int, p: int = 2, q: int = 3, seed: int = 0):
 
 
 def make_bunny_scene(num_tris: int = 70_000,
-                     device="cpu") -> tuple[Scene, Camera]:
+                     device="cuda") -> tuple[Scene, Camera]:
     """'Bunny-class' scene: a bumpy torus knot above a ground plane, one
     point light."""
     n_u = max(8, int(np.sqrt(num_tris / 2)))
@@ -181,7 +181,7 @@ def make_bunny_scene(num_tris: int = 70_000,
 
 def make_sponza_scene(num_tris: int = 1_000_000, seed: int = 7,
                       width: int = 1920, height: int = 1080,
-                      device="cpu") -> tuple[Scene, Camera]:
+                      device="cuda") -> tuple[Scene, Camera]:
     """'Sponza-class' architectural clutter: a courtyard of columns + floor +
     many random tessellated boxes, totalling ~num_tris.  Deterministic in
     `seed`."""

@@ -89,6 +89,10 @@ def load() -> ctypes.CDLL:
             _P, _P, _P, _P, _P, ctypes.c_int, ctypes.c_int, ctypes.c_float,
             _P, _P]
         lib.tpurt_occluded8.restype = ctypes.c_int
+        lib.tpurt_knear8.argtypes = [
+            _P, _P, _P, _P, _P, ctypes.c_int, ctypes.c_int, ctypes.c_float,
+            ctypes.c_int, ctypes.c_float, ctypes.c_float, _P, _P]
+        lib.tpurt_knear8.restype = ctypes.c_int
         lib.tpurt_error_string.argtypes = [ctypes.c_int]
         lib.tpurt_error_string.restype = ctypes.c_char_p
         _lib = lib

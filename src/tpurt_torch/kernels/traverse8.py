@@ -1,15 +1,16 @@
-"""BVH8 closest-hit and any-hit traversal (counterpart of
+"""BVH8 closest-hit, any-hit and k-nearest traversal (counterpart of
 ``tpurt/kernels/traverse8.py``).
 
-``traverse_wide8`` and ``occluded_wide8`` launch the hand-written CUDA
-kernels in ``csrc/traverse8.cu`` for CUDA tensors and run their plain-torch
-twins, ``traverse_wide8_ref`` and ``occluded_wide8_ref``, for CPU tensors.
-There is no other route: a CUDA tensor either reaches its kernel or the call
-raises.
+``traverse_wide8``, ``occluded_wide8`` and ``k_nearest_wide8`` launch the
+hand-written CUDA kernels in ``csrc/traverse8.cu`` for CUDA tensors and run
+their plain-torch twins, ``traverse_wide8_ref``, ``occluded_wide8_ref`` and
+``k_nearest_wide8_ref``, for CPU tensors.  There is no other route: a CUDA
+tensor either reaches its kernel or the call raises.
 
 Semantics are tpurt's: the same slab test (``lo*inv - o*inv`` with tpurt's
 ``_safe_inv``), the same smooth-inverse Möller–Trumbore in the same op
-order, the same accept test, and the lexicographic (t, id) selection.  tpurt
+order, the same accept tests, the lexicographic (t, id) selection, and for
+k-nearest the band test, the dedup by id and the min(k-th t, t_max) cull.  tpurt
 walks (sub, 128) ray packets; both versions here walk each ray on its own
 stack.  The selection is order- and superset-invariant, so the hits are the
 same wherever a ray's own box tests are conservative.  The one exception is
@@ -19,7 +20,11 @@ walk while a tpurt packet may still find its hit through a neighbour ray.
 
 The twin is a lockstep loop over all rays with an (R, STACKV) stack tensor;
 it visits nodes, pushes and pops in exactly the kernel's order, so the two
-agree bit for bit when the kernel is built without FMA contraction.
+agree bit for bit when the kernel is built without FMA contraction.  Given a
+``stats`` dict, a twin also counts its walk (off by default), adding to what
+the dict already holds, so chunked calls accumulate: node visits, leaf rows
+tested, and the distinct nodes and rows touched (``walk_counts`` reads
+them), from which a kernel's least time on the card (its bound) is computed.
 """
 
 from __future__ import annotations
@@ -39,7 +44,11 @@ STACKV = 192
 
 # Kernel launches per wrapper since the last reset_launches(); only a real
 # CUDA launch counts.
-LAUNCHES = {"closest8": 0, "occluded8": 0}
+LAUNCHES = {"closest8": 0, "occluded8": 0, "knear8": 0}
+# Largest k of the k-nearest kernel (its compile-time list length).
+KMAX = 16
+# Empty k-list slot id (tpurt's big_id); emitted as -1.
+_BIG_ID = 2**31 - 1
 
 
 def reset_launches() -> None:
@@ -122,7 +131,7 @@ class _Walk:
     """Shared lockstep stack walk: the per-visit node decode, child slab
     tests, leaf-row gather, pushes and pops of every still-walking ray."""
 
-    def __init__(self, o, d, wide: WideBVH, t_min: float):
+    def __init__(self, o, d, wide: WideBVH, t_min: float, stats: dict | None = None):
         _check_stack(wide)
         n, dev = o.shape[0], o.device
         self.wide = wide
@@ -134,11 +143,18 @@ class _Walk:
         self.stack = torch.zeros((n, STACKV), dtype=torch.int32, device=dev)
         self.sp = torch.zeros(n, dtype=torch.int64, device=dev)
         self.cur = torch.zeros(n, dtype=torch.int64, device=dev)
+        self.stats = stats
+        if stats is not None and "visits" not in stats:
+            stats.update(
+                visits=0, rows=torch.zeros((), dtype=torch.int64, device=dev),
+                seen_nodes=torch.zeros(self.nodes.shape[0], dtype=torch.bool, device=dev),
+                seen_rows=torch.zeros(wide.tri_rows.shape[0], dtype=torch.bool,
+                                      device=dev))
 
     def visit(self, act, upper):
         """Slab-test the 8 children of each active ray's current node.
         Returns (leaf rows (A, 8*max_rows, 128), row-slot mask, push mask,
-        metas)."""
+        metas).  Slots run child by child, row by row: the kernel's order."""
         rec = self.nodes[self.cur[act]]
         meta = decode_lane_i32(self.nodes_i[self.cur[act]][:, 48:56])
         hit = _slab8(self.oi[act], self.inv[act],
@@ -148,8 +164,19 @@ class _Walk:
         slot = ((hit & (meta < 0))[..., None]
                 & (r < ((nm & 7) + 1)[..., None]))        # (A, 8, max_rows)
         ridx = torch.where(slot, (nm >> 3)[..., None] + r, 0).flatten(1)
+        if self.stats is not None:
+            self.stats["visits"] += act.numel()
+            self.stats["seen_nodes"][self.cur[act]] = True
+            self.ridx = ridx
         return (self.wide.tri_rows[ridx], slot.flatten(1),
                 hit & (meta >= 0), meta)
+
+    def count_rows(self, tested):
+        """Count the last visit's leaf rows that the kernel tests, a mask
+        over its slots (A, 8*max_rows)."""
+        if self.stats is not None:
+            self.stats["rows"] += tested.sum()
+            self.stats["seen_rows"][self.ridx[tested]] = True
 
     def push_pop(self, act, push, meta):
         """Push passing internal children in entry order (LIFO), then pop
@@ -168,12 +195,12 @@ class _Walk:
 
 
 def traverse_wide8_ref(rays: Rays, wide: WideBVH, t_min: float = DEFAULT_T_MIN,
-                       shade_out: bool = False):
+                       shade_out: bool = False, stats: dict | None = None):
     """Plain-torch twin of the closest-hit kernel; same returns as
-    traverse_wide8."""
+    traverse_wide8.  stats: a dict that accumulates the walk's counts."""
     o, d = rays.o.reshape(-1, 3), rays.d.reshape(-1, 3)
     n, dev = o.shape[0], o.device
-    w = _Walk(o, d, wide, t_min)
+    w = _Walk(o, d, wide, t_min, stats)
     t_b = torch.full((n,), T_MAX, dtype=torch.float32, device=dev)
     u_b = torch.zeros(n, dtype=torch.float32, device=dev)
     v_b = torch.zeros_like(u_b)
@@ -183,6 +210,7 @@ def traverse_wide8_ref(rays: Rays, wide: WideBVH, t_min: float = DEFAULT_T_MIN,
     act = torch.arange(n, device=dev)
     while act.numel():
         trow, slot, push, meta = w.visit(act, t_b[act])
+        w.count_rows(slot)
         t, u, v, det = _mt_rows(o[act], d[act], trow)
         tid = _row_ids(trow)
         ok = (slot[..., None] & (det.abs() > DET_EPS) & (u >= 0.0) & (v >= 0.0)
@@ -216,6 +244,14 @@ def traverse_wide8_ref(rays: Rays, wide: WideBVH, t_min: float = DEFAULT_T_MIN,
                       for k in range(3))
 
 
+def walk_counts(stats: dict) -> dict:
+    """A twin's walk counts as ints: node visits, leaf rows tested, distinct
+    nodes and distinct leaf rows touched."""
+    return {"visits": int(stats["visits"]), "rows": int(stats["rows"]),
+            "distinct_nodes": int(stats["seen_nodes"].sum()),
+            "distinct_rows": int(stats["seen_rows"].sum())}
+
+
 def _tmax_flat(rays: Rays, t_max) -> torch.Tensor:
     """t_max (scalar or per-ray) as a flat contiguous f32 tensor."""
     if isinstance(t_max, torch.Tensor) and t_max.device != rays.o.device:
@@ -225,12 +261,15 @@ def _tmax_flat(rays: Rays, t_max) -> torch.Tensor:
 
 
 def occluded_wide8_ref(rays: Rays, wide: WideBVH, t_max,
-                       t_min: float = DEFAULT_T_MIN) -> torch.Tensor:
+                       t_min: float = DEFAULT_T_MIN,
+                       stats: dict | None = None) -> torch.Tensor:
     """Plain-torch twin of the any-hit kernel: True where a triangle lies at
-    t_min < t < t_max.  Rays with t_max <= t_min start dead."""
+    t_min < t < t_max.  Rays with t_max <= t_min start dead.  stats: a dict
+    that accumulates the walk's counts; a blocked ray's last visit counts
+    its rows up to the first blocking one, where the kernel stops."""
     o, d = rays.o.reshape(-1, 3), rays.d.reshape(-1, 3)
     tmax = _tmax_flat(rays, t_max)
-    w = _Walk(o, d, wide, t_min)
+    w = _Walk(o, d, wide, t_min, stats)
     blocked = torch.zeros(o.shape[0], dtype=torch.bool, device=o.device)
     act = torch.nonzero(tmax > t_min)[:, 0]
     while act.numel():
@@ -240,11 +279,66 @@ def occluded_wide8_ref(rays: Rays, wide: WideBVH, t_max,
         ok = (slot[..., None] & (det.abs() > DET_EPS) & (u >= 0.0) & (v >= 0.0)
               & (u + v <= 1.0) & (t > t_min) & (t < tmax[act, None, None])
               & (tid >= 0))
-        hit = ok.flatten(1).any(dim=1)
+        row_hit = ok.any(dim=-1)                     # (A, 8*max_rows)
+        w.count_rows(slot & (row_hit.cumsum(dim=1) - row_hit.long() == 0))
+        hit = row_hit.any(dim=1)
         blocked[act[hit]] = True
         act = w.push_pop(act, push, meta)
         act = act[~blocked[act]]
     return blocked.reshape(rays.shape)
+
+
+def _lexsort(t, ids):
+    """Sort each row by (t, id): a stable sort by id, then one by t."""
+    ids, p = torch.sort(ids, dim=1, stable=True)
+    t, q = torch.sort(t.gather(1, p), dim=1, stable=True)
+    return t, ids.gather(1, q)
+
+
+def _merge_k(ts, ids, ct, ci, k: int):
+    """The k smallest distinct (t, id) of a sorted list and a visit's
+    candidates (non-candidates are (T_MAX, _BIG_ID)).  Copies of one triangle
+    carry the same t, so after the sort they are neighbours."""
+    t, i = _lexsort(torch.cat([ts, ct], dim=1), torch.cat([ids, ci], dim=1))
+    dup = torch.zeros_like(i, dtype=torch.bool)
+    dup[:, 1:] = (i[:, 1:] == i[:, :-1]) & (i[:, 1:] != _BIG_ID)
+    t, i = _lexsort(torch.where(dup, T_MAX, t), torch.where(dup, _BIG_ID, i))
+    return t[:, :k], i[:, :k]
+
+
+def k_nearest_wide8_ref(rays: Rays, wide: WideBVH, k: int, band: float,
+                        t_min: float = DEFAULT_T_MIN, t_max=T_MAX,
+                        stats: dict | None = None) -> torch.Tensor:
+    """Plain-torch twin of the k-nearest kernel; same returns as
+    k_nearest_wide8.  A visit's candidates merge into the k-list at once
+    (dedup, sort by (t, id), keep k), which equals the kernel's one-by-one
+    insertion: a node is culled only when it cannot hold a final candidate,
+    so insertion order does not change the result.  stats: a dict that
+    accumulates the walk's counts."""
+    o, d = rays.o.reshape(-1, 3), rays.d.reshape(-1, 3)
+    n, dev = o.shape[0], o.device
+    tmax = _tmax_flat(rays, t_max)
+    w = _Walk(o, d, wide, t_min, stats)
+    ts = torch.full((n, k), T_MAX, dtype=torch.float32, device=dev)
+    ids = torch.full((n, k), _BIG_ID, dtype=torch.int32, device=dev)
+    act = torch.nonzero(tmax > t_min)[:, 0]  # an empty window starts dead
+    while act.numel():
+        trow, slot, push, meta = w.visit(act, torch.minimum(ts[act, k - 1], tmax[act]))
+        w.count_rows(slot)
+        t, u, v, det = _mt_rows(o[act], d[act], trow)
+        tid = _row_ids(trow)
+        ok = (slot[..., None] & (det.abs() > DET_EPS) & (u >= -band) & (v >= -band)
+              & (u + v <= 1.0 + band) & (t > t_min) & (t < tmax[act, None, None])
+              & (tid >= 0))
+        ok, t, tid = ok.flatten(1), t.flatten(1), tid.flatten(1)
+        has = ok.any(dim=1)
+        if bool(has.any()):
+            sel, ok = act[has], ok[has]
+            ts[sel], ids[sel] = _merge_k(
+                ts[sel], ids[sel], torch.where(ok, t[has], T_MAX),
+                torch.where(ok, tid[has], _BIG_ID), k)
+        act = w.push_pop(act, push, meta)
+    return torch.where(ids == _BIG_ID, -1, ids)
 
 
 # ---------------------------------------------------------------------------
@@ -334,3 +428,32 @@ def occluded_wide8(rays: Rays, wide: WideBVH, t_max,
         raise RuntimeError(f"occluded8 kernel launch failed: {_build.error_string(err)}")
     LAUNCHES["occluded8"] += 1
     return blk.bool().reshape(rays.shape)
+
+
+def k_nearest_wide8(rays: Rays, wide: WideBVH, k: int, band: float,
+                    t_min: float = DEFAULT_T_MIN, t_max=T_MAX) -> torch.Tensor:
+    """The k nearest extended (band) hits per ray -> (N, k) int32 triangle
+    ids over the flattened rays, sorted by (t, id), deduplicated, -1 padded.
+    Accept test: |det| > 1e-12, u, v >= -band, u + v <= 1 + band,
+    t_min < t < t_max; t_max is a scalar or per ray, and rays with
+    t_max <= t_min start dead.  Node boxes are culled against
+    min(k-th t, t_max).  1 <= k <= KMAX."""
+    if not 1 <= k <= KMAX:
+        raise ValueError(f"k = {k} outside [1, {KMAX}]")
+    o, d = _check_inputs(rays, wide)
+    if o.device.type == "cpu":
+        return k_nearest_wide8_ref(rays, wide, k, band, t_min, t_max)
+    tmax = _tmax_flat(rays, t_max)
+    _check_stack(wide)
+    lib = _build.load()
+    n = o.shape[0]
+    ids = torch.empty((n, k), dtype=torch.int32, device=o.device)
+    err = lib.tpurt_knear8(
+        _ptr(wide.wrow), _ptr(wide.tri_rows), _ptr(o), _ptr(d), _ptr(tmax), n,
+        wide.max_rows, ctypes.c_float(t_min), k, ctypes.c_float(-band),
+        ctypes.c_float(1.0 + band), _ptr(ids),
+        ctypes.c_void_p(torch.cuda.current_stream(o.device).cuda_stream))
+    if err:
+        raise RuntimeError(f"knear8 kernel launch failed: {_build.error_string(err)}")
+    LAUNCHES["knear8"] += 1
+    return ids

@@ -44,11 +44,11 @@ def _dup_code_tris():
 def _scene_pair(name):
     if name == "dup_codes":
         v, f = _dup_code_tris()
-        return JTriangles.create(v, f), Triangles.create(v, f)
+        return JTriangles.create(v, f), Triangles.create(v, f, device="cpu")
     fn, kw = {"cornell": ("make_cornell_box", {}),
               "bunny3k": ("make_bunny_scene", {"num_tris": 3000}),
               "sponza20k": ("make_sponza_scene", {"num_tris": 20_000})}[name]
-    return getattr(jscene, fn)(**kw)[0].tris, getattr(tscene, fn)(**kw)[0].tris
+    return getattr(jscene, fn)(**kw)[0].tris, getattr(tscene, fn)(**kw, device="cpu")[0].tris
 
 
 @pytest.fixture(scope="module", params=["cornell", "bunny3k", "sponza20k", "dup_codes"])
@@ -103,7 +103,7 @@ def test_port_build_wide_from_tpurt_lbvh(built):
     build)."""
     _, jt, tt, jb, _ = built
     tb = bvh_from_numpy(**{f: np.asarray(getattr(jb, f)) for f in BVH_FIELDS},
-                        band=jb.band)
+                        band=jb.band, device="cpu")
     jw, tw = j_build_wide(jt, jb, fat_tris=8), build_wide(tt, tb, fat_tris=8)
     for field in WIDE_FIELDS:
         _assert_bitwise(field, getattr(jw, field), getattr(tw, field))

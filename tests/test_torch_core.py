@@ -25,7 +25,7 @@ SCENES = {
 
 def _both(name):
     fn, kw = SCENES[name]
-    return getattr(jscene, fn)(**kw), getattr(tscene, fn)(**kw)
+    return getattr(jscene, fn)(**kw), getattr(tscene, fn)(**kw, device="cpu")
 
 
 def _bits(x):
@@ -50,7 +50,7 @@ def test_scene_bitwise(name):
 
 
 def test_get_scene_names():
-    s, c = tscene.get_scene("cornell")
+    s, c = tscene.get_scene("cornell", device="cpu")
     assert s.num_tris == 30 and c.width == 256
     with pytest.raises(ValueError):
         tscene.get_scene("no-such-scene")
@@ -92,13 +92,14 @@ def test_convert_round_trip():
         albedo=np.asarray(js.tris.albedo), emission=np.asarray(js.tris.emission),
         light_pos=np.asarray(js.lights.pos),
         light_intensity=np.asarray(js.lights.intensity),
-        background=np.asarray(js.background), ambient=np.asarray(js.ambient))
-    ts, tc = tscene.make_cornell_box()
+        background=np.asarray(js.background), ambient=np.asarray(js.ambient),
+        device="cpu")
+    ts, tc = tscene.make_cornell_box(device="cpu")
     for a, b in ((s.tris.verts, ts.tris.verts), (s.tris.faces, ts.tris.faces),
                  (s.tris.albedo, ts.tris.albedo), (s.lights.pos, ts.lights.pos),
                  (s.background, ts.background)):
         assert np.array_equal(a.numpy(), b.numpy())
     c = camera_from_numpy(eye=np.asarray(jc.eye), target=np.asarray(jc.target),
                           up=np.asarray(jc.up), fov_y_deg=np.asarray(jc.fov_y_deg),
-                          width=jc.width, height=jc.height)
+                          width=jc.width, height=jc.height, device="cpu")
     assert np.array_equal(gen_primary_rays(c).d.numpy(), gen_primary_rays(tc).d.numpy())
