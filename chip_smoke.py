@@ -1,11 +1,14 @@
 """Smoke run of tpurt_torch on one NVIDIA GPU: the hard render and the fit
-step of the 1M-triangle sponza scene through the hand-written CUDA kernels.
+step of the 1M-triangle sponza scene through the hand-written BVH8 CUDA
+kernels, and of the 70K-triangle bunny at 512x512 through the binary-BVH
+kernels.
 
     python3 chip_smoke.py
 
 Phases, one line each (any failure exits non-zero and prints no result):
   device   torch.cuda must be available; the card's name and power limit.
-  build    nvcc builds the CUDA kernels from src/tpurt_torch/kernels/csrc.
+  build    nvcc builds the CUDA kernels from src/tpurt_torch/kernels/csrc,
+           one process per source; each kernel's registers and spills.
   scene    the 1M-triangle sponza scene at 1920x1088: scene, LBVH, collapse
            and pack seconds (band 0, the hard render's tree).
   parity   closest8 and occluded8 against their plain-torch twins on the
@@ -47,6 +50,39 @@ Phases, one line each (any failure exits non-zero and prints no result):
            torch.profiler over one fit step: the device-time shares of
            knear8, the backward (index_add_/scatter kernels and the rest),
            the refit and the forward glue; the device's idle share.
+The binary-BVH engine (method="binary": closest_bin, occluded_bin and
+knear_bin over the packed threaded tree):
+  scene_bin
+           LBVH (with its DFS thread) and pack seconds, node and row bytes,
+           bound against live leaves: the 1M sponza's hard tree, the bunny's
+           (70K triangles, 512x512) hard and band-0.08 trees.
+  bin_parity
+           each kernel against its twin on every ray: closest_bin and
+           occluded_bin on the Morton-ordered frame and its shadow rays (the
+           1M main view, the first 262,144 rays of the 1M overview, the
+           bunny), knear_bin on the bunny as
+           the soft render calls it (k = 4 on the primary rays, k = 8 on the
+           layer-0 shadow candidates, t_max = 2 x the segment); mismatch
+           fraction, max |t, u, v - twin's|, kernel and twin ms.
+  bound_bin
+           each kernel's least time on the card from its twin's walk counts
+           (the bunny frame, the 1M main view).
+  render_bin
+           render(method="binary") of the bunny's 512x512 hard frame, with
+           the launch counts of that run, against the wide8 image; the
+           goldens through "binary".
+  timing_bin
+           per-kernel and frame milliseconds (CUDA events) and rays/s of the
+           binary hard frame, bunny and 1M main view (closest8 and occluded8
+           beside the latter).
+  profile_bin
+           as profile, for the bunny's binary hard frame.
+  fit_bin  InverseRenderer.fit with method="binary": 3 Adam steps on the
+           bunny at 512x512 in one 262,144-ray chunk, the refit in the step;
+           step seconds, fwd+bwd rays/s, losses, gradient norms, peak
+           memory, knear_bin launches.
+  profile_fit_bin
+           as profile_fit, for one binary fit step on the bunny.
 Then the kernels' JSON line and, last, {"ok": true, "device": {...}}.
 """
 
@@ -55,6 +91,7 @@ from __future__ import annotations
 import dataclasses
 import json
 import os
+import re
 import subprocess
 import sys
 import time
@@ -68,12 +105,14 @@ import torch  # noqa: E402
 from tpurt_torch.accel.bvh8 import (  # noqa: E402
     collapse_wide, pack_wide, refit_wide_direct, tri_rows_bytes, wide_bytes)
 from tpurt_torch.accel.lbvh import build_lbvh  # noqa: E402
+from tpurt_torch.accel.packet import max_cut_leaves, pack_bvh  # noqa: E402
 from tpurt_torch.api.config import FitConfig, RenderConfig  # noqa: E402
 from tpurt_torch.api.inverse import InverseRenderer  # noqa: E402
 from tpurt_torch.core.geometry import T_MAX, Camera, Hit, PointLight, Rays  # noqa: E402
 from tpurt_torch.core.scene import (  # noqa: E402
     make_bunny_scene, make_cornell_box, make_sponza_scene)
 from tpurt_torch.kernels import _build  # noqa: E402
+from tpurt_torch.kernels import traverse as kb  # noqa: E402
 from tpurt_torch.kernels import traverse8 as k8  # noqa: E402
 from tpurt_torch.render.camera import gen_primary_rays, pixel_morton_perm  # noqa: E402
 from tpurt_torch.diff.fdcheck import check_grads_fd  # noqa: E402
@@ -96,6 +135,7 @@ MAX_MISMATCH_FRAC = 1e-4
 # the same order, so they are bit-identical.
 MAX_ABS_ERR = 0.0
 KERNEL_SRC = "src/tpurt_torch/kernels/csrc/traverse8.cu"
+BIN_SRC = "src/tpurt_torch/kernels/csrc/traverse.cu"
 # The 1M scene's own camera faces a clutter box ~0.15 units away (every ray
 # hits it and every shadow ray is blocked), so the parity check also runs on
 # a view over the courtyard, which exercises deep walks, misses and lit
@@ -103,7 +143,20 @@ KERNEL_SRC = "src/tpurt_torch/kernels/csrc/traverse8.cu"
 OVERVIEW_EYE, OVERVIEW_TARGET = (0.0, 22.0, 26.0), (0.0, 1.5, 0.0)
 REPLACES = {"closest8": "src/tpurt/kernels/traverse8.py:425",
             "occluded8": "src/tpurt/kernels/traverse8.py:653",
-            "knear8": "src/tpurt/kernels/traverse8.py:775"}
+            "knear8": "src/tpurt/kernels/traverse8.py:775",
+            "closest_bin": "src/tpurt/kernels/traverse.py:342",
+            "occluded_bin": "src/tpurt/kernels/traverse.py:446",
+            "knear_bin": "src/tpurt/kernels/traverse.py:540"}
+# The binary engine's configuration: BASELINE config 2, tpurt's bench.py
+# "2-bunny" (make_bunny_scene's 70K-triangle default at 512x512).
+BUNNY_RES = 512
+# The binary fit step: bench.py's 2-bunny fwd_bwd, the whole frame in one
+# chunk of 262,144 rays.
+BIN_FIT_STEPS, BIN_FIT_CHUNKS = 3, 1
+# Parity of the binary kernels on the 1M overview covers its first this
+# many Morton-ordered rays: their twins walk ~550 binary nodes a ray, and
+# the whole overview frame would add ~25 s to the script.
+BIN_OVERVIEW_RAYS = 262_144
 # The soft path's settings (bench.py's fwd_bwd row): layers, edge sharpness,
 # barycentric band, candidate occluders per (point, light).
 SOFT = dict(soft=True, k_layers=4, sharpness=40.0, band=0.08, k_occ=8)
@@ -133,7 +186,43 @@ PEAK_F32_FLOPS, PEAK_BYTES_S = 67e12, 3.35e12
 # 6 sub, 6 min/max per axis pair, 3 max, 3 min and a compare; a
 # Möller–Trumbore test is 47 adds, multiplies and one division.
 SLAB_OPS, MT_OPS = 25, 47
-NODE_BYTES, ROW_BYTES = 256, 512
+# Bytes a walk reads once per distinct node and leaf row, and slab tests per
+# node visit: a BVH8 node record and triangle row; a binary node (node_f32
+# and node_i32 rows) and leaf (72 floats of its row and its 8 ids).
+WIDE = dict(node_bytes=256, row_bytes=512, slabs=8)
+BIN = dict(node_bytes=48, row_bytes=320, slabs=1)
+
+
+KERNEL_NAMES = ("closest8_kernel", "occluded8_kernel", "knear8_kernel",
+                "closest_bin_kernel", "occluded_bin_kernel", "knear_bin_kernel")
+# Each kernel engine's hard-frame kernels (closest hit, any hit) and its
+# closest-hit call as render_rays makes it.
+HARD_KERNELS = {
+    "wide8": (("closest8", "occluded8"),
+              lambda rays, tr: k8.traverse_wide8(rays, tr.wide, shade_out=True)),
+    "binary": (("closest_bin", "occluded_bin"),
+               lambda rays, tr: kb.traverse_packed(rays, tr.packed))}
+
+
+def ptxas_report(log_path: str) -> dict:
+    """Each kernel instance's registers and spill-store bytes, from the
+    build's ptxas -v report."""
+    out, cur = {}, None
+    with open(log_path) as f:
+        for line in f:
+            m = re.search(r"Function properties for (\S+)", line)
+            if m:
+                name = next((k for k in KERNEL_NAMES if k in m.group(1)), None)
+                tmpl = re.search(r"kernelIL[ib](\d+)E", m.group(1))
+                cur = None if name is None else name + (f"<{tmpl.group(1)}>" if tmpl else "")
+                continue
+            m = re.search(r"(\d+) bytes spill stores", line)
+            if m and cur:
+                out.setdefault(cur, {})["spill_bytes"] = int(m.group(1))
+            m = re.search(r"Used (\d+) registers", line)
+            if m and cur:
+                out.setdefault(cur, {})["registers"] = int(m.group(1))
+    return out
 
 
 def fail(msg: str) -> None:
@@ -182,6 +271,24 @@ def golden_check(img: torch.Tensor, name: str, frac: float, atol: float = 2e-3):
     if bad > frac:
         fail(f"{name}: {bad:.5f} of pixels differ (> {frac})")
     return bad
+
+
+def goldens(dev, method: str) -> dict:
+    """Cornell 64^2, bunny-3K 48^2 and cornell soft 48^2 rendered on the card
+    through `method`, against tpurt's reference images at its engine
+    threshold: the fraction of pixels off in each."""
+    sc, cm = make_cornell_box(device=dev)
+    sb, cb = make_bunny_scene(num_tris=3000, device=dev)
+
+    def at(cam, res):
+        return dataclasses.replace(cam, width=res, height=res)
+
+    return {f"cornell_{method}_bad": golden_check(
+                render(sc, at(cm, 64), method=method), "cornell_brute_64.npy", 0.003),
+            f"bunny3k_{method}_bad": golden_check(
+                render(sb, at(cb, 48), method=method), "bunny3k_packet_48.npy", 0.003),
+            f"cornell_soft_{method}_bad": golden_check(
+                render(sc, at(cm, 48), method=method, **SOFT), "cornell_soft_48.npy", 0.003)}
 
 
 def morton_rays(cam: Camera) -> Rays:
@@ -301,16 +408,19 @@ def frame_timing(tracer: Tracer, frame: Rays, par: dict) -> dict:
           closest8_ms=f"{ms['closest8']:.4f}", occluded8_ms=f"{ms['occluded8']:.4f}",
           shading_ms_derived=f"{total - ms['closest8'] - ms['occluded8']:.4f}",
           frame_ms=f"{total:.4f}", rays_per_s=f"{n / (total * 1e-3):.1f}")
-    return ms
+    return dict(ms, frame=total)
 
 
 def device_spans(prof):
     """A profile's device kernels: (events, busy, window, total) in µs, where
     busy is the union of their intervals, window runs from the first one's
-    start to the last one's end and total sums their durations."""
+    start to the last one's end and total sums their durations.  The
+    device-side copies of record_function ranges are not kernels: each spans
+    its range's kernels and the gaps between them."""
     from torch.autograd import DeviceType
 
-    events = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
+    events = [e for e in prof.events()
+              if e.device_type == DeviceType.CUDA and not e.is_user_annotation]
     spans = sorted((e.time_range.start, e.time_range.end) for e in events)
     if not spans:
         return events, 0.0, 0.0, 0.0
@@ -321,14 +431,17 @@ def device_spans(prof):
     return events, busy, end - spans[0][0], sum(e - s for s, e in spans)
 
 
-def profile_frame(tracer: Tracer, cam: Camera, frame: Rays, frames: int = 5) -> None:
+def profile_frame(tracer: Tracer, cam: Camera, frame: Rays, frames: int = 5,
+                  name: str = "profile") -> None:
     """Where a hard frame's device time goes (torch.profiler over `frames`
-    back-to-back render_rays calls): each kernel's share of device time,
-    the torch glue's share, and the idle share of the device window (first
-    device event's start to the last one's end).  Also closest8 on the
-    frame's rays in row-major order against Morton order."""
+    back-to-back render_rays calls): the engine's two kernels' shares of
+    device time, the torch glue's share, and the idle share of the device
+    window (first device event's start to the last one's end).  Also the
+    closest-hit kernel on the frame's rays in row-major order against Morton
+    order."""
     from torch.profiler import ProfilerActivity, profile
 
+    (closest, occluded), run = HARD_KERNELS[tracer.method]
     render_rays(tracer, frame)
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
@@ -337,21 +450,19 @@ def profile_frame(tracer: Tracer, cam: Camera, frame: Rays, frames: int = 5) -> 
         torch.cuda.synchronize()
     dev_events, busy, window, total = device_spans(prof)
     row_major = gen_primary_rays(cam)
-    rm_ms = cuda_ms(lambda: k8.traverse_wide8(row_major, tracer.wide, shade_out=True))
-    mo_ms = cuda_ms(lambda: k8.traverse_wide8(frame, tracer.wide, shade_out=True))
+    order = {f"{closest}_morton_ms": f"{cuda_ms(lambda: run(frame, tracer)):.4f}",
+             f"{closest}_row_major_ms": f"{cuda_ms(lambda: run(row_major, tracer)):.4f}"}
     if not dev_events:
-        phase("profile", device_time="not measured (the profiler saw no device event)",
-              closest8_morton_ms=f"{mo_ms:.4f}", closest8_row_major_ms=f"{rm_ms:.4f}")
+        phase(name, device_time="not measured (the profiler saw no device event)", **order)
         return
-    share = {name: sum(e.time_range.end - e.time_range.start for e in dev_events
-                       if f"{name}_kernel" in e.name)
-             for name in ("closest8", "occluded8")}
+    share = {k: sum(e.time_range.end - e.time_range.start for e in dev_events
+                    if f"{k}_kernel" in e.name)
+             for k in (closest, occluded)}
     glue = total - sum(share.values())
-    phase("profile", frames=frames, device_window_ms=f"{window / 1e3 / frames:.4f}",
+    phase(name, frames=frames, device_window_ms=f"{window / 1e3 / frames:.4f}",
           device_busy_ms=f"{busy / 1e3 / frames:.4f}", idle_share=f"{1 - busy / window:.4f}",
           **{f"{k}_share": f"{v / total:.4f}" for k, v in share.items()},
-          glue_share=f"{glue / total:.4f}",
-          closest8_morton_ms=f"{mo_ms:.4f}", closest8_row_major_ms=f"{rm_ms:.4f}")
+          glue_share=f"{glue / total:.4f}", **order)
 
 
 def counted(twin, n: int) -> dict:
@@ -363,72 +474,96 @@ def counted(twin, n: int) -> dict:
     return k8.walk_counts(stats)
 
 
-def bound(counts: dict, n_rays: int, in_bytes: int, out_bytes: int) -> dict:
+def bound(counts: dict, n_rays: int, in_bytes: int, out_bytes: int,
+          layout: dict = WIDE) -> dict:
     """The least time the card could take for a walk kernel's work on this
     run's data: the larger of its bytes over PEAK_BYTES_S (each ray's inputs
-    read and outputs written once, each distinct node record and leaf row
-    the walks touch read once) and its operations over PEAK_F32_FLOPS (8
-    slab tests per node visit, 8 Möller–Trumbore tests per leaf row), from
-    the twin's walk counts (the twins walk in the kernels' order)."""
-    nbytes = (n_rays * (in_bytes + out_bytes) + NODE_BYTES * counts["distinct_nodes"]
-              + ROW_BYTES * counts["distinct_rows"])
-    ops = 8 * SLAB_OPS * counts["visits"] + 8 * MT_OPS * counts["rows"]
+    read and outputs written once, each distinct node and leaf row the walks
+    touch read once) and its operations over PEAK_F32_FLOPS (layout's slab
+    tests per node visit, 8 Möller–Trumbore tests per leaf row), from the
+    twin's walk counts (the twins walk in the kernels' order)."""
+    nbytes = (n_rays * (in_bytes + out_bytes)
+              + layout["node_bytes"] * counts["distinct_nodes"]
+              + layout["row_bytes"] * counts["distinct_rows"])
+    ops = layout["slabs"] * SLAB_OPS * counts["visits"] + 8 * MT_OPS * counts["rows"]
     t_bytes, t_ops = nbytes / PEAK_BYTES_S * 1e3, ops / PEAK_F32_FLOPS * 1e3
     return dict(counts, bytes=nbytes, ops=ops, bound_ms=max(t_bytes, t_ops),
                 bound_by="bytes" if t_bytes >= t_ops else "operations")
 
 
+def wide8_knear(wide):
+    """knear8 and its twin over `wide`, as (kernel(rays, k, t_max),
+    twin(rays, k, t_max, stats))."""
+    return (lambda r, k, tm: k8.k_nearest_wide8(r, wide, k, BAND, t_max=tm),
+            lambda r, k, tm, stats=None: k8.k_nearest_wide8_ref(r, wide, k, BAND, t_max=tm,
+                                                                stats=stats))
+
+
+def bin_knear(packed):
+    """knear_bin and its twin over `packed`, as wide8_knear's pair."""
+    return (lambda r, k, tm: kb.k_nearest_ids_packed(r, packed, k, BAND, t_max=tm),
+            lambda r, k, tm, stats=None: kb.k_nearest_ids_packed_ref(r, packed, k, BAND,
+                                                                     t_max=tm, stats=stats))
+
+
 @torch.no_grad()
-def knear_call(out: dict, view: str, call: str, wide, rays: Rays, k: int, t_max,
-               count: bool) -> torch.Tensor:
-    """knear8 against its twin on every ray of `rays`: the twin in
-    PARITY_CHUNK chunks, timed as plain_ms, the kernel's ms by CUDA events,
-    and with `count` the bound from the twin's walk counts; stored in
-    out[key][call].  Fails on more than MAX_MISMATCH_FRAC of rays with
-    differing id lists.  Returns the twin's ids."""
+def knear_call(out: dict, view: str, call: str, walks, rays: Rays, k: int, t_max,
+               count: bool, name: str = "knear_parity", kernel: str = "knear8",
+               layout: dict = WIDE) -> torch.Tensor:
+    """A k-nearest kernel against its twin (walks = (kernel, twin)) on every
+    ray of `rays`: the twin in PARITY_CHUNK chunks, timed as plain_ms, the
+    kernel's ms by CUDA events, and with `count` the bound from the twin's
+    walk counts; stored in out[key][call].  Fails on more than
+    MAX_MISMATCH_FRAC of rays with differing id lists.  Returns the twin's
+    ids."""
+    run, twin_fn = walks
     n_r = rays.o.shape[0]
     tm = torch.as_tensor(t_max, dtype=torch.float32, device=rays.o.device)
     tm = tm.expand(n_r).contiguous()
 
     def twin(lo: int, hi: int, stats=None):
-        return (k8.k_nearest_wide8_ref(rays_slice(rays, slice(lo, hi)), wide, k, BAND,
-                                       t_max=tm[lo:hi], stats=stats),)
+        return (twin_fn(rays_slice(rays, slice(lo, hi)), k, tm[lo:hi], stats),)
 
-    got = k8.k_nearest_wide8(rays, wide, k, BAND, t_max=tm)
+    got = run(rays, k, tm)
     (ref,), plain = chunked(twin, n_r)
     bad = int((got != ref).any(dim=1).sum())
-    ms = cuda_ms(lambda: k8.k_nearest_wide8(rays, wide, k, BAND, t_max=tm), iters=5)
+    ms = cuda_ms(lambda: run(rays, k, tm), iters=5)
     out["ms"][call], out["plain_ms"][call] = ms, plain
     out["mismatch_frac"][call] = bad / n_r
     extra = {}
     if count:
-        extra = out["bound"][call] = bound(counted(twin, n_r), n_r, 28, 4 * k)
-    phase("knear_parity", view=view, call=call, k=k, rays=n_r,
+        extra = out["bound"][call] = bound(counted(twin, n_r), n_r, 28, 4 * k, layout)
+    phase(name, view=view, call=call, k=k, rays=n_r,
           id_list_mismatches=bad, filled_frac=f"{float((ref >= 0).float().mean()):.4f}",
-          knear8_ms=f"{ms:.4f}", knear8_plain_ms=f"{plain:.1f}", **extra)
+          **{f"{kernel}_ms": f"{ms:.4f}", f"{kernel}_plain_ms": f"{plain:.1f}"}, **extra)
     if bad > MAX_MISMATCH_FRAC * n_r:
-        fail(f"knear8 ({view}, {call}): {bad} id lists differ from the twin's")
+        fail(f"{kernel} ({view}, {call}): {bad} id lists differ from the twin's")
     return ref
 
 
 def occluder_call(table, scene, rays: Rays, ids: torch.Tensor):
-    """The soft render's second knear8 call from a chunk's layer ids: the
+    """The soft render's second k-nearest call from a chunk's layer ids: the
     shadow-candidate rays from layer 0's points and the pipeline's
     2 x segment t_max."""
     _, _, cand, t_seg = occluder_rays(soft_surface(table, rays, ids), scene.lights.pos)
     return cand, (2.0 * t_seg).contiguous()
 
 
-def knear_parity(view: str, tracer: Tracer, frame: Rays, count: bool = False) -> dict:
-    """knear8 against its twin on every ray of the frame, in both of the
-    soft render's calls: k = 4 on the primary rays with t_max = T_MAX, and
-    k = 8 on the shadow-candidate rays from layer 0's points."""
+def knear_parity(view: str, tracer: Tracer, frame: Rays, count: bool = False,
+                 name: str = "knear_parity", kernel: str = "knear8") -> dict:
+    """The tracer's k-nearest kernel (knear8 for wide8, knear_bin for
+    binary) against its twin on every ray of the frame, in both of the soft
+    render's calls: k = 4 on the primary rays with t_max = T_MAX, and k = 8
+    on the shadow-candidate rays from layer 0's points."""
+    walks, layout = ((bin_knear(tracer.packed), BIN) if tracer.method == "binary"
+                     else (wide8_knear(tracer.wide), WIDE))
     out = {"ms": {}, "plain_ms": {}, "mismatch_frac": {}, "bound": {}}
+    kw = dict(name=name, kernel=kernel, layout=layout)
     with torch.no_grad():
-        ids = knear_call(out, view, "layers", tracer.wide, frame, SOFT["k_layers"], T_MAX,
-                         count)
+        ids = knear_call(out, view, "layers", walks, frame, SOFT["k_layers"], T_MAX, count,
+                         **kw)
         cand, tm = occluder_call(tracer.table, tracer.scene, frame, ids)
-        knear_call(out, view, "occluders", tracer.wide, cand, SOFT["k_occ"], tm, count)
+        knear_call(out, view, "occluders", walks, cand, SOFT["k_occ"], tm, count, **kw)
     return out
 
 
@@ -448,9 +583,10 @@ def fit_knear(inv: InverseRenderer, scene, cam: Camera) -> dict:
     out = {"ms": {}, "plain_ms": {}, "mismatch_frac": {}, "bound": {},
            "frame_ms": {"layers": 0.0, "occluders": 0.0}}
     chunk = rays_slice(rays, slice(0, m))
-    ids = knear_call(out, "fit_chunk0", "layers", wide, chunk, SOFT["k_layers"], T_MAX, True)
+    walks = wide8_knear(wide)
+    ids = knear_call(out, "fit_chunk0", "layers", walks, chunk, SOFT["k_layers"], T_MAX, True)
     cand, tm = occluder_call(table, scene, chunk, ids)
-    knear_call(out, "fit_chunk0", "occluders", wide, cand, SOFT["k_occ"], tm, True)
+    knear_call(out, "fit_chunk0", "occluders", walks, cand, SOFT["k_occ"], tm, True)
     for c in range(FIT_CHUNKS):
         chunk = rays_slice(rays, slice(c * m, (c + 1) * m))
         ids = k8.k_nearest_wide8(chunk, wide, SOFT["k_layers"], BAND)
@@ -467,11 +603,151 @@ def fit_knear(inv: InverseRenderer, scene, cam: Camera) -> dict:
     return out
 
 
-def fit_phase(scene, cam: Camera) -> dict:
-    """The fit step, through InverseRenderer.fit, with its launch counts."""
-    rcfg = RenderConfig(method="wide8", **SOFT)
+# ---------------------------------------------------------------------------
+# The binary-BVH engine
+# ---------------------------------------------------------------------------
+def bin_tracer(view: str, scene, band: float = 0.0) -> Tracer:
+    """The binary engine's tracer, built stage by stage as make_tracer
+    builds it ([scene_bin]): the LBVH with its DFS thread, then the packed
+    layout with rows for the bound max_cut_leaves."""
+    bvh, s_lbvh = sync_time(lambda: build_lbvh(scene.tris, band=band))
+    bound_leaves = max_cut_leaves(scene.num_tris, bvh.leaf_size)
+    packed, s_pack = sync_time(lambda: pack_bvh(scene.tris, bvh, bound_leaves))
+    phase("scene_bin", view=view, band=band, tris=scene.num_tris, lbvh_s=f"{s_lbvh:.3f}",
+          pack_s=f"{s_pack:.3f}", nodes=packed.num_nodes,
+          node_bytes=packed.node_f32.nbytes + packed.node_i32.nbytes,
+          leaf_rows=packed.num_leaves, tri_rows_bytes=packed.tri_rows.nbytes,
+          tri_ids_bytes=packed.tri_ids.nbytes, bound_leaves=bound_leaves,
+          live_leaves=int(bvh.flat_is_leaf.sum()))
+    return Tracer(scene=scene, bvh=bvh, packed=packed, table=tri_table(scene.tris),
+                  method="binary")
+
+
+def bin_parity(view: str, tracer: Tracer, frame: Rays, count: bool = False,
+               of_rays: int | None = None) -> dict:
+    """closest_bin and occluded_bin against their twins on every ray of the
+    Morton-ordered frame and on the shadow rays built from its hits as
+    _shade_layer builds them (surface from the table); the twins in
+    PARITY_CHUNK chunks, timed as plain_ms.  Fails on more than
+    MAX_MISMATCH_FRAC of ids or blocked flags differing, or on any t, u, v of
+    an agreeing ray off by more than MAX_ABS_ERR.  count: the twins' walk
+    counts and the kernels' bounds ([bound_bin]).  of_rays: the size of the
+    frame that `frame` is the first part of, printed beside it."""
+    packed, n = tracer.packed, frame.o.shape[0]
+    hk = kb.traverse_packed(frame, packed)
+
+    def closest_twin(lo: int, hi: int, stats=None):
+        h = kb.traverse_packed_ref(rays_slice(frame, slice(lo, hi)), packed, stats=stats)
+        return (h.t, h.u, h.v, h.tri)
+
+    ref, plain_c = chunked(closest_twin, n)
+    hr = Hit(t=ref[0], u=ref[1], v=ref[2], tri=ref[3])
+    same = hk.tri == hr.tri
+    id_bad = int((~same).sum())
+    errs = {k: max_abs(a[same], b[same]) for k, a, b in (
+        ("t", hk.t, hr.t), ("u", hk.u, hr.u), ("v", hk.v, hr.v))}
+    p, nrm, _, _ = hit_surface(tracer, frame, hr)
+    sh_rays, t_sh = shadow_rays(tracer.scene, p, nrm, hr.valid)
+    n_sh = sh_rays.o.shape[0]
+    bk = kb.occluded_packed(sh_rays, packed, t_sh)
+
+    def occluded_twin(lo: int, hi: int, stats=None):
+        return (kb.occluded_packed_ref(rays_slice(sh_rays, slice(lo, hi)), packed,
+                                       t_sh[lo:hi], stats=stats),)
+
+    (br,), plain_o = chunked(occluded_twin, n_sh)
+    blk_bad = int((bk != br).sum())
+    ms = {"closest_bin": cuda_ms(lambda: kb.traverse_packed(frame, packed)),
+          "occluded_bin": cuda_ms(lambda: kb.occluded_packed(sh_rays, packed, t_sh))}
+    part = {} if of_rays is None else {"of_rays": of_rays}
+    phase("bin_parity", view=view, rays=n, **part, shadow_rays=n_sh,
+          hit_frac=f"{float(hr.valid.float().mean()):.4f}",
+          id_mismatch_frac=id_bad / n, blocked_mismatch_frac=blk_bad / n_sh,
+          blocked_frac=f"{float(br.float().mean()):.4f}",
+          **{f"max_abs_{k}": repr(v) for k, v in errs.items()},
+          closest_bin_ms=f"{ms['closest_bin']:.4f}", closest_bin_plain_ms=f"{plain_c:.1f}",
+          occluded_bin_ms=f"{ms['occluded_bin']:.4f}", occluded_bin_plain_ms=f"{plain_o:.1f}")
+    if id_bad > MAX_MISMATCH_FRAC * n:
+        fail(f"closest_bin ({view}): {id_bad} id mismatches against its twin")
+    if blk_bad > MAX_MISMATCH_FRAC * n_sh:
+        fail(f"occluded_bin ({view}): {blk_bad} blocked-flag mismatches against its twin")
+    for k, v in errs.items():
+        if not v <= MAX_ABS_ERR:
+            fail(f"closest_bin ({view}): max |{k} - twin's| = {v!r} > {MAX_ABS_ERR}")
+    out = dict(sh_rays=sh_rays, t_sh=t_sh, ms=ms,
+               plain_ms={"closest_bin": plain_c, "occluded_bin": plain_o},
+               err={"closest_bin": max(errs.values()), "occluded_bin": float(blk_bad > 0)},
+               mismatch={"closest_bin": id_bad / n, "occluded_bin": blk_bad / n_sh})
+    if count:
+        out["bound"] = {
+            "closest_bin": bound(counted(closest_twin, n), n, 24, 16, BIN),
+            "occluded_bin": bound(counted(occluded_twin, n_sh), n_sh, 28, 1, BIN)}
+        for name, b in out["bound"].items():
+            phase("bound_bin", view=view, kernel=name, **b)
+    return out
+
+
+def bin_timing(view: str, tracer: Tracer, frame: Rays, par: dict, beside: dict | None = None):
+    """The binary hard frame: kernel ms (from [bin_parity]), the whole
+    render_rays frame by CUDA events, the glue as their difference, rays/s;
+    beside: the same frame's BVH8 numbers from [timing]."""
+    n = frame.o.shape[0]
+    total = cuda_ms(lambda: render_rays(tracer, frame))
+    ms = par["ms"]
+    extra = {} if beside is None else {
+        "closest8_ms": f"{beside['closest8']:.4f}", "occluded8_ms": f"{beside['occluded8']:.4f}",
+        "wide8_frame_ms": f"{beside['frame']:.4f}"}
+    phase("timing_bin", view=view, rays=n, shadow_rays=par["sh_rays"].o.shape[0],
+          closest_bin_ms=f"{ms['closest_bin']:.4f}", occluded_bin_ms=f"{ms['occluded_bin']:.4f}",
+          glue_ms_derived=f"{total - ms['closest_bin'] - ms['occluded_bin']:.4f}",
+          frame_ms=f"{total:.4f}", rays_per_s=f"{n / (total * 1e-3):.1f}", **extra)
+    return total
+
+
+def render_bin(scene, cam: Camera, dev, tracer: Tracer, frame: Rays) -> dict:
+    """The binary hard render through its entry point, render(method=
+    "binary"), with the launch counts of that call; its image against the
+    wide8 engine's on the same frame (tpurt's engine threshold), and the
+    goldens through "binary"."""
+    reset_launches()
+    img, s_render = sync_time(lambda: render(scene, cam, method="binary"))
+    launches = launch_counts()
+    ref = render(scene, cam, method="wide8")
+    off = float(((img - ref).abs().amax(dim=-1) > 2e-3).float().mean())
+    hit_frac = float(kb.traverse_packed(frame, tracer.packed).valid.float().mean())
+    finite = bool(torch.isfinite(img).all())
+    phase("render_bin", shape=tuple(img.shape), seconds=f"{s_render:.3f}", finite=finite,
+          hit_frac=f"{hit_frac:.4f}", vs_wide8_off_frac=f"{off:.5f}",
+          launches=json.dumps(launches), mean=f"{float(img.mean()):.5f}")
+    if tuple(img.shape) != (cam.height, cam.width, 3) or not finite:
+        fail("the binary image is not a finite (H, W, 3) array")
+    if not 0.1 < hit_frac < 1.0:
+        fail(f"binary hit fraction {hit_frac} outside (0.1, 1.0)")
+    if off > 0.003:
+        fail(f"the binary image differs from the wide8 one on {off} of pixels")
+    for name in ("closest_bin", "occluded_bin"):
+        if launches[name] <= 0:
+            fail(f"the binary render never launched {name}")
+    phase("golden_bin", **goldens(dev, "binary"))
+    return launches
+
+
+def reset_launches() -> None:
+    k8.reset_launches()
+    kb.reset_launches()
+
+
+def launch_counts() -> dict:
+    return {**k8.LAUNCHES, **kb.LAUNCHES}
+
+
+def fit_phase(scene, cam: Camera, method: str = "wide8", chunks: int = FIT_CHUNKS,
+              steps: int = FIT_STEPS, name: str = "fit", kernel: str = "knear8") -> dict:
+    """The fit step, through InverseRenderer.fit, with its launch counts:
+    `kernel` (the engine's k-nearest kernel) must run twice a chunk."""
+    rcfg = RenderConfig(method=method, **SOFT)
     inv, s_init = sync_time(lambda: InverseRenderer(
-        scene, cam, fit=FitConfig(steps=FIT_STEPS, grad_chunks=FIT_CHUNKS, lr=FIT_LR),
+        scene, cam, fit=FitConfig(steps=steps, grad_chunks=chunks, lr=FIT_LR),
         render=rcfg))
     with torch.no_grad():
         dim = dataclasses.replace(scene, tris=dataclasses.replace(
@@ -486,28 +762,28 @@ def fit_phase(scene, cam: Camera) -> dict:
         secs.append(now - t_last[0])
         t_last[0] = now
 
-    k8.reset_launches()
+    reset_launches()
     torch.cuda.synchronize()
     t_last[0] = time.perf_counter()
     res = inv.fit(target, callback=on_step)
-    launches = dict(k8.LAUNCHES)
+    launches = launch_counts()
     peak = torch.cuda.max_memory_allocated()
     n = cam.width * cam.height
     rays_s = n / float(np.mean(secs[1:])) if len(secs) > 1 else n / secs[0]
     ok = (all(np.isfinite(x) for x in res.losses)
           and all(np.isfinite(g[k]) and g[k] > 0 for g in res.grad_norms for k in g)
           and set(res.grad_norms[0]) == {"verts", "albedo"})
-    phase("fit", tris=scene.num_tris, rays=n, steps=FIT_STEPS, chunks=FIT_CHUNKS,
-          chunk_rays=n // FIT_CHUNKS, init_s=f"{s_init:.3f}", target_s=f"{s_target:.3f}",
+    phase(name, tris=scene.num_tris, rays=n, steps=steps, chunks=chunks,
+          chunk_rays=n // chunks, init_s=f"{s_init:.3f}", target_s=f"{s_target:.3f}",
           step_s=[round(x, 4) for x in secs], fwd_bwd_rays_per_s=f"{rays_s:.1f}",
           losses=[round(x, 6) for x in res.losses], loss_fell=res.losses[-1] < res.losses[0],
           grad_norms=json.dumps(res.grad_norms), peak_mem_bytes=peak,
           launches=json.dumps(launches), finite_nonzero=ok)
     if not ok:
-        fail("a fit loss or gradient is not finite, or a gradient is zero")
-    if launches["knear8"] < 2 * FIT_CHUNKS * FIT_STEPS:
-        fail(f"the fit launched knear8 {launches['knear8']} times "
-             f"(< {2 * FIT_CHUNKS * FIT_STEPS})")
+        fail(f"{name}: a fit loss or gradient is not finite, or a gradient is zero")
+    if launches[kernel] < 2 * chunks * steps:
+        fail(f"{name}: the fit launched {kernel} {launches[kernel]} times "
+             f"(< {2 * chunks * steps})")
     return dict(inv=inv, target=target, launches=launches)
 
 
@@ -586,11 +862,14 @@ def fit_check(dev) -> dict:
     return dict(grad_err=grad_err)
 
 
-def profile_fit(inv: InverseRenderer, target: torch.Tensor) -> None:
-    """Where one fit step's device time goes (torch.profiler): knear8's
-    kernels, the backward (autograd's evaluate_function ranges; within it
-    the index_add_/scatter kernels), the refit (its record_function range)
-    and the rest, the forward glue; and the device's idle share."""
+def profile_fit(inv: InverseRenderer, target: torch.Tensor, name: str = "profile_fit",
+                kernel: str = "knear8") -> None:
+    """Where one fit step's device time goes (torch.profiler): the engine's
+    k-nearest kernel, the backward (autograd's evaluate_function ranges;
+    within it the index_add_/scatter kernels), the refit (its
+    record_function range) and the rest, the forward glue; and the device's
+    idle share."""
+    from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     inv.fit(target, steps=1)
@@ -600,7 +879,7 @@ def profile_fit(inv: InverseRenderer, target: torch.Tensor) -> None:
         torch.cuda.synchronize()
     dev_events, busy, window, total = device_spans(prof)
     if not dev_events:
-        phase("profile_fit", device_time="not measured (the profiler saw no device event)")
+        phase(name, device_time="not measured (the profiler saw no device event)")
         return
 
     def kernel_time(*keys):
@@ -608,20 +887,26 @@ def profile_fit(inv: InverseRenderer, target: torch.Tensor) -> None:
                    if any(k in e.name for k in keys))
 
     def range_time(pred):
-        return sum(getattr(a, "device_time_total", getattr(a, "cuda_time_total", 0.0))
-                   for a in prof.key_averages() if pred(a.key))
+        # the host-side range: the device time of the kernels launched in it
+        return sum(a.device_time_total for a in prof.key_averages()
+                   if a.device_type == DeviceType.CPU and pred(a.key))
 
-    knear = kernel_time("knear8_kernel")
+    knear = kernel_time(f"{kernel}_kernel")
     scatter = kernel_time("indexFunc", "scatter")
     backward = range_time(lambda k: k.startswith("autograd::engine::evaluate_function"))
     refit = range_time(lambda k: k == "tpurt::refit")
+    # the refit range's device-side copy: first kernel's start to last one's end
+    refit_span = sum(e.time_range.end - e.time_range.start for e in prof.events()
+                     if e.is_user_annotation and e.device_type == DeviceType.CUDA
+                     and e.name == "tpurt::refit")
     glue = total - knear - backward - refit
-    phase("profile_fit", device_window_ms=f"{window / 1e3:.3f}",
+    phase(name, device_window_ms=f"{window / 1e3:.3f}",
           device_busy_ms=f"{busy / 1e3:.3f}", idle_share=f"{1 - busy / window:.4f}",
-          knear8_share=f"{knear / total:.4f}", backward_share=f"{backward / total:.4f}",
+          **{f"{kernel}_share": f"{knear / total:.4f}"}, backward_share=f"{backward / total:.4f}",
           index_add_scatter_share=f"{scatter / total:.4f}",
           backward_rest_share=f"{(backward - scatter) / total:.4f}",
-          refit_share=f"{refit / total:.4f}", forward_glue_share=f"{glue / total:.4f}",
+          refit_share=f"{refit / total:.4f}", refit_ms=f"{refit / 1e3:.4f}",
+          refit_span_ms=f"{refit_span / 1e3:.4f}", forward_glue_share=f"{glue / total:.4f}",
           device_kernels=len(dev_events))
 
 
@@ -642,8 +927,10 @@ def main() -> None:
     # -- build ----------------------------------------------------------
     t0 = time.perf_counter()
     _build.load()
+    lib = _build.library_path()
     phase("build", seconds=f"{time.perf_counter() - t0:.2f}",
-          lib=os.path.relpath(_build.library_path(), HERE))
+          lib=os.path.relpath(lib, HERE),
+          ptxas=json.dumps(ptxas_report(lib[:-3] + ".log"), separators=(",", ":")))
 
     # -- scene and acceleration structure, stage by stage ----------------
     (scene, cam), s_scene = sync_time(lambda: make_sponza_scene(
@@ -677,10 +964,10 @@ def main() -> None:
     del soft_tracer
 
     # -- the main path, hard: render() through closest8 and occluded8 ------
-    k8.reset_launches()
+    reset_launches()
     img, s_render = sync_time(lambda: render(scene, cam, method="wide8",
                                              tracer=tracer))
-    launches = dict(k8.LAUNCHES)
+    launches = launch_counts()
     hit_frac = float(k8.traverse_wide8(frame, wide).valid.float().mean())
     finite = bool(torch.isfinite(img).all())
     phase("render", shape=tuple(img.shape), seconds=f"{s_render:.3f}",
@@ -695,31 +982,55 @@ def main() -> None:
             fail(f"the hard render never launched {name}")
 
     # -- reference images (tpurt's goldens) on the card -------------------
-    sc, cm = make_cornell_box(device=dev)
-    bad_c = golden_check(render(sc, dataclasses.replace(cm, width=64, height=64),
-                                method="wide8"), "cornell_brute_64.npy", 0.003)
-    sb, cb = make_bunny_scene(num_tris=3000, device=dev)
-    bad_b = golden_check(render(sb, dataclasses.replace(cb, width=48, height=48),
-                                method="wide8"), "bunny3k_packet_48.npy", 0.003)
-    bad_s = golden_check(render(sc, dataclasses.replace(cm, width=48, height=48),
-                                method="wide8", **SOFT), "cornell_soft_48.npy", 0.003)
-    phase("golden", cornell_wide8_bad=bad_c, bunny3k_wide8_bad=bad_b,
-          cornell_soft_wide8_bad=bad_s)
+    phase("golden", **goldens(dev, "wide8"))
 
     # -- full-frame timing and where its device time goes -----------------
     frame_ms = frame_timing(tracer, frame, main_par)
     profile_frame(tracer, cam, frame)
-    del tracer, bvh, wide, main_par["sh_rays"], over_par["sh_rays"]
+    del tracer, wide, main_par["sh_rays"], over_par["sh_rays"]
+
+    # -- the binary kernels on the same 1M frame (hard only) --------------
+    s_tracer = bin_tracer("sponza1m", scene)
+    del bvh
+    bin_main = bin_parity("sponza1m_main", s_tracer, frame, count=True)
+    bin_over = bin_parity("sponza1m_overview", s_tracer,
+                          rays_slice(overview, slice(0, BIN_OVERVIEW_RAYS)),
+                          of_rays=overview.o.shape[0])
+    bin_main["frame_ms"] = bin_timing("sponza1m_main", s_tracer, frame, bin_main,
+                                      beside=frame_ms)
+    del s_tracer, bin_main["sh_rays"], bin_over["sh_rays"], overview
 
     # -- the main path, fit: InverseRenderer.fit through knear8 ------------
     fit = fit_phase(scene, cam)
     kn_fit = fit_knear(fit["inv"], scene, cam)
     fit_check(dev)
     profile_fit(fit["inv"], fit["target"])
+    fit_launches = fit["launches"]
+    del fit
 
-    def entry(name, launches_n, err, ms, plain, b, **extra):
+    # -- the binary engine's configuration: the 70K bunny at 512x512 -------
+    bscene, bcam = make_bunny_scene(device=dev)  # 70K triangles
+    if (bcam.width, bcam.height) != (BUNNY_RES, BUNNY_RES):
+        fail(f"the bunny's camera is {bcam.width}x{bcam.height}, not {BUNNY_RES}^2")
+    b_tracer = bin_tracer("bunny", bscene)
+    b_soft = bin_tracer("bunny", bscene, band=BAND)
+    bframe = morton_rays(bcam)
+    bin_b = bin_parity("bunny", b_tracer, bframe, count=True)
+    kn_b = knear_parity("bunny", b_soft, bframe, count=True, name="bin_parity",
+                        kernel="knear_bin")
+    for call in ("layers", "occluders"):
+        phase("bound_bin", view="bunny", kernel="knear_bin", call=call, **kn_b["bound"][call])
+    bin_launches = render_bin(bscene, bcam, dev, b_tracer, bframe)
+    bin_b["frame_ms"] = bin_timing("bunny", b_tracer, bframe, bin_b)
+    profile_frame(b_tracer, bcam, bframe, name="profile_bin")
+    del b_tracer, b_soft
+    fit_b = fit_phase(bscene, bcam, method="binary", chunks=BIN_FIT_CHUNKS,
+                      steps=BIN_FIT_STEPS, name="fit_bin", kernel="knear_bin")
+    profile_fit(fit_b["inv"], fit_b["target"], name="profile_fit_bin", kernel="knear_bin")
+
+    def entry(name, launches_n, err, ms, plain, b, source=KERNEL_SRC, **extra):
         # library_ms: no single PyTorch call computes a BVH walk
-        return {"name": name, "route": "cuda", "source": KERNEL_SRC,
+        return {"name": name, "route": "cuda", "source": source,
                 "replaces": REPLACES[name], "launches": launches_n, "max_abs_err": err,
                 "ms": round(ms, 4), "plain_ms": round(plain, 4),
                 "bound_ms": round(b["bound_ms"], 6), "bound_by": b["bound_by"],
@@ -742,11 +1053,33 @@ def main() -> None:
             f"fit_chunk0_bound_ms_{call}": round(kn_fit["bound"][call]["bound_ms"], 6),
             f"fit_frame_ms_{call}": round(kn_fit["frame_ms"][call], 4)})
     kernels.append(entry(
-        "knear8", fit["launches"]["knear8"], knear_err, kn_main["ms"]["layers"],
+        "knear8", fit_launches["knear8"], knear_err, kn_main["ms"]["layers"],
         kn_main["plain_ms"]["layers"], kn_main["bound"]["layers"],
         id_mismatch_frac=knear_err, occluders_ms=round(kn_main["ms"]["occluders"], 4),
         occluders_plain_ms=round(kn_main["plain_ms"]["occluders"], 4),
         occluders_bound_ms=round(kn_main["bound"]["occluders"]["bound_ms"], 6), **fit_keys))
+    # the binary kernels: the bunny frame (their configuration) first, the
+    # 1M main view beside it; max_abs_err is the largest |t, u, v - twin's|
+    # (closest_bin) or the mismatch fraction (occluded_bin, knear_bin) over
+    # every view
+    for name in ("closest_bin", "occluded_bin"):
+        kernels.append(entry(
+            name, bin_launches[name],
+            max(bin_b["err"][name], bin_main["err"][name], bin_over["err"][name]),
+            bin_b["ms"][name], bin_b["plain_ms"][name], bin_b["bound"][name], source=BIN_SRC,
+            mismatch_frac=max(p["mismatch"][name] for p in (bin_b, bin_main, bin_over)),
+            sponza1m_ms=round(bin_main["ms"][name], 4),
+            sponza1m_plain_ms=round(bin_main["plain_ms"][name], 4),
+            sponza1m_bound_ms=round(bin_main["bound"][name]["bound_ms"], 6),
+            sponza1m_bound_by=bin_main["bound"][name]["bound_by"],
+            sponza1m_wide8_ms=round(frame_ms[name.replace("_bin", "8")], 4)))
+    kn_err = max(kn_b["mismatch_frac"].values())
+    kernels.append(entry(
+        "knear_bin", fit_b["launches"]["knear_bin"], kn_err, kn_b["ms"]["layers"],
+        kn_b["plain_ms"]["layers"], kn_b["bound"]["layers"], source=BIN_SRC,
+        id_mismatch_frac=kn_err, occluders_ms=round(kn_b["ms"]["occluders"], 4),
+        occluders_plain_ms=round(kn_b["plain_ms"]["occluders"], 4),
+        occluders_bound_ms=round(kn_b["bound"]["occluders"]["bound_ms"], 6)))
     phase("done", seconds=f"{time.perf_counter() - t_start:.1f}")
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -10,4 +10,4 @@ of the kernels); every function works on the device of the tensors it is
 given.
 """
 
-__version__ = "0.2.0"
+__version__ = "0.3.0"

@@ -1,15 +1,16 @@
 """Karras (2012) binary-radix LBVH build (counterpart of
-``tpurt/accel/lbvh.py``), the parts the 8-wide path reads.
+``tpurt/accel/lbvh.py``).
 
 Morton codes -> stable (code, index) sort -> radix tree -> node boxes by a
-sparse-table range-min over the contiguous sorted-leaf ranges.  Every step is
-a whole-array tensor op, so the build runs on the device of the triangles.
-The output is bitwise tpurt's for the same triangles: codes are int64 holding
-uint32 values, ``clz`` is computed exactly, and min/max are exact in f32.
+sparse-table range-min over the contiguous sorted-leaf ranges -> treelet cut
+and DFS thread (the ``flat_*`` arrays the binary engines walk).  Every step
+is a whole-array tensor op, so the build runs on the device of the
+triangles.  The output is bitwise tpurt's for the same triangles: codes are
+int64 holding uint32 values, ``clz`` is computed exactly, and min/max are
+exact in f32.
 
-Not ported yet: the DFS thread (``_thread_dfs``, the ``flat_*`` arrays that
-only the binary engines read) and the blocked RMQ that tpurt uses above 2^21
-leaves.
+Not ported yet: the blocked RMQ that tpurt uses above 2^21 leaves (the 5M
+configuration).
 """
 
 from __future__ import annotations
@@ -29,7 +30,14 @@ class BVH:
     """LBVH over N triangles.  Node ids: internal 0..N-2, leaf k is node
     (N-1)+k.  first/last are each node's inclusive range of Morton-sorted
     leaves; node_lo/hi its box; codes (int64 holding uint32) are the sorted
-    Morton codes and tri_order maps sorted position -> triangle id."""
+    Morton codes and tri_order maps sorted position -> triangle id.
+
+    The flat arrays (M = 2N-1 rows, the live prefix meaningful, the rest
+    zeros with escape -1) are the treelet cut in DFS order: a live node's
+    subtree is entered at its index + 1 and skipped through flat_escape
+    (-1 ends the walk); a leaf covers flat_count Morton-sorted triangles
+    from flat_first.  dfs maps a raw node id to its flat index (M for nodes
+    below the cut).  None when the BVH came from elsewhere without them."""
 
     left: torch.Tensor  # (N-1,) i32
     right: torch.Tensor  # (N-1,) i32
@@ -40,7 +48,23 @@ class BVH:
     node_hi: torch.Tensor  # (2N-1, 3) f32
     codes: torch.Tensor  # (N,) i64
     tri_order: torch.Tensor  # (N,) i32
+    flat_lo: torch.Tensor | None = None  # (M, 3) f32
+    flat_hi: torch.Tensor | None = None  # (M, 3) f32
+    flat_escape: torch.Tensor | None = None  # (M,) i32
+    flat_is_leaf: torch.Tensor | None = None  # (M,) bool
+    flat_first: torch.Tensor | None = None  # (M,) i32
+    flat_count: torch.Tensor | None = None  # (M,) i32
+    dfs: torch.Tensor | None = None  # (2N-1,) i32
+    leaf_size: int = 8
     band: float = 0.0
+
+    @property
+    def num_tris(self) -> int:
+        return self.codes.shape[0]
+
+    @property
+    def num_flat(self) -> int:
+        return self.flat_escape.shape[0]
 
 
 def _clz32(x: torch.Tensor) -> torch.Tensor:
@@ -131,8 +155,38 @@ def range_minmax_sparse(leaf_lo: torch.Tensor, leaf_hi: torch.Tensor,
     return m[:, 0:3].contiguous(), (-m[:, 3:6]).contiguous()
 
 
-def build_lbvh(tris: Triangles, band: float = 0.0) -> BVH:
-    """Morton sort -> radix tree -> node boxes.
+def _thread_dfs(parent: torch.Tensor, first: torch.Tensor, last: torch.Tensor,
+                leaf_size: int):
+    """Treelet cut, DFS numbering and escape links in closed form (tpurt's
+    _thread_dfs): a node is live when its parent is not cuttable (subtree
+    counts grow towards the root); a live node's preorder index is
+    Fc[first - 1] + Fc[first] - 1 - pos, with Fc[v] the live nodes starting
+    at or left of v and pos its rank in the (first, last) order; its escape
+    is Fc[last], or -1 past the last live node.  Returns (dfs, escape, live,
+    is_eff_leaf), dfs = M for dead nodes."""
+    n = (first.shape[0] + 1) // 2
+    m = 2 * n - 1
+    first, last = first.long(), last.long()
+    cuttable = last - first + 1 <= leaf_size
+    live = (parent < 0) | ~cuttable[parent.long().clamp_min(0)]
+    is_eff_leaf = live & cuttable
+    n_live = live.sum()
+    f2 = torch.where(live, first, n)  # dead nodes bucket past every live one
+    fc = torch.cumsum(torch.bincount(f2, minlength=n + 1)[:n], 0)
+    # rank in the lexicographic (f2, last) order; live keys are distinct
+    order = torch.sort(f2 * (n + 1) + last, stable=True).indices
+    pos = torch.empty_like(order)
+    pos[order] = torch.arange(m, device=order.device)
+    fc_lo = torch.where(first > 0, fc[(first - 1).clamp_min(0)], 0)
+    dfs = torch.where(live, fc_lo + fc[first] - 1 - pos, m)
+    esc = fc[last]
+    esc = torch.where(esc < n_live, esc, -1)
+    return dfs.to(torch.int32), esc.to(torch.int32), live, is_eff_leaf
+
+
+def build_lbvh(tris: Triangles, leaf_size: int = 8, band: float = 0.0) -> BVH:
+    """Morton sort -> radix tree -> node boxes -> DFS thread over the
+    treelet cut at leaf_size triangles.
 
     band > 0 inflates the triangle boxes so the soft path's extended
     barycentric-band hits are still found by traversal."""
@@ -146,19 +200,38 @@ def build_lbvh(tris: Triangles, band: float = 0.0) -> BVH:
         tri_hi = tri_hi + pad
     dev = tris.device
 
-    if n == 1:  # single-triangle scene: one leaf
+    if n == 1:  # single-triangle scene: one flat leaf
         z = torch.zeros((1,), dtype=torch.int32, device=dev)
         e = torch.zeros((0,), dtype=torch.int32, device=dev)
         return BVH(left=e, right=e.clone(),
                    parent=torch.full((1,), -1, dtype=torch.int32, device=dev),
                    first=z, last=z.clone(), node_lo=tri_lo, node_hi=tri_hi,
                    codes=torch.zeros((1,), dtype=torch.int64, device=dev),
-                   tri_order=z.clone(), band=band)
+                   tri_order=z.clone(), flat_lo=tri_lo.clone(),
+                   flat_hi=tri_hi.clone(), flat_escape=z - 1,
+                   flat_is_leaf=torch.ones((1,), dtype=torch.bool, device=dev),
+                   flat_first=z.clone(), flat_count=z + 1, dfs=z.clone(),
+                   leaf_size=leaf_size, band=band)
 
     codes, order = torch.sort(triangle_morton_codes(tris), stable=True)
     left, right, parent, first, last = build_radix_tree(codes)
     node_lo, node_hi = range_minmax_sparse(tri_lo[order], tri_hi[order],
                                            first, last)
+    dfs, esc, live, is_eff_leaf = _thread_dfs(parent, first, last, leaf_size)
+    m = 2 * n - 1
+    at = dfs[live].long()  # tpurt's scatter with mode="drop" of dead nodes
+
+    def scatter(fill, src):
+        out = torch.full((m,) + tuple(src.shape[1:]), fill, dtype=src.dtype,
+                         device=dev)
+        out[at] = src[live]
+        return out
+
     return BVH(left=left, right=right, parent=parent, first=first, last=last,
                node_lo=node_lo, node_hi=node_hi, codes=codes,
-               tri_order=order.to(torch.int32), band=band)
+               tri_order=order.to(torch.int32),
+               flat_lo=scatter(0.0, node_lo), flat_hi=scatter(0.0, node_hi),
+               flat_escape=scatter(-1, esc), flat_is_leaf=scatter(False, is_eff_leaf),
+               flat_first=scatter(0, first),
+               flat_count=scatter(0, torch.where(is_eff_leaf, last - first + 1, 0)),
+               dfs=dfs, leaf_size=leaf_size, band=band)

@@ -1,8 +1,8 @@
 """Render and fit settings (counterpart of ``tpurt/api/config.py``'s
 RenderConfig and FitConfig).  Fields that no ported path reads are left out
-(tpurt's leaf_size, spp, light_seed, ckpt_every and seed come with the
-engines, sampling and checkpoints that read them); the Config container,
-YAML loading and overrides are not ported yet."""
+(tpurt's spp, light_seed, ckpt_every and seed come with the sampling and
+checkpoints that read them); the Config container, YAML loading and
+overrides are not ported yet."""
 
 from __future__ import annotations
 
@@ -14,8 +14,11 @@ from typing import Any
 class RenderConfig:
     """All render-path knobs."""
 
-    # "brute" | "wide8" (tpurt defaults to its binary-BVH "bvh", not ported)
+    # "brute" | "bvh" | "binary" | "wide8".  tpurt defaults to "bvh", its
+    # per-ray walk; the port defaults to its BVH8 CUDA engine.
     method: str = "wide8"
+    # treelet-cut leaf size of the binary engines' LBVH
+    leaf_size: int = 8
     # soft/differentiable path
     soft: bool = False
     k_layers: int = 4
@@ -27,7 +30,8 @@ class RenderConfig:
     light_samples: int = 0
 
     def tracer_kwargs(self) -> dict[str, Any]:
-        return dict(method=self.method, band=self.band if self.soft else 0.0)
+        return dict(method=self.method, leaf_size=self.leaf_size,
+                    band=self.band if self.soft else 0.0)
 
     def render_kwargs(self) -> dict[str, Any]:
         return dict(soft=self.soft, k_layers=self.k_layers,

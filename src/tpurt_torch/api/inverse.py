@@ -1,8 +1,10 @@
 """Inverse renderer: fit vertices and albedo to a target image
 (counterpart of ``tpurt/api/inverse.py``, one device).
 
-Each step: refit the WideBVH's boxes and rows to the current vertices (no
-rebuild: topology frozen, no gradient), render the soft image in
+Each step: refit the tree to the current vertices (no rebuild: topology
+frozen, no gradient; the WideBVH's boxes and rows for "wide8", the LBVH's
+boxes and then the packed layout for "bvh" and "binary"), render the soft
+image in
 ``grad_chunks`` ray chunks with loss = sum((color - target)^2), and update
 the parameters with Adam or SGD at optax's defaults.  The gradient is
 accumulated in table space: every dependence of the render on vertices and
@@ -22,6 +24,8 @@ import torch
 
 from tpurt_torch.accel.bvh8 import refit_wide_direct
 from tpurt_torch.accel.lbvh import range_minmax_sparse
+from tpurt_torch.accel.packet import refit_packed
+from tpurt_torch.accel.refit import refit_aabbs
 from tpurt_torch.api.config import FitConfig, RenderConfig
 from tpurt_torch.core.geometry import Camera, Rays
 from tpurt_torch.core.scene import Scene
@@ -112,11 +116,17 @@ class InverseRenderer:
         frozen = dataclasses.replace(scene, tris=dataclasses.replace(
             scene.tris, verts=scene.tris.verts.detach(),
             albedo=scene.tris.albedo.detach()))
-        wide = self.tracer0.wide
-        if wide is not None and "verts" in params:
+        bvh, packed, wide = self.tracer0.bvh, self.tracer0.packed, self.tracer0.wide
+        if bvh is not None and "verts" in params:
             with torch.profiler.record_function("tpurt::refit"):
-                wide = refit_wide_direct(wide, frozen.tris, table=leaf.detach())
-        tracer = dataclasses.replace(self.tracer0, scene=frozen, wide=wide, table=leaf)
+                if wide is not None:
+                    wide = refit_wide_direct(wide, frozen.tris, table=leaf.detach())
+                else:
+                    bvh = refit_aabbs(bvh, frozen.tris, update_flat=True)
+                    if packed is not None:
+                        packed = refit_packed(packed, bvh, frozen.tris)
+        tracer = dataclasses.replace(self.tracer0, scene=frozen, bvh=bvh, packed=packed,
+                                     wide=wide, table=leaf)
         rkw = self.render_cfg.render_kwargs()
         n = self.fit_cfg.grad_chunks
         loss = torch.zeros((), dtype=torch.float32, device=o.device)

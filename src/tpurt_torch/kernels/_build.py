@@ -1,11 +1,12 @@
 """Build and load the CUDA kernels in ``csrc/``.
 
-At first use, ``nvcc`` compiles every ``csrc/*.cu`` into one shared library
-with a plain C interface, which is loaded with ctypes.  The library lives in
-``_build/`` beside this file (ignored by git), named by a hash of the sources
-and flags, so a changed source is rebuilt and an unchanged one is not.  A
-missing toolchain or a failed compile raises: nothing falls back to the
-plain-torch twins.
+At first use, ``nvcc`` compiles every ``csrc/*.cu`` to an object, one
+process per source, all started together, and links the objects into one
+shared library with a plain C interface, which is loaded with ctypes.  The
+library lives in ``_build/`` beside this file (ignored by git), named by a
+hash of the flags and of every source and header under ``csrc/``, so a
+changed file is rebuilt and an unchanged one is not.  A missing toolchain or
+a failed compile raises: nothing falls back to the plain-torch twins.
 """
 
 from __future__ import annotations
@@ -25,7 +26,7 @@ BUILD_DIR = os.path.join(_HERE, "_build")
 # twins and like tpurt.  Never --use_fast_math (flushes denormals and
 # approximates division).
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-              "-fmad=false", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
+              "-fmad=false", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 
 _P = ctypes.c_void_p
 _lib = None
@@ -46,12 +47,30 @@ def _sources() -> list[str]:
     return sorted(glob.glob(os.path.join(CSRC, "*.cu")))
 
 
+def _inputs() -> list[str]:
+    """Every file under csrc/ that a build reads: sources and headers."""
+    return sorted(p for p in glob.glob(os.path.join(CSRC, "**", "*"), recursive=True)
+                  if p.endswith((".cu", ".cuh", ".h", ".hpp")))
+
+
 def library_path() -> str:
     h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
-    for src in _sources():
+    for src in _inputs():
+        h.update(os.path.relpath(src, CSRC).encode() + b"\0")
         with open(src, "rb") as f:
             h.update(f.read())
     return os.path.join(BUILD_DIR, f"tpurt_kernels-{h.hexdigest()[:16]}.so")
+
+
+def _run(procs: list) -> str:
+    """Wait for every (cmd, Popen); raise on the first that failed, else
+    return their output (the ptxas register and spill report)."""
+    done = [(cmd, *p.communicate()) for cmd, p in procs]
+    done = [(cmd, p.returncode, out, err) for (cmd, out, err), (_, p) in zip(done, procs)]
+    for cmd, rc, stdout, stderr in done:
+        if rc != 0:
+            raise RuntimeError(f"nvcc failed ({rc}):\n{' '.join(cmd)}\n{stdout}\n{stderr}")
+    return "".join(stdout + stderr for _, _, stdout, stderr in done)
 
 
 def build() -> str:
@@ -62,17 +81,24 @@ def build() -> str:
     if os.path.exists(path):
         return path
     os.makedirs(BUILD_DIR, exist_ok=True)
-    fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
-    os.close(fd)
-    cmd = [_nvcc(), *NVCC_FLAGS, "-o", tmp, *_sources()]
-    res = subprocess.run(cmd, capture_output=True, text=True)
-    if res.returncode != 0:
-        os.unlink(tmp)
-        raise RuntimeError(f"nvcc failed ({res.returncode}):\n{' '.join(cmd)}\n"
-                           f"{res.stdout}\n{res.stderr}")
-    with open(path[:-3] + ".log", "w") as f:
-        f.write(res.stdout + res.stderr)
-    os.replace(tmp, path)  # atomic: a concurrent builder sees all or nothing
+    nvcc = _nvcc()
+    with tempfile.TemporaryDirectory(dir=BUILD_DIR) as tmpdir:
+        objs, procs = [], []
+        for src in _sources():
+            obj = os.path.join(tmpdir, os.path.basename(src) + ".o")
+            cmd = [nvcc, *NVCC_FLAGS, "-c", "-o", obj, src]
+            procs.append((cmd, subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                                                stderr=subprocess.PIPE, text=True)))
+            objs.append(obj)
+        log = _run(procs)
+        tmp = os.path.join(tmpdir, "lib.so")
+        cmd = [nvcc, "-shared", "-gencode", "arch=compute_90a,code=sm_90a", "-o", tmp,
+               *objs]
+        log += _run([(cmd, subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                                            stderr=subprocess.PIPE, text=True))])
+        with open(path[:-3] + ".log", "w") as f:
+            f.write(log)
+        os.replace(tmp, path)  # atomic: a concurrent builder sees all or nothing
     return path
 
 
@@ -93,6 +119,16 @@ def load() -> ctypes.CDLL:
             _P, _P, _P, _P, _P, ctypes.c_int, ctypes.c_int, ctypes.c_float,
             ctypes.c_int, ctypes.c_float, ctypes.c_float, _P, _P]
         lib.tpurt_knear8.restype = ctypes.c_int
+        lib.tpurt_closest_bin.argtypes = [
+            _P, _P, _P, _P, _P, _P, ctypes.c_int, ctypes.c_float, _P, _P, _P, _P, _P]
+        lib.tpurt_closest_bin.restype = ctypes.c_int
+        lib.tpurt_occluded_bin.argtypes = [
+            _P, _P, _P, _P, _P, _P, _P, ctypes.c_int, ctypes.c_float, _P, _P]
+        lib.tpurt_occluded_bin.restype = ctypes.c_int
+        lib.tpurt_knear_bin.argtypes = [
+            _P, _P, _P, _P, _P, _P, _P, ctypes.c_int, ctypes.c_float, ctypes.c_int,
+            ctypes.c_float, ctypes.c_float, _P, _P]
+        lib.tpurt_knear_bin.restype = ctypes.c_int
         lib.tpurt_error_string.argtypes = [ctypes.c_int]
         lib.tpurt_error_string.restype = ctypes.c_char_p
         _lib = lib

@@ -1,0 +1,318 @@
+// Binary-BVH closest-hit, any-hit and k-nearest walks for NVIDIA Hopper
+// (sm_90a), over the packed layout of tpurt_torch/accel/packet.py.
+//
+// Replaces, in tpurt/kernels/traverse.py:
+//   _closest_kernel  (traverse_pallas)        -> closest_bin
+//   _occluded_kernel (occluded_pallas)        -> occluded_bin
+//   _knear_kernel    (k_nearest_ids_pallas)   -> knear_bin
+//
+// What they compute is tpurt's; how is not.  The TPU kernels walk a
+// (sub, 128) ray packet with one scalar node cursor, descending where any ray
+// of the packet wants to, with the nodes lane-packed into VMEM and one-hot
+// lane extracts to read them.  Here one thread walks one ray down its own
+// stackless escape chain: a node whose box passes is entered at index + 1 (a
+// leaf's 8 triangle slots are tested), any other is skipped through its
+// escape link, and -1 ends the walk.  The threaded DFS layout is what makes
+// the walk stackless.  A node visit reads its 32-byte node_f32 row as two
+// float4 and its 16-byte node_i32 row as one int4; a leaf visit reads the 72
+// floats of its triangle row and its 8 ids.  The selections (lexicographic
+// (t, id) closest hit, any hit in (t_min, t_max), the k nearest band hits by
+// (t, id)) do not depend on visit order, so per-ray walks give the packet
+// walks' hits wherever a ray's own slab test is conservative.
+//
+// The arithmetic copies tpurt's op for op: the binary slab as (lo - o) * inv
+// (not the wide walks' lo*inv - o*inv) with tpurt's max/min nesting and
+// NaN-propagating min/max, _safe_inv, and Möller–Trumbore with the smooth
+// inverse in _mt_scalar_tri's order (walk_common.cuh).  Built with
+// -fmad=false, the kernels agree with their plain-torch twins bit for bit.
+//
+// What bounds them on this card is what bounds the BVH8 walks
+// (traverse8.cu): every visit is a dependent load (the next node's index
+// comes out of the previous visit), and the 32 rays of a warp take
+// different paths, so the warp runs the union of their visits.  A binary
+// walk makes several times as many visits as a BVH8 walk, each with one slab
+// test instead of eight.  The simple design keeps every array in global
+// memory, read through L1/L2 (the node rows of a 1M-triangle scene are
+// 21 MB and fit the 50 MB L2), relies on Morton-ordered rays so that a
+// warp's rays walk similar chains, and needs no stack and no shared memory.
+// knear_bin keeps its sorted k-list in registers, the length templated on
+// 4, 8 or 16 (the smallest >= k) as knear8's is, with every loop over it
+// unrolled and guarded by i < k; a binary leaf holds each triangle once, so
+// the list needs no dedup.  Making the walks fast is left to later work.
+
+#include "walk_common.cuh"
+
+namespace {
+
+// tpurt kernels/traverse.py _slab for one ray: a = (lo.x, lo.y, lo.z, hi.x),
+// b = (hi.y, hi.z, 0, 0), the node's node_f32 row.
+__device__ __forceinline__ bool slab_bin(const float4& a, const float4& b,
+                                         const Ray& r, float t_min,
+                                         float t_upper) {
+  float tx0 = (a.x - r.ox) * r.ix, tx1 = (a.w - r.ox) * r.ix;
+  float ty0 = (a.y - r.oy) * r.iy, ty1 = (b.x - r.oy) * r.iy;
+  float tz0 = (a.z - r.oz) * r.iz, tz1 = (b.y - r.oz) * r.iz;
+  float t_near = jmax(jmax(jmin(tx0, tx1), jmin(ty0, ty1)),
+                      jmax(jmin(tz0, tz1), t_min));
+  float t_far = jmin(jmin(jmax(tx0, tx1), jmax(ty0, ty1)),
+                     jmin(jmax(tz0, tz1), t_upper));
+  return t_near <= t_far;
+}
+
+// The shared escape walk: slab-test the current node against
+// [t_min, vis.upper()]; enter a passing internal node at node + 1, hand a
+// passing leaf's row and ids to vis.leaf(), and otherwise follow the escape
+// link (node_i32 = (escape, leaf_row, 0, is_leaf)).  vis.done() ends the
+// walk after a leaf (any-hit).
+template <class Visitor>
+__device__ __forceinline__ void walk_bin(const float4* __restrict__ nf,
+                                         const int4* __restrict__ ni,
+                                         const float* __restrict__ rows,
+                                         const int* __restrict__ ids,
+                                         const Ray& r, float t_min,
+                                         Visitor& vis) {
+  int node = 0;
+  while (node >= 0) {
+    const float4 a = __ldg(nf + 2 * node), b = __ldg(nf + 2 * node + 1);
+    const int4 rec = __ldg(ni + node);
+    const bool boxed = slab_bin(a, b, r, t_min, vis.upper());
+    const bool leaf = rec.w > 0;
+    if (boxed && leaf) {
+      vis.leaf(rows + (size_t)rec.y * 128, ids + (size_t)rec.y * 8);
+      if (vis.done()) return;
+    }
+    node = (boxed && !leaf) ? node + 1 : rec.x;
+  }
+}
+
+// Closest hit by (t, id): tpurt's `better` test, slot by slot.
+struct Closest {
+  const Ray& r;
+  float t_min;
+  float t_b = kTMax, u_b = 0.0f, v_b = 0.0f;
+  int id_b = -1;
+
+  __device__ Closest(const Ray& ray, float tmin) : r(ray), t_min(tmin) {}
+  __device__ __forceinline__ bool done() const { return false; }
+  __device__ __forceinline__ float upper() const { return t_b; }
+  __device__ __forceinline__ void leaf(const float* tr, const int* ids) {
+#pragma unroll
+    for (int j = 0; j < 8; ++j) {
+      float t, u, v, det;
+      mt(tr + 9 * j, r, t, u, v, det);
+      const int tid = __ldg(ids + j);
+      bool better = (t < t_b) || ((t == t_b) && (tid < id_b) && (id_b >= 0));
+      bool ok = (fabsf(det) > kDetEps) && (u >= 0.0f) && (v >= 0.0f) &&
+                (u + v <= 1.0f) && (t > t_min) && better && (tid >= 0);
+      if (ok) {
+        t_b = t; u_b = u; v_b = v; id_b = tid;
+      }
+    }
+  }
+};
+
+// Any hit in (t_min, t_max); the walk stops after the first blocking leaf.
+struct Occluded {
+  const Ray& r;
+  float t_min, tmax;
+  bool blocked = false;
+
+  __device__ Occluded(const Ray& ray, float tmin, float tm)
+      : r(ray), t_min(tmin), tmax(tm) {}
+  __device__ __forceinline__ bool done() const { return blocked; }
+  __device__ __forceinline__ float upper() const { return tmax; }
+  __device__ __forceinline__ void leaf(const float* tr, const int* ids) {
+#pragma unroll
+    for (int j = 0; j < 8; ++j) {
+      float t, u, v, det;
+      mt(tr + 9 * j, r, t, u, v, det);
+      blocked |= (fabsf(det) > kDetEps) && (u >= 0.0f) && (v >= 0.0f) &&
+                 (u + v <= 1.0f) && (t > t_min) && (t < tmax) &&
+                 (__ldg(ids + j) >= 0);
+    }
+  }
+};
+
+// The k nearest band hits, sorted by (t, id): tpurt's bubble insert, one
+// candidate at a time.  A candidate enters only if it sorts before the k-th
+// entry (a later one would fall off the end of the bubble).
+template <int KM>
+struct KNear {
+  const Ray& r;
+  float t_min, tmax, neg_band, band_hi;
+  int k;
+  float ts[KM];
+  int ids[KM];
+
+  __device__ KNear(const Ray& ray, float tmin, float tm, float nb, float bh,
+                   int kk)
+      : r(ray), t_min(tmin), tmax(tm), neg_band(nb), band_hi(bh), k(kk) {
+#pragma unroll
+    for (int i = 0; i < KM; ++i) {
+      ts[i] = kTMax;
+      ids[i] = kBigId;
+    }
+  }
+  __device__ __forceinline__ bool done() const { return false; }
+  __device__ __forceinline__ void kth(float& t, int& id) const {
+    t = ts[KM - 1];
+    id = ids[KM - 1];
+#pragma unroll
+    for (int i = 0; i < KM - 1; ++i)
+      if (i == k - 1) { t = ts[i]; id = ids[i]; }
+  }
+  // min(k-th t, t_max), with jnp.minimum's NaN rule
+  __device__ __forceinline__ float upper() const {
+    float t;
+    int id;
+    kth(t, id);
+    return jmin(t, tmax);
+  }
+  __device__ __forceinline__ void insert(float tc, int ic) {
+    float kt;
+    int kid;
+    kth(kt, kid);
+    if (!((tc < kt) || ((tc == kt) && (ic < kid)))) return;
+#pragma unroll
+    for (int i = 0; i < KM; ++i) {
+      bool less = (i < k) && ((tc < ts[i]) || ((tc == ts[i]) && (ic < ids[i])));
+      float tt = ts[i];
+      int ii = ids[i];
+      ts[i] = less ? tc : tt;
+      ids[i] = less ? ic : ii;
+      tc = less ? tt : tc;
+      ic = less ? ii : ic;
+    }
+  }
+  __device__ __forceinline__ void leaf(const float* tr, const int* lids) {
+#pragma unroll 1
+    for (int j = 0; j < 8; ++j) {
+      float t, u, v, det;
+      mt(tr + 9 * j, r, t, u, v, det);
+      const int tid = __ldg(lids + j);
+      bool ok = (fabsf(det) > kDetEps) && (u >= neg_band) && (v >= neg_band) &&
+                (u + v <= band_hi) && (t > t_min) && (t < tmax) && (tid >= 0);
+      if (ok) insert(t, tid);
+    }
+  }
+};
+
+__global__ void __launch_bounds__(kBlock)
+closest_bin_kernel(const float4* __restrict__ nf, const int4* __restrict__ ni,
+                   const float* __restrict__ rows, const int* __restrict__ ids,
+                   const float* __restrict__ o, const float* __restrict__ d,
+                   int n, float t_min, float* __restrict__ t_out,
+                   float* __restrict__ u_out, float* __restrict__ v_out,
+                   int* __restrict__ id_out) {
+  int i = blockIdx.x * blockDim.x + threadIdx.x;
+  if (i >= n) return;
+  const Ray r = load_ray(o, d, i);
+  Closest vis(r, t_min);
+  walk_bin(nf, ni, rows, ids, r, t_min, vis);
+  t_out[i] = vis.t_b;
+  u_out[i] = vis.u_b;
+  v_out[i] = vis.v_b;
+  id_out[i] = vis.id_b;
+}
+
+__global__ void __launch_bounds__(kBlock)
+occluded_bin_kernel(const float4* __restrict__ nf, const int4* __restrict__ ni,
+                    const float* __restrict__ rows, const int* __restrict__ ids,
+                    const float* __restrict__ o, const float* __restrict__ d,
+                    const float* __restrict__ tm, int n, float t_min,
+                    unsigned char* __restrict__ blk_out) {
+  int i = blockIdx.x * blockDim.x + threadIdx.x;
+  if (i >= n) return;
+  const float tmax = tm[i];
+  bool blocked = false;
+  // An empty window (t_max <= t_min, e.g. the t_max = 0 of a missed primary
+  // ray) can never block: the ray starts dead.
+  if (tmax > t_min) {
+    const Ray r = load_ray(o, d, i);
+    Occluded vis(r, t_min, tmax);
+    walk_bin(nf, ni, rows, ids, r, t_min, vis);
+    blocked = vis.blocked;
+  }
+  blk_out[i] = blocked ? 1 : 0;
+}
+
+template <int KM>
+__global__ void __launch_bounds__(kBlock)
+knear_bin_kernel(const float4* __restrict__ nf, const int4* __restrict__ ni,
+                 const float* __restrict__ rows, const int* __restrict__ ids,
+                 const float* __restrict__ o, const float* __restrict__ d,
+                 const float* __restrict__ tm, int n, float t_min, int k,
+                 float neg_band, float band_hi, int* __restrict__ ids_out) {
+  int i = blockIdx.x * blockDim.x + threadIdx.x;
+  if (i >= n) return;
+  const float tmax = tm[i];
+  const Ray r = load_ray(o, d, i);
+  KNear<KM> vis(r, t_min, tmax, neg_band, band_hi, k);
+  // An empty window accepts no candidate: the ray starts dead.
+  if (tmax > t_min) walk_bin(nf, ni, rows, ids, r, t_min, vis);
+#pragma unroll
+  for (int j = 0; j < KM; ++j)
+    if (j < k) ids_out[(size_t)i * k + j] = vis.ids[j] == kBigId ? -1 : vis.ids[j];
+}
+
+}  // namespace
+
+extern "C" {
+
+// Every entry point launches on `stream`, never synchronises, and returns
+// cudaGetLastError() of the launch (0 on success).  node_f32 is (M, 8) f32,
+// node_i32 (M, 4) i32, rows (L, 128) f32 and ids (L, 8) i32, all contiguous
+// (the wrapper checks; the allocator's alignment makes the vector loads
+// legal).
+int tpurt_closest_bin(const float* node_f32, const int* node_i32,
+                      const float* rows, const int* ids, const float* o,
+                      const float* d, int n, float t_min, float* t, float* u,
+                      float* v, int* id, cudaStream_t stream) {
+  if (n <= 0) return 0;
+  int grid = (n + kBlock - 1) / kBlock;
+  closest_bin_kernel<<<grid, kBlock, 0, stream>>>(
+      reinterpret_cast<const float4*>(node_f32),
+      reinterpret_cast<const int4*>(node_i32), rows, ids, o, d, n, t_min, t, u,
+      v, id);
+  return (int)cudaGetLastError();
+}
+
+int tpurt_occluded_bin(const float* node_f32, const int* node_i32,
+                       const float* rows, const int* ids, const float* o,
+                       const float* d, const float* tm, int n, float t_min,
+                       unsigned char* blocked, cudaStream_t stream) {
+  if (n <= 0) return 0;
+  int grid = (n + kBlock - 1) / kBlock;
+  occluded_bin_kernel<<<grid, kBlock, 0, stream>>>(
+      reinterpret_cast<const float4*>(node_f32),
+      reinterpret_cast<const int4*>(node_i32), rows, ids, o, d, tm, n, t_min,
+      blocked);
+  return (int)cudaGetLastError();
+}
+
+// out: (n, k) int32, k in [1, 16] (the wrapper checks).  neg_band and
+// band_hi are -band and 1 + band rounded once to f32, as the twin compares.
+int tpurt_knear_bin(const float* node_f32, const int* node_i32,
+                    const float* rows, const int* ids, const float* o,
+                    const float* d, const float* tm, int n, float t_min, int k,
+                    float neg_band, float band_hi, int* out,
+                    cudaStream_t stream) {
+  if (n <= 0) return 0;
+  if (k < 1 || k > kKMax) return (int)cudaErrorInvalidValue;
+  int grid = (n + kBlock - 1) / kBlock;
+  const float4* nf = reinterpret_cast<const float4*>(node_f32);
+  const int4* ni = reinterpret_cast<const int4*>(node_i32);
+  if (k <= 4) {
+    knear_bin_kernel<4><<<grid, kBlock, 0, stream>>>(
+        nf, ni, rows, ids, o, d, tm, n, t_min, k, neg_band, band_hi, out);
+  } else if (k <= 8) {
+    knear_bin_kernel<8><<<grid, kBlock, 0, stream>>>(
+        nf, ni, rows, ids, o, d, tm, n, t_min, k, neg_band, band_hi, out);
+  } else {
+    knear_bin_kernel<16><<<grid, kBlock, 0, stream>>>(
+        nf, ni, rows, ids, o, d, tm, n, t_min, k, neg_band, band_hi, out);
+  }
+  return (int)cudaGetLastError();
+}
+
+}  // extern "C"

@@ -38,52 +38,18 @@
 // closest8's.  Making them fast (packet or warp-cooperative walks,
 // persistent threads, compressed nodes) is left to later work.
 
-#include <cuda_runtime.h>
+#include "walk_common.cuh"
 
 namespace {
 
 constexpr int kStackV = 192;       // tpurt's STACKV
 constexpr int kEntries = 8;
 constexpr int kLaneOff = 1 << 25;  // lane codec offset
-constexpr float kTMax = 1e30f;
-constexpr float kDetEps = 1e-12f;
-constexpr int kBlock = 128;
 
 // Lane codec: integers travel as the bit patterns of negative normal floats.
 // Read the bits, never convert the value.
 __device__ __forceinline__ int decode_lane(float f) {
   return (__float_as_int(f) & 0x3FFFFFFF) - kLaneOff;
-}
-
-// tpurt _safe_inv: where(|d| > 1e-30, 1/d, sign(d) * 1e30 + 1e30).  Zero
-// maps to 1e30, a tiny negative to 0 (so every slab test fails for it).
-__device__ __forceinline__ float safe_inv(float d) {
-  if (fabsf(d) > 1e-30f) return 1.0f / d;
-  float s = d > 0.0f ? 1.0f : (d < 0.0f ? -1.0f : d);  // sign; keeps 0 and NaN
-  return s * 1e30f + 1e30f;
-}
-
-// jnp.minimum / jnp.maximum: NaN in either operand gives NaN (fminf and
-// fmaxf would drop it).
-__device__ __forceinline__ float jmin(float a, float b) {
-  return (a != a) ? a : ((b != b) ? b : (a < b ? a : b));
-}
-__device__ __forceinline__ float jmax(float a, float b) {
-  return (a != a) ? a : ((b != b) ? b : (a > b ? a : b));
-}
-
-struct Ray {
-  float ox, oy, oz, dx, dy, dz;
-  float ix, iy, iz, oix, oiy, oiz;
-};
-
-__device__ __forceinline__ Ray load_ray(const float* o, const float* d, int i) {
-  Ray r;
-  r.ox = o[3 * i]; r.oy = o[3 * i + 1]; r.oz = o[3 * i + 2];
-  r.dx = d[3 * i]; r.dy = d[3 * i + 1]; r.dz = d[3 * i + 2];
-  r.ix = safe_inv(r.dx); r.iy = safe_inv(r.dy); r.iz = safe_inv(r.dz);
-  r.oix = r.ox * r.ix; r.oiy = r.oy * r.iy; r.oiz = r.oz * r.iz;
-  return r;
 }
 
 // tpurt _slab8 for one box (lox, loy, loz, hix, hiy, hiz).
@@ -112,26 +78,6 @@ __device__ __forceinline__ unsigned visit_mask(const float* wrow, int cur,
     if (slab(node + 6 * c, r, t_min, t_upper)) mask |= 1u << c;
   }
   return mask;
-}
-
-// tpurt _mt_scalar_tri: triangle j of a row holds (v0, e1, e2) at 9j..9j+8.
-__device__ __forceinline__ void mt(const float* tri, const Ray& r, float& t,
-                                   float& u, float& v, float& det) {
-  float v0x = tri[0], v0y = tri[1], v0z = tri[2];
-  float e1x = tri[3], e1y = tri[4], e1z = tri[5];
-  float e2x = tri[6], e2y = tri[7], e2z = tri[8];
-  float px = r.dy * e2z - r.dz * e2y;
-  float py = r.dz * e2x - r.dx * e2z;
-  float pz = r.dx * e2y - r.dy * e2x;
-  det = e1x * px + e1y * py + e1z * pz;
-  float inv_det = det / (det * det + kDetEps);
-  float tvx = r.ox - v0x, tvy = r.oy - v0y, tvz = r.oz - v0z;
-  u = (tvx * px + tvy * py + tvz * pz) * inv_det;
-  float qx = tvy * e1z - tvz * e1y;
-  float qy = tvz * e1x - tvx * e1z;
-  float qz = tvx * e1y - tvy * e1x;
-  v = (r.dx * qx + r.dy * qy + r.dz * qz) * inv_det;
-  t = (e2x * qx + e2y * qy + e2z * qz) * inv_det;
 }
 
 // tpurt _stack_push / _stack_pop, clamps included.
@@ -236,9 +182,6 @@ struct Occluded {
     }
   }
 };
-
-constexpr int kKMax = 16;           // largest k the k-nearest kernel keeps
-constexpr int kBigId = 0x7FFFFFFF;  // empty-slot id (tpurt's big_id)
 
 // The k nearest band hits, kept sorted by (t, id) and deduplicated by id
 // (boundary rows shared by adjacent fat leaves repeat a triangle): tpurt's

@@ -35,6 +35,9 @@ import torch
 
 from tpurt_torch.accel.bvh8 import ENTRIES, WideBVH, decode_lane_i32, stack_bound
 from tpurt_torch.accel.intersect import DEFAULT_T_MIN, DET_EPS
+from tpurt_torch.accel.traverse_ref import BIG_ID as _BIG_ID
+from tpurt_torch.accel.traverse_ref import _tmax_flat, mt9
+from tpurt_torch.accel.traverse_ref import safe_inv as _safe_inv
 from tpurt_torch.core.geometry import Hit, Rays, T_MAX
 from tpurt_torch.kernels import _build
 
@@ -47,8 +50,6 @@ STACKV = 192
 LAUNCHES = {"closest8": 0, "occluded8": 0, "knear8": 0}
 # Largest k of the k-nearest kernel (its compile-time list length).
 KMAX = 16
-# Empty k-list slot id (tpurt's big_id); emitted as -1.
-_BIG_ID = 2**31 - 1
 
 
 def reset_launches() -> None:
@@ -71,10 +72,6 @@ def _check_stack(wide: WideBVH) -> None:
 # ---------------------------------------------------------------------------
 # Plain-torch twins
 # ---------------------------------------------------------------------------
-def _safe_inv(d: torch.Tensor) -> torch.Tensor:
-    return torch.where(d.abs() > 1e-30, 1.0 / d, torch.sign(d) * 1e30 + 1e30)
-
-
 def _slab8(oi, inv, box, t_min, t_upper):
     """(A, 3) o*inv, (A, 3) inv, (A, 8, 6) child boxes, (A,) upper ->
     (A, 8) pass mask.  torch.minimum/maximum propagate NaN like jnp's."""
@@ -92,23 +89,7 @@ def _slab8(oi, inv, box, t_min, t_upper):
 def _mt_rows(o, d, trow):
     """Möller–Trumbore of rays (A, 3) against the 8 triangles of each of
     their K rows (A, K, 128) in tpurt's op order -> t, u, v, det (A, K, 8)."""
-    tri = trow[..., :72].unflatten(-1, (8, 9))
-    v0x, v0y, v0z, e1x, e1y, e1z, e2x, e2y, e2z = tri.unbind(-1)
-    ox, oy, oz = (o[:, k, None, None] for k in range(3))
-    dx, dy, dz = (d[:, k, None, None] for k in range(3))
-    px = dy * e2z - dz * e2y
-    py = dz * e2x - dx * e2z
-    pz = dx * e2y - dy * e2x
-    det = e1x * px + e1y * py + e1z * pz
-    inv_det = det / (det * det + DET_EPS)
-    tvx, tvy, tvz = ox - v0x, oy - v0y, oz - v0z
-    u = (tvx * px + tvy * py + tvz * pz) * inv_det
-    qx = tvy * e1z - tvz * e1y
-    qy = tvz * e1x - tvx * e1z
-    qz = tvx * e1y - tvy * e1x
-    v = (dx * qx + dy * qy + dz * qz) * inv_det
-    t = (e2x * qx + e2y * qy + e2z * qz) * inv_det
-    return t, u, v, det
+    return mt9(o, d, trow[..., :72].unflatten(-1, (8, 9)))
 
 
 def _row_ids(trow):
@@ -250,14 +231,6 @@ def walk_counts(stats: dict) -> dict:
     return {"visits": int(stats["visits"]), "rows": int(stats["rows"]),
             "distinct_nodes": int(stats["seen_nodes"].sum()),
             "distinct_rows": int(stats["seen_rows"].sum())}
-
-
-def _tmax_flat(rays: Rays, t_max) -> torch.Tensor:
-    """t_max (scalar or per-ray) as a flat contiguous f32 tensor."""
-    if isinstance(t_max, torch.Tensor) and t_max.device != rays.o.device:
-        raise ValueError(f"t_max is on {t_max.device}, rays on {rays.o.device}")
-    tm = torch.as_tensor(t_max, dtype=torch.float32, device=rays.o.device)
-    return tm.expand(rays.shape).reshape(-1).contiguous()
 
 
 def occluded_wide8_ref(rays: Rays, wide: WideBVH, t_max,

@@ -13,6 +13,11 @@ Two renders:
 Engines (``Tracer.method``):
 - ``"brute"``: the O(rays x triangles) oracle (accel/intersect.py,
   diff/softvis.k_nearest_brute);
+- ``"bvh"``: tpurt's default engine, the per-ray plain-torch walks over the
+  LBVH's threaded flat tree (accel/traverse_ref.py), on any device;
+- ``"binary"``: the same tree packed (accel/packet.py) and walked by the
+  binary kernels (kernels/traverse.py), the counterpart of tpurt's
+  ``"pallas"``: CUDA kernels on the GPU, their plain-torch twins on the CPU;
 - ``"wide8"``: the 8-wide BVH walks (kernels/traverse8.py), the counterpart
   of tpurt's ``"pallas8"``: CUDA kernels on the GPU, their plain-torch twins
   on the CPU.
@@ -29,8 +34,12 @@ from dataclasses import dataclass
 import torch
 
 from tpurt_torch.accel.bvh8 import WideBVH, build_wide
-from tpurt_torch.accel.intersect import DET_EPS, intersect_brute, occluded_brute
+from tpurt_torch.accel.intersect import (
+    DEFAULT_T_MIN, DET_EPS, intersect_brute, occluded_brute)
 from tpurt_torch.accel.lbvh import BVH, build_lbvh
+from tpurt_torch.accel.packet import PackedBVH, max_cut_leaves, pack_bvh
+from tpurt_torch.accel.traverse_ref import (
+    k_nearest_ref, occluded_ref, occluder_ids_ref, traverse_ref)
 from tpurt_torch.core.geometry import Camera, Hit, KHits, Rays, T_MAX
 from tpurt_torch.core.math import cross
 from tpurt_torch.core.scene import Scene
@@ -39,6 +48,8 @@ from tpurt_torch.diff.intersect_vjp import intersect_tuv
 from tpurt_torch.diff.softvis import (
     composite, coverage, cross3, det_gate, dot3, k_nearest_brute,
     soft_occlusion_layers_soa)
+from tpurt_torch.kernels.traverse import (
+    k_nearest_ids_packed, occluded_packed, traverse_packed)
 from tpurt_torch.kernels.traverse8 import (
     k_nearest_wide8, occluded_wide8, traverse_wide8)
 from tpurt_torch.render.camera import gen_primary_rays, pixel_morton_perm
@@ -46,7 +57,7 @@ from tpurt_torch.render.shade import face_forward, light_dirs, shade_lambert
 
 SHADOW_EPS = 1e-3  # offset shadow-ray origins off the surface
 SHADOW_T_FRAC = 1.0 - 1e-3  # stop shadow rays just before the light
-METHODS = ("brute", "wide8")
+METHODS = ("brute", "bvh", "binary", "wide8")
 
 
 def _require_ported(light_samples: int, spp: int = 1) -> None:
@@ -75,32 +86,48 @@ class Tracer:
 
     scene: Scene
     bvh: BVH | None = None
+    packed: PackedBVH | None = None
     wide: WideBVH | None = None
     table: torch.Tensor | None = None
     method: str = "brute"
 
     def closest_shaded(self, rays: Rays) -> tuple[Hit, tuple | None]:
         """(Hit, shade) where shade = (albedo, emission, raw normal) of the
-        winning triangle straight from the wide8 walk, or None for brute."""
+        winning triangle straight from the wide8 walk, or None for the
+        other engines (the hard render then reads the table)."""
         if self.method == "wide8":
             return traverse_wide8(rays, self.wide, shade_out=True)
+        if self.method == "binary":
+            return traverse_packed(rays, self.packed), None
+        if self.method == "bvh":
+            return traverse_ref(rays, self.scene.tris, self.bvh), None
         return intersect_brute(rays, self.scene.tris), None
 
     def visibility(self, rays: Rays, t_max: torch.Tensor) -> torch.Tensor:
         """Hard transmittance in (t_min, t_max): 1 visible, 0 occluded."""
         if self.method == "brute":
             occ = occluded_brute(rays, self.scene.tris, t_max=t_max)
+        elif self.method == "bvh":
+            occ = occluded_ref(rays, self.scene.tris, self.bvh, t_max)
+        elif self.method == "binary":
+            occ = occluded_packed(rays, self.packed, t_max)
         else:
             occ = occluded_wide8(rays, self.wide, t_max)
         return 1.0 - occ.to(torch.float32)
 
     @torch.no_grad()
     def k_nearest(self, rays: Rays, k: int, band: float) -> KHits:
-        """The k nearest band hits, front to back (ids only for wide8: t, u,
-        v are recomputed downstream and are zeros here).  No gradient."""
+        """The k nearest band hits, front to back (ids only for the kernel
+        engines: t, u, v are recomputed downstream and are zeros here).  No
+        gradient."""
         if self.method == "brute":
             return k_nearest_brute(rays, self.scene.tris, k=k, band=band)
-        ids = k_nearest_wide8(rays, self.wide, k, band, t_max=T_MAX)
+        if self.method == "bvh":
+            return k_nearest_ref(rays, self.scene.tris, self.bvh, k=k, band=band)
+        if self.method == "binary":
+            ids = k_nearest_ids_packed(rays, self.packed, k, band, t_max=T_MAX)
+        else:
+            ids = k_nearest_wide8(rays, self.wide, k, band, t_max=T_MAX)
         z = torch.zeros(ids.shape, dtype=torch.float32, device=ids.device)
         return KHits(t=z, u=z, v=z, tri=ids.reshape(*rays.shape, k))
 
@@ -117,22 +144,36 @@ class Tracer:
             if ids.shape[1] < k_occ:  # k_nearest_brute clamps k to T
                 ids = torch.nn.functional.pad(ids, (0, k_occ - ids.shape[1]), value=-1)
             return ids
+        if self.method == "bvh":
+            return occluder_ids_ref(flat, self.scene.tris, self.bvh, k_occ, band,
+                                    DEFAULT_T_MIN, 2.0 * tm)
+        if self.method == "binary":
+            return k_nearest_ids_packed(flat, self.packed, k_occ, band, t_max=2.0 * tm)
         return k_nearest_wide8(flat, self.wide, k_occ, band, t_max=2.0 * tm)
 
 
-def make_tracer(scene: Scene, method: str = "brute", band: float = 0.0) -> Tracer:
+def make_tracer(scene: Scene, method: str = "brute", band: float = 0.0,
+                leaf_size: int = 8) -> Tracer:
     """Build a Tracer for `scene` on the scene's device: the table, and for
-    "wide8" the LBVH (boxes inflated by `band`, which the soft path needs
-    so near-miss band hits are not culled) and its 8-wide collapse."""
+    the BVH engines the LBVH with its DFS thread at `leaf_size` (boxes
+    inflated by `band`, which the soft path needs so near-miss band hits are
+    not culled); for "binary" its packed layout, with rows for the static
+    bound max_cut_leaves as tpurt packs it; for "wide8" its 8-wide
+    collapse."""
     if method not in METHODS:
         raise ValueError(f"method {method!r} not in {METHODS}")
     table = tri_table(scene.tris)
     if method == "brute":
         return Tracer(scene=scene, method=method, table=table)
+    packed = wide = None
     with torch.no_grad():
-        bvh = build_lbvh(scene.tris, band=band)
-        wide = build_wide(scene.tris, bvh)
-    return Tracer(scene=scene, bvh=bvh, wide=wide, table=table, method=method)
+        bvh = build_lbvh(scene.tris, leaf_size=leaf_size, band=band)
+        if method == "binary":
+            packed = pack_bvh(scene.tris, bvh, max_cut_leaves(scene.num_tris, leaf_size))
+        elif method == "wide8":
+            wide = build_wide(scene.tris, bvh)
+    return Tracer(scene=scene, bvh=bvh, packed=packed, wide=wide, table=table,
+                  method=method)
 
 
 def _surface_attrs(rays: Rays, table: torch.Tensor, tri_id: torch.Tensor):

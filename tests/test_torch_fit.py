@@ -101,7 +101,8 @@ def generic():
 
 
 # -- soft images -----------------------------------------------------------
-@pytest.mark.parametrize("method,frac", [("brute", 0.0), ("wide8", 0.003)])
+@pytest.mark.parametrize("method,frac", [("brute", 0.0), ("wide8", 0.003), ("bvh", 0.003),
+                                         ("binary", 0.003)])
 def test_golden_cornell_soft(method, frac):
     scene, cam = make_cornell_box(device="cpu")
     img = render(scene, dataclasses.replace(cam, width=48, height=48),
@@ -190,6 +191,55 @@ def test_sgd_fit_matches_tpurt(fit_case, monkeypatch):
         assert moved.max() > 1e-4, k  # the steps really moved the parameters
         np.testing.assert_allclose(got.params[k].numpy(), np.asarray(ref.params[k]),
                                    rtol=0, atol=1e-5)
+
+
+@pytest.mark.parametrize("method", ["bvh", "binary"])
+def test_sgd_fit_binary_engines_match_tpurt_bvh(fit_case, monkeypatch, method):
+    """tpurt's default engine, "bvh", in its fit step (refit_aabbs inside the
+    step) against the port's "bvh" and "binary" (refit_aabbs, then
+    refit_packed): the same trajectory, at the brute fit's tolerances."""
+    monkeypatch.setattr(j_gather_grad, "gather_verts", _plain)
+    monkeypatch.setattr(j_pipeline, "gather_verts", _plain)
+    fit = dict(steps=3, optimizer="sgd", lr=1e-6, grad_chunks=2)
+    ref = JInverseRenderer(fit_case["js"], fit_case["jc"], fit=JFitConfig(**fit),
+                           render=JRenderConfig(method="bvh", **RK)).fit(fit_case["target"])
+    inv = InverseRenderer(fit_case["ts"], fit_case["tc"], fit=FitConfig(**fit),
+                          render=RenderConfig(method=method, **RK))
+    got = inv.fit(torch.from_numpy(fit_case["target"]))
+    assert (inv.tracer0.packed is not None) == (method == "binary")
+    np.testing.assert_allclose(got.losses, ref.losses, rtol=1e-4)
+    for k in ("verts", "albedo"):
+        moved = np.abs(np.asarray(ref.params[k]) - np.asarray(getattr(fit_case["js"].tris, k)))
+        assert moved.max() > 1e-4, k
+        np.testing.assert_allclose(got.params[k].numpy(), np.asarray(ref.params[k]),
+                                   rtol=0, atol=1e-5)
+
+
+@pytest.mark.parametrize("method", ["bvh", "binary"])
+def test_binary_fit_step_refits_inside_the_step(fit_case, monkeypatch, method):
+    """Every step refits the LBVH's flat boxes (and, for "binary", the
+    packed rows) from the build's tree at the step's vertices, without
+    gradient; the build's tree itself is left as it was."""
+    import tpurt_torch.api.inverse as inverse
+
+    calls = []
+
+    def spy(name, fn):
+        def wrapped(*args, **kw):
+            calls.append((name, kw.get("update_flat"), args[-1].verts.requires_grad))
+            return fn(*args, **kw)
+        return wrapped
+
+    monkeypatch.setattr(inverse, "refit_aabbs", spy("boxes", inverse.refit_aabbs))
+    monkeypatch.setattr(inverse, "refit_packed", spy("rows", inverse.refit_packed))
+    inv = InverseRenderer(fit_case["ts"], fit_case["tc"],
+                          fit=FitConfig(steps=2, lr=1e-2, grad_chunks=1),
+                          render=RenderConfig(method=method, **RK))
+    flat0 = inv.tracer0.bvh.flat_lo.clone()
+    inv.fit(torch.from_numpy(fit_case["target"]))
+    rows = [("rows", None, False)] if method == "binary" else []
+    assert calls == 2 * ([("boxes", True, False)] + rows)
+    assert torch.equal(inv.tracer0.bvh.flat_lo, flat0)
 
 
 def test_sgd_fit_with_rebuilds_matches_tpurt(fit_case, monkeypatch):

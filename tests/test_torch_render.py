@@ -2,8 +2,8 @@
 
 The goldens in tests/golden are tpurt's renders; tpurt's own tests hold its
 engines to them with tests/golden/test_golden.py's _check, which this file
-imports: frac 0.0 for brute, 0.003 for the wide8 engine and for the bunny
-image (itself a packet-engine render).
+imports: frac 0.0 for brute, 0.003 for the BVH engines (wide8, bvh, binary)
+and for the bunny image (itself a packet-engine render).
 """
 
 import dataclasses
@@ -18,18 +18,31 @@ from tpurt_torch.render.camera import gen_primary_rays
 from tpurt_torch.render.pipeline import make_tracer, render, render_rays
 
 
-@pytest.mark.parametrize("method,frac", [("brute", 0.0), ("wide8", 0.003)])
+@pytest.mark.parametrize("method,frac", [("brute", 0.0), ("wide8", 0.003), ("bvh", 0.003),
+                                         ("binary", 0.003)])
 def test_golden_cornell(method, frac):
     scene, cam = make_cornell_box(device="cpu")
     img = render(scene, dataclasses.replace(cam, width=64, height=64), method=method)
     _check(img, "cornell_brute_64.npy", frac=frac)
 
 
-@pytest.mark.parametrize("method", ["brute", "wide8"])
+@pytest.mark.parametrize("method", ["brute", "wide8", "bvh", "binary"])
 def test_golden_bunny(method):
     scene, cam = make_bunny_scene(num_tris=3000, device="cpu")
     img = render(scene, dataclasses.replace(cam, width=48, height=48), method=method)
     _check(img, "bunny3k_packet_48.npy", frac=0.003)
+
+
+@pytest.mark.parametrize("soft", [False, True])
+def test_binary_engine_renders_the_bvh_engines_image(soft):
+    """The twins walk the packed tree in the flat tree's order: the same
+    image, bit for bit, hard and soft."""
+    scene, cam = make_bunny_scene(num_tris=3000, device="cpu")
+    cam = dataclasses.replace(cam, width=32, height=32)
+    kw = dict(soft=True, k_layers=4, sharpness=40.0, band=0.08) if soft else {}
+    img = {m: render(scene, cam, method=m, **kw) for m in ("bvh", "binary")}
+    assert torch.equal(img["bvh"], img["binary"])
+    assert float(img["bvh"].max()) > 0.0
 
 
 def test_render_with_a_prebuilt_tracer_and_uint8():
