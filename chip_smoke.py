@@ -1,7 +1,8 @@
 """Smoke run of tpurt_torch on one NVIDIA GPU: the hard render and the fit
 step of the 1M-triangle sponza scene through the hand-written BVH8 CUDA
 kernels, and of the 70K-triangle bunny at 512x512 through the binary-BVH
-kernels.
+kernels; the LBVH build through the Morton and radix-tree kernels at 1M and
+5M triangles, and the port's Renderer and CLI.
 
     python3 chip_smoke.py
 
@@ -83,6 +84,31 @@ knear_bin over the packed threaded tree):
            memory, knear_bin launches.
   profile_fit_bin
            as profile_fit, for one binary fit step on the bunny.
+The LBVH build (morton and radix; every make_tracer above ran them):
+  treebuild_parity
+           each kernel against its twin on the card, bitwise: N = 2 (distinct
+           and equal codes), 2^20 equal codes, and the centroids of the bunny,
+           the 1M and the 5M sponza (radix on their sorted codes); kernel and
+           twin ms (the kernel's from a profile, the wrapper call's and the
+           twin's by CUDA events), the bound from this input (radix: the
+           work of Karras's search for its tree), the phase's launches.
+  build_stages
+           a warm build_lbvh at 1M and 5M: seconds, launches, peak memory
+           above what was allocated before it; each of its lbvh.* stage
+           spans in a profile of 3 warm builds (its kernels' device ms, its
+           device-side span, its host ms; the hand-written kernel alone); the same build through the
+           twins on the card, every BVH field bitwise equal; at 5M the wide
+           collapse and pack seconds.
+  renderer the main path as a user calls it: Renderer(scene, RenderConfig(
+           "wide8")) on the 1M scene builds and renders the frame; its
+           launch counts, its image against [render]'s.
+  sponza5m the 5M scene's generation seconds and its phases' seconds.
+  cli      `python -m tpurt_torch.cli.main` as subprocesses in a temporary
+           directory: build-bvh on the 5M sponza (its metric line), render of
+           the 5M sponza at 3840x2160 (shape, finite, hit fraction) and of the
+           bunny through "binary" (equal to the in-process Renderer's), fit
+           on cornell 32^2 with checkpoints every 2 steps (6 steps, then a
+           resumed run to 8), check-grads on cornell 24^2.
 Then the kernels' JSON line and, last, {"ok": true, "device": {...}}.
 """
 
@@ -92,8 +118,10 @@ import dataclasses
 import json
 import os
 import re
+import shutil
 import subprocess
 import sys
+import tempfile
 import time
 
 HERE = os.path.dirname(os.path.abspath(__file__))
@@ -104,16 +132,20 @@ import torch  # noqa: E402
 
 from tpurt_torch.accel.bvh8 import (  # noqa: E402
     collapse_wide, pack_wide, refit_wide_direct, tri_rows_bytes, wide_bytes)
-from tpurt_torch.accel.lbvh import build_lbvh  # noqa: E402
+from tpurt_torch.accel import lbvh as lbvh_mod  # noqa: E402
+from tpurt_torch.accel import morton as morton_mod  # noqa: E402
+from tpurt_torch.accel.lbvh import BVH, build_lbvh  # noqa: E402
 from tpurt_torch.accel.packet import max_cut_leaves, pack_bvh  # noqa: E402
 from tpurt_torch.api.config import FitConfig, RenderConfig  # noqa: E402
 from tpurt_torch.api.inverse import InverseRenderer  # noqa: E402
+from tpurt_torch.api.renderer import Renderer  # noqa: E402
 from tpurt_torch.core.geometry import T_MAX, Camera, Hit, PointLight, Rays  # noqa: E402
 from tpurt_torch.core.scene import (  # noqa: E402
     make_bunny_scene, make_cornell_box, make_sponza_scene)
 from tpurt_torch.kernels import _build  # noqa: E402
 from tpurt_torch.kernels import traverse as kb  # noqa: E402
 from tpurt_torch.kernels import traverse8 as k8  # noqa: E402
+from tpurt_torch.kernels import treebuild as tb  # noqa: E402
 from tpurt_torch.render.camera import gen_primary_rays, pixel_morton_perm  # noqa: E402
 from tpurt_torch.diff.fdcheck import check_grads_fd  # noqa: E402
 from tpurt_torch.render.pipeline import (  # noqa: E402
@@ -136,6 +168,7 @@ MAX_MISMATCH_FRAC = 1e-4
 MAX_ABS_ERR = 0.0
 KERNEL_SRC = "src/tpurt_torch/kernels/csrc/traverse8.cu"
 BIN_SRC = "src/tpurt_torch/kernels/csrc/traverse.cu"
+TREEBUILD_SRC = "src/tpurt_torch/kernels/csrc/treebuild.cu"
 # The 1M scene's own camera faces a clutter box ~0.15 units away (every ray
 # hits it and every shadow ray is blocked), so the parity check also runs on
 # a view over the courtyard, which exercises deep walks, misses and lit
@@ -146,7 +179,9 @@ REPLACES = {"closest8": "src/tpurt/kernels/traverse8.py:425",
             "knear8": "src/tpurt/kernels/traverse8.py:775",
             "closest_bin": "src/tpurt/kernels/traverse.py:342",
             "occluded_bin": "src/tpurt/kernels/traverse.py:446",
-            "knear_bin": "src/tpurt/kernels/traverse.py:540"}
+            "knear_bin": "src/tpurt/kernels/traverse.py:540",
+            "morton": "src/tpurt/kernels/treebuild.py:53",
+            "radix": "src/tpurt/kernels/treebuild.py:95"}
 # The binary engine's configuration: BASELINE config 2, tpurt's bench.py
 # "2-bunny" (make_bunny_scene's 70K-triangle default at 512x512).
 BUNNY_RES = 512
@@ -191,10 +226,25 @@ SLAB_OPS, MT_OPS = 25, 47
 # and node_i32 rows) and leaf (72 floats of its row and its 8 ids).
 WIDE = dict(node_bytes=256, row_bytes=512, slabs=8)
 BIN = dict(node_bytes=48, row_bytes=320, slabs=1)
+# The build kernels' configuration: the 5M sponza at 3840x2160 (tpurt's
+# get_scene("sponza5m"), BASELINE config 5's scene on one chip).
+NUM_TRIS_5M, WIDTH_5M, HEIGHT_5M = 5_000_000, 3840, 2160
+# The card's INT32 rate: 64 lanes a clock on each of 132 SMs at 1.98 GHz.
+PEAK_INT32_OPS = 64 * 132 * 1.98e9
+# Operations of the build functions.  morton, a point: per axis a subtract,
+# multiply, max, min, multiply and convert (6), per expand 8, two shifts and
+# two ors.  radix: a delta evaluation that loads a code (range test, xor,
+# compare, clz and the index tie-break) about 10, a search step around it
+# (candidate, index, compare, select) about 6, counted over the steps of
+# Karras's search (exponential, then binary), which the function needs,
+# not over the kernel's fixed 62-step ladder.
+MORTON_OPS = 3 * 6 + 3 * 8 + 4
+RADIX_DELTA_OPS, RADIX_STEP_OPS = 10, 6
 
 
 KERNEL_NAMES = ("closest8_kernel", "occluded8_kernel", "knear8_kernel",
-                "closest_bin_kernel", "occluded_bin_kernel", "knear_bin_kernel")
+                "closest_bin_kernel", "occluded_bin_kernel", "knear_bin_kernel",
+                "morton_kernel", "radix_kernel")
 # Each kernel engine's hard-frame kernels (closest hit, any hit) and its
 # closest-hit call as render_rays makes it.
 HARD_KERNELS = {
@@ -735,10 +785,11 @@ def render_bin(scene, cam: Camera, dev, tracer: Tracer, frame: Rays) -> dict:
 def reset_launches() -> None:
     k8.reset_launches()
     kb.reset_launches()
+    tb.reset_launches()
 
 
 def launch_counts() -> dict:
-    return {**k8.LAUNCHES, **kb.LAUNCHES}
+    return {**k8.LAUNCHES, **kb.LAUNCHES, **tb.LAUNCHES}
 
 
 def fit_phase(scene, cam: Camera, method: str = "wide8", chunks: int = FIT_CHUNKS,
@@ -911,6 +962,367 @@ def profile_fit(inv: InverseRenderer, target: torch.Tensor, name: str = "profile
 
 
 
+# ---------------------------------------------------------------------------
+# The LBVH build: the morton and radix kernels
+# ---------------------------------------------------------------------------
+def build_bound(nbytes: int, ops: int) -> dict:
+    """The least time for a build kernel's work: the larger of its bytes over
+    PEAK_BYTES_S and its integer operations over PEAK_INT32_OPS."""
+    t_bytes, t_ops = nbytes / PEAK_BYTES_S * 1e3, ops / PEAK_INT32_OPS * 1e3
+    return dict(bytes=nbytes, ops=ops, bound_ms=max(t_bytes, t_ops),
+                bound_by="bytes" if t_bytes >= t_ops else "operations")
+
+
+def morton_bound(n: int) -> dict:
+    """Each point's 12 bytes read and 8-byte code written once, lo and inv
+    read once; MORTON_OPS a point."""
+    return build_bound(20 * n + 24, MORTON_OPS * n)
+
+
+def karras_work(tree, n: int) -> tuple[int, int]:
+    """The delta evaluations of Karras's search (2012, fig. 4) for this
+    radix tree of n leaves: (those that load a code, all of them).  Per
+    internal node i: its own code, delta(i, i + 1) and delta(i, i - 1)
+    (delta_min is one of the two); l_max = 2, 4, ... while the candidate
+    lies inside the node's range; a binary search below l_max for the range
+    end l; delta(i, j); the split search over t = ceil(l/2), ceil(l/4), ...,
+    1.  The predicate is monotone, so every step's outcome follows from the
+    node's l and split s, read off the tree (first, last, left); a
+    candidate outside [0, n) loads nothing."""
+    left, _, _, first, last = (x.long() for x in tree)
+    i = torch.arange(n - 1, device=left.device, dtype=torch.int64)
+    lo, hi = first[: n - 1], last[: n - 1]
+    d = torch.where(lo == i, 1, -1)
+    l = hi - lo
+    gamma = torch.where(left >= n - 1, left - (n - 1), left)
+    s = torch.where(d > 0, gamma - i, i - 1 - gamma)
+
+    def in_range(m):
+        p = i + m * d
+        return ((p >= 0) & (p < n)).long()
+
+    loads = 2 + (i > 0).long() + 1  # own code, i + 1, i - 1; then delta(i, j)
+    evals = torch.full_like(i, 3)
+    lmax, on = torch.full_like(i, 2), torch.ones_like(i, dtype=torch.bool)
+    while bool(on.any()):  # exponential: accepted while l_max <= l
+        loads += in_range(lmax) * on
+        evals += on.long()
+        on = on & (lmax <= l)
+        lmax = torch.where(on, lmax * 2, lmax)
+    part, t = torch.zeros_like(i), lmax // 2
+    while bool((t > 0).any()):  # binary: candidate part + t accepted iff <= l
+        on = t > 0
+        cand = part + t
+        loads += in_range(cand) * on
+        evals += on.long()
+        part = torch.where(on & (cand <= l), cand, part)
+        t = t // 2
+    part, t, on = torch.zeros_like(i), l.clone(), torch.ones_like(i, dtype=torch.bool)
+    while bool(on.any()):  # split: candidate part + t accepted iff <= s
+        t = torch.where(on, (t + 1) // 2, t)
+        cand = part + t
+        loads += in_range(cand) * on
+        evals += on.long()
+        part = torch.where(on & (cand <= s), cand, part)
+        on = on & (t > 1)
+    return int(loads.sum()), int(evals.sum())
+
+
+def radix_bound(n: int, loads: int, evals: int) -> dict:
+    """The sorted codes read once (8 bytes each); left, right, first, last
+    and the children's parent written once (24 bytes a node); Karras's
+    search on this input (karras_work): RADIX_DELTA_OPS a delta evaluation
+    that loads a code, RADIX_STEP_OPS a search step."""
+    return build_bound(8 * n + 24 * (n - 1), RADIX_DELTA_OPS * loads + RADIX_STEP_OPS * evals)
+
+
+def bitwise_equal(a: torch.Tensor, b: torch.Tensor) -> bool:
+    if a.dtype != b.dtype or a.shape != b.shape:
+        return False
+    if a.dtype == torch.float32:
+        a, b = a.view(torch.int32), b.view(torch.int32)
+    return bool(torch.equal(a, b))
+
+
+def treebuild_parity(view: str, points: torch.Tensor | None = None,
+                     codes: torch.Tensor | None = None) -> dict:
+    """morton on `points` (normalised by their bounds, as the build does)
+    and radix on their stably sorted codes, or on `codes`, against the
+    twins on the card, bitwise; the kernel's device ms (kernel_device_ms),
+    the wrapper call's ms and the twin's (CUDA events, warm), the bound from
+    this input, and the phase's launches (the timed calls included).  Fails
+    on any element that differs."""
+    out = {}
+    tb.reset_launches()
+    if points is not None:
+        lo = points.amin(dim=0)
+        inv = tb.inv_extent(lo, points.amax(dim=0))
+        ref = tb.morton_codes_ref(points, lo, inv)
+        got = tb.morton_codes(points, lo, inv)
+        out["morton"] = dict(
+            n=points.shape[0], mismatches=int((got != ref).sum()), max_abs_err=max_abs(got, ref),
+            ms=kernel_device_ms(lambda: tb.morton_codes(points, lo, inv), "morton_kernel"),
+            call_ms=cuda_ms(lambda: tb.morton_codes(points, lo, inv)),
+            plain_ms=cuda_ms(lambda: tb.morton_codes_ref(points, lo, inv), iters=3, warmup=1),
+            **morton_bound(points.shape[0]))
+        codes = torch.sort(ref, stable=True).values
+    n = codes.shape[0]
+    ref = tb.radix_tree_ref(codes)
+    got = tb.radix_tree(codes)
+    loads, evals = karras_work(ref, n)
+    out["radix"] = dict(
+        n=n, mismatches=sum(int((a != b).sum()) for a, b in zip(got, ref)),
+        max_abs_err=max(max_abs(a, b) for a, b in zip(got, ref)),
+        ms=kernel_device_ms(lambda: tb.radix_tree(codes), "radix_kernel"),
+        call_ms=cuda_ms(lambda: tb.radix_tree(codes)),
+        plain_ms=cuda_ms(lambda: tb.radix_tree_ref(codes), iters=3, warmup=1),
+        loads=loads, evals=evals, **radix_bound(n, loads, evals))
+    for name, r in out.items():
+        r["launches"] = tb.LAUNCHES[name]
+        phase("treebuild_parity", view=view, kernel=name, n=r["n"],
+              mismatches=r["mismatches"], ms=f"{r['ms']:.4f}", call_ms=f"{r['call_ms']:.4f}",
+              plain_ms=f"{r['plain_ms']:.4f}",
+              bound_ms=f"{r['bound_ms']:.6f}", bound_by=r["bound_by"], bytes=r["bytes"],
+              ops=r["ops"], **{k: r[k] for k in ("loads", "evals") if k in r},
+              launches=r["launches"])
+        if r["mismatches"]:
+            fail(f"{name} ({view}): {r['mismatches']} elements differ from its twin")
+    return out
+
+
+# build_lbvh's stage spans (accel/lbvh.py, accel/morton.py), in its order,
+# and the warm builds a profile of its stages covers.
+BUILD_STAGES = ("boxes", "centroid_bounds", "morton", "sort", "radix", "rmq",
+                "thread_dfs", "flat_scatter")
+STAGE_BUILDS = 3
+BVH_TENSORS = tuple(f.name for f in dataclasses.fields(BVH)
+                    if f.name not in ("leaf_size", "band"))
+
+
+def device_kernels(prof) -> list:
+    """A profile's device kernels as (start, end, name) in µs, in time
+    order (the device-side copies of record_function ranges left out)."""
+    from torch.autograd import DeviceType
+
+    return sorted((e.time_range.start, e.time_range.end, e.name) for e in prof.events()
+                  if e.device_type == DeviceType.CUDA and not e.is_user_annotation)
+
+
+def kernel_device_ms(fn, kernel: str, calls: int = 30) -> float:
+    """A hand-written kernel's own device time a call: torch.profiler over
+    `calls` calls of fn after a warm one, the mean duration of the device
+    events named `kernel`.  For a kernel of a few microseconds CUDA events
+    around back-to-back calls time the host's launches instead (the
+    wrapper's checks, allocations and ctypes call).  The profiler may miss
+    the events of the first calls after it starts, so a third of them is
+    enough."""
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(calls):
+            fn()
+        torch.cuda.synchronize()
+    durs = [e - s for s, e, name in device_kernels(prof) if kernel in name]
+    if len(durs) < calls // 3:
+        fail(f"the profile of {calls} calls holds {len(durs)} {kernel} events")
+    return sum(durs) / len(durs) / 1e3
+
+
+def stage_times(tris) -> dict:
+    """build_lbvh's stages from a torch.profiler trace of STAGE_BUILDS + 1
+    warm builds, a synchronize after each; the first build is dropped (the
+    profiler misses events of the first calls after it starts).  Per stage, one reading a
+    build: the device time of the kernels inside the device-side copy of its
+    lbvh.* span (kernels: the stream runs them in order, so these are the
+    stage's, the hand-written ones, launched through ctypes, included),
+    that span from its first kernel's start to its last one's end (span: it
+    also counts the device idle between them), and the span's host time
+    (host, under the profiler)."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(STAGE_BUILDS + 1):
+            build_lbvh(tris)
+            torch.cuda.synchronize()
+    events = prof.events()
+    kernels = device_kernels(prof)
+
+    def ranges(name, device):
+        return sorted((e.time_range.start, e.time_range.end) for e in events
+                      if e.name == name and e.device_type == device
+                      and (device == DeviceType.CPU or e.is_user_annotation))
+
+    out = {}
+    for st in BUILD_STAGES:
+        host = ranges(f"lbvh.{st}", DeviceType.CPU)
+        if len(host) != STAGE_BUILDS + 1:
+            fail(f"the profile of {STAGE_BUILDS + 1} builds holds {len(host)} lbvh.{st} spans")
+        # each build's device-side span starts after its host range does and
+        # before the next build's (a synchronize ends every build); None
+        # where the profiler lost it
+        dev_all = ranges(f"lbvh.{st}", DeviceType.CUDA)
+        ends = [h[0] for h in host[2:]] + [float("inf")]
+        host = host[1:]
+        dev = [next((d for d in dev_all if h[0] <= d[0] < end), None)
+               for h, end in zip(host, ends)]
+        if all(d is None for d in dev):
+            fail(f"the profile holds no device-side lbvh.{st} span")
+        out[st] = dict(kernels=[None if d is None else
+                                sum(e - s for s, e, _ in kernels if d[0] <= s < d[1]) / 1e3
+                                for d in dev],
+                       span=[None if d is None else (d[1] - d[0]) / 1e3 for d in dev],
+                       host=[(b - a) / 1e3 for a, b in host])
+        if st in ("morton", "radix"):  # the hand-written kernel alone
+            out[st]["named"] = [(e - s) / 1e3 for s, e, name in kernels
+                                if f"{st}_kernel" in name][-STAGE_BUILDS:]
+    return out
+
+
+def twin_route_build(tris) -> BVH:
+    """build_lbvh with the morton and radix twins in place of the kernels on
+    the card: the two names it calls through are swapped for the call."""
+    saved = morton_mod.morton_codes, lbvh_mod.radix_tree
+    morton_mod.morton_codes, lbvh_mod.radix_tree = tb.morton_codes_ref, tb.radix_tree_ref
+    try:
+        return build_lbvh(tris)
+    finally:
+        morton_mod.morton_codes, lbvh_mod.radix_tree = saved
+
+
+def build_stages(view: str, scene, wide8: bool = False) -> dict:
+    """A warm build_lbvh: host seconds after a synchronize, its launches, its
+    peak memory above what was allocated before it; its stages from a
+    profile (stage_times); the same build through the twins on the card
+    (warm host seconds), every BVH field bitwise equal to the kernel
+    route's.  wide8: also the wide collapse and pack seconds of that tree."""
+    tris = scene.tris
+    build_lbvh(tris)  # warm
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    tb.reset_launches()
+    bvh, s_build = sync_time(lambda: build_lbvh(tris))
+    launches = dict(tb.LAUNCHES)
+    peak = torch.cuda.max_memory_allocated() - base
+    st = stage_times(tris)
+    twin_route_build(tris)  # warm
+    t_bvh, s_twin = sync_time(lambda: twin_route_build(tris))
+    same = {f: bitwise_equal(getattr(t_bvh, f), getattr(bvh, f)) for f in BVH_TENSORS}
+    del t_bvh
+    extra = {}
+    if wide8:
+        topo, s_collapse = sync_time(lambda: collapse_wide(tris, bvh))
+        wide, s_pack = sync_time(lambda: pack_wide(tris, bvh, *topo))
+        extra = dict(collapse_s=f"{s_collapse:.3f}", pack_s=f"{s_pack:.3f}",
+                     wides=wide.num_wides)
+        del topo, wide
+
+    def readings(xs):
+        return ",".join("not measured" if x is None else f"{x:.4f}" for x in xs)
+
+    per_build = [None if any(st[k]["kernels"][b] is None for k in BUILD_STAGES)
+                 else sum(st[k]["kernels"][b] for k in BUILD_STAGES)
+                 for b in range(STAGE_BUILDS)]
+    phase("build_stages", view=view, tris=tris.num_tris, build_s=f"{s_build:.4f}",
+          twin_route_build_s=f"{s_twin:.4f}", peak_extra_bytes=peak,
+          launches=json.dumps(launches), bitwise=all(same.values()),
+          stage_kernels_ms=readings(per_build), **extra)
+    for k in BUILD_STAGES:
+        phase("build_stages", view=view, stage=k, kernels_ms=readings(st[k]["kernels"]),
+              span_ms=readings(st[k]["span"]), host_ms=readings(st[k]["host"]),
+              **({"kernel_by_name_ms": readings(st[k]["named"])} if "named" in st[k] else {}))
+    if not all(same.values()):
+        fail(f"build_stages ({view}): BVH fields differ: {[f for f, v in same.items() if not v]}")
+    if launches != {"morton": 1, "radix": 1}:
+        fail(f"build_stages ({view}): build_lbvh launched {launches}, not each kernel once")
+    ms = {k: float(np.median([x for x in v["kernels"] if x is not None]))
+          for k, v in st.items()}
+    return dict(build_s=s_build, ms=ms, peak=peak, bvh=bvh)
+
+
+def renderer_phase(scene, cam: Camera, ref: torch.Tensor) -> dict:
+    """The slice's main path in process, as a user calls it:
+    Renderer(scene, RenderConfig(method="wide8")) builds the tree
+    (make_tracer -> build_lbvh through morton and radix, then the wide
+    collapse) and renders the frame through closest8 and occluded8.  The
+    launch counts of that run; its image against [render]'s."""
+    reset_launches()
+    r, s_init = sync_time(lambda: Renderer(scene, RenderConfig(method="wide8")))
+    img, s_render = sync_time(lambda: r.render(cam))
+    launches = launch_counts()
+    diff = float((img - ref).abs().max())
+    off = float(((img - ref).abs().amax(dim=-1) > 2e-3).float().mean())
+    phase("renderer", tris=scene.num_tris, shape=tuple(img.shape), init_s=f"{s_init:.3f}",
+          render_s=f"{s_render:.3f}", launches=json.dumps(launches),
+          vs_render_max_abs=repr(diff), vs_render_off_frac=off)
+    if off > 0.003:
+        fail(f"the Renderer image differs from render()'s on {off} of pixels")
+    for name in ("morton", "radix", "closest8", "occluded8"):
+        if launches[name] <= 0:
+            fail(f"Renderer(method='wide8') never launched {name}")
+    return launches
+
+
+def cli_phase(bscene, bcam: Camera) -> None:
+    """The port's verbs as users run them: `python -m tpurt_torch.cli.main`
+    subprocesses in a temporary directory, each generating its own scene.
+    Each verb's exit code and seconds; the 5M build's metric line, the 4K
+    image's shape, finiteness and hit fraction, the bunny image against the
+    in-process Renderer's, the fit's checkpoints and its resumed run."""
+    tmp = tempfile.mkdtemp(prefix="tpurt_torch_cli_")
+    env = dict(os.environ, PYTHONPATH=os.pathsep.join(
+        p for p in (os.path.join(HERE, "src"), os.environ.get("PYTHONPATH")) if p))
+
+    def run(verb: str, *argv: str, gate: bool = True):
+        t0 = time.perf_counter()
+        p = subprocess.run([sys.executable, "-m", "tpurt_torch.cli.main", verb, *argv],
+                           cwd=tmp, env=env, capture_output=True, text=True, timeout=600)
+        phase("cli", verb=verb, argv=json.dumps(list(argv)), rc=p.returncode,
+              seconds=f"{time.perf_counter() - t0:.2f}")
+        if gate and p.returncode != 0:
+            fail(f"cli {verb} {argv}: exit {p.returncode}\n{p.stdout[-2000:]}\n{p.stderr[-4000:]}")
+        return p
+
+    try:
+        p = run("build-bvh", "--scene", "sponza5m")
+        row = json.loads(p.stdout.strip().splitlines()[-1])
+        phase("cli", verb="build-bvh", metric=row["metric"], tris=row["tris"],
+              tris_per_s=f"{row['value']:.1f}", seconds=f"{row['seconds']:.4f}")
+        run("render", "--scene", "sponza5m", "--method", "wide8", "-o", "x.npy")
+        img = np.load(os.path.join(tmp, "x.npy"))
+        bg = np.asarray([0.35, 0.45, 0.65], np.float32)
+        hit = float(np.any(img != bg, axis=-1).mean())
+        finite = bool(np.isfinite(img).all())
+        phase("cli", verb="render", scene="sponza5m", shape=img.shape, finite=finite,
+              hit_frac=f"{hit:.4f}", mean=f"{float(img.mean()):.5f}")
+        if img.shape != (HEIGHT_5M, WIDTH_5M, 3) or not finite or not 0.0 < hit <= 1.0:
+            fail(f"cli render sponza5m: shape {img.shape}, finite {finite}, hit {hit}")
+        del img
+        run("render", "--scene", "bunny", "--method", "binary", "-o", "y.npy")
+        ref = Renderer(bscene, RenderConfig(method="binary")).render(bcam).cpu().numpy()
+        img = np.load(os.path.join(tmp, "y.npy"))
+        same = img.shape == ref.shape and bool(np.array_equal(img, ref))
+        phase("cli", verb="render", scene="bunny", shape=img.shape, equal_to_renderer=same)
+        if not same:
+            fail("cli render bunny: the image differs from the in-process Renderer's")
+        ck = os.path.join(tmp, "ckpt")
+        fit = ["--scene", "cornell", "--width", "32", "--method", "wide8", "--ckpt", ck,
+               "--ckpt-every", "2"]
+        run("fit", *fit, "--steps", "6")
+        saved = sorted(os.listdir(ck))
+        run("fit", *fit, "--steps", "8", gate=False)  # two steps need not lower the loss
+        resumed = sorted(set(os.listdir(ck)) - set(saved))
+        phase("cli", verb="fit", checkpoints=json.dumps(saved), resumed_wrote=json.dumps(resumed))
+        if saved != [f"ckpt_{s:08d}.pt" for s in (2, 4, 6)] or resumed != ["ckpt_00000008.pt"]:
+            fail(f"cli fit: checkpoints {saved}, then {resumed}")
+        run("check-grads", "--scene", "cornell", "--width", str(FD_RES), "--method", "wide8")
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+
+
 def main() -> None:
     if not torch.cuda.is_available():
         fail("torch.cuda.is_available() is False: this script needs an NVIDIA GPU")
@@ -1029,7 +1441,8 @@ def main() -> None:
     profile_fit(fit_b["inv"], fit_b["target"], name="profile_fit_bin", kernel="knear_bin")
 
     def entry(name, launches_n, err, ms, plain, b, source=KERNEL_SRC, **extra):
-        # library_ms: no single PyTorch call computes a BVH walk
+        # library_ms: no single PyTorch call computes a BVH walk, Morton
+        # codes or a radix tree
         return {"name": name, "route": "cuda", "source": source,
                 "replaces": REPLACES[name], "launches": launches_n, "max_abs_err": err,
                 "ms": round(ms, 4), "plain_ms": round(plain, 4),
@@ -1080,6 +1493,50 @@ def main() -> None:
         id_mismatch_frac=kn_err, occluders_ms=round(kn_b["ms"]["occluders"], 4),
         occluders_plain_ms=round(kn_b["plain_ms"]["occluders"], 4),
         occluders_bound_ms=round(kn_b["bound"]["occluders"]["bound_ms"], 6)))
+    # -- the LBVH build: morton and radix (every make_tracer above ran them) --
+    tbp = {"n2": treebuild_parity("n2", codes=torch.tensor([3, 7], dtype=torch.int64,
+                                                          device=dev)),
+           "n2_equal": treebuild_parity("n2_equal", codes=torch.tensor(
+               [5, 5], dtype=torch.int64, device=dev)),
+           "all_equal": treebuild_parity("all_equal", codes=torch.full(
+               (1 << 20,), 12345, dtype=torch.int64, device=dev)),
+           "bunny": treebuild_parity("bunny", points=bscene.tris.centroids()),
+           "sponza1m": treebuild_parity("sponza1m", points=scene.tris.centroids())}
+    stages = {"sponza1m": build_stages("sponza1m", scene)}
+    del stages["sponza1m"]["bvh"]
+    # -- the main path as a user calls it: Renderer -> make_tracer -> build --
+    main_launches = renderer_phase(scene, cam, img)
+    del scene, img, fit_b
+    torch.cuda.empty_cache()
+    t5 = time.perf_counter()
+    (scene5, _), s_scene5 = sync_time(lambda: make_sponza_scene(
+        num_tris=NUM_TRIS_5M, width=WIDTH_5M, height=HEIGHT_5M, device=dev))
+    tbp["sponza5m"] = treebuild_parity("sponza5m", points=scene5.tris.centroids())
+    stages["sponza5m"] = build_stages("sponza5m", scene5, wide8=True)
+    phase("sponza5m", tris=scene5.num_tris, scene_s=f"{s_scene5:.3f}",
+          seconds=f"{time.perf_counter() - t5:.1f}")
+    del scene5, stages["sponza5m"]["bvh"]
+    torch.cuda.empty_cache()
+    t_cli = time.perf_counter()
+    cli_phase(bscene, bcam)
+    phase("cli", seconds=f"{time.perf_counter() - t_cli:.1f}")
+    # morton and radix: the 1M sponza's centroids and codes first, the 5M
+    # beside them; ms is the kernel's device time, call_ms the wrapper call's
+    # (its host launch included); launches from [renderer]; max_abs_err over
+    # every input
+    for name in ("morton", "radix"):
+        one, five = tbp["sponza1m"][name], tbp["sponza5m"][name]
+        kernels.append(entry(
+            name, main_launches[name], max(p[name]["max_abs_err"] for p in tbp.values()
+                                           if name in p),
+            one["ms"], one["plain_ms"], one, source=TREEBUILD_SRC,
+            mismatches=sum(p[name]["mismatches"] for p in tbp.values() if name in p),
+            call_ms=round(one["call_ms"], 4), sponza5m_ms=round(five["ms"], 4),
+            sponza5m_call_ms=round(five["call_ms"], 4),
+            sponza5m_plain_ms=round(five["plain_ms"], 4),
+            sponza5m_bound_ms=round(five["bound_ms"], 6), sponza5m_bound_by=five["bound_by"],
+            build_stage_ms=round(stages["sponza1m"]["ms"][name], 4),
+            sponza5m_build_stage_ms=round(stages["sponza5m"]["ms"][name], 4)))
     phase("done", seconds=f"{time.perf_counter() - t_start:.1f}")
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {

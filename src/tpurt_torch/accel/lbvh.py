@@ -3,14 +3,18 @@
 
 Morton codes -> stable (code, index) sort -> radix tree -> node boxes by a
 sparse-table range-min over the contiguous sorted-leaf ranges -> treelet cut
-and DFS thread (the ``flat_*`` arrays the binary engines walk).  Every step
-is a whole-array tensor op, so the build runs on the device of the
-triangles.  The output is bitwise tpurt's for the same triangles: codes are
-int64 holding uint32 values, ``clz`` is computed exactly, and min/max are
-exact in f32.
+and DFS thread (the ``flat_*`` arrays the binary engines walk).  The build
+runs on the device of the triangles: the Morton codes and the radix tree go
+through ``kernels/treebuild.py`` (the CUDA kernels on the card, their
+plain-torch twins on the CPU), the sort is torch's stable sort, and the
+rest are whole-array tensor ops.  The output is bitwise tpurt's for the
+same triangles: codes are int64 holding uint32 values, ``clz`` is computed
+exactly, and min/max are exact in f32.
 
-Not ported yet: the blocked RMQ that tpurt uses above 2^21 leaves (the 5M
-configuration).
+Not ported, by decision: tpurt's blocked RMQ above 2^21 leaves, which keeps
+the sparse table within a TPU's memory.  The flat table here is 23 levels x
+N x 6 f32 at 5M leaves, which the card holds, and min is exact, so the
+boxes are bitwise either way.
 """
 
 from __future__ import annotations
@@ -21,6 +25,8 @@ import torch
 
 from tpurt_torch.accel.morton import triangle_morton_codes
 from tpurt_torch.core.geometry import Triangles
+from tpurt_torch.kernels.treebuild import clz32, radix_tree
+from tpurt_torch.obs.trace import trace_span
 
 _BIG = 3.0e38
 
@@ -67,66 +73,6 @@ class BVH:
         return self.flat_escape.shape[0]
 
 
-def _clz32(x: torch.Tensor) -> torch.Tensor:
-    """Count of leading zeros of x as a uint32 (x int64 in [0, 2^32)).
-    frexp of the float64 value is exact below 2^53: x = m * 2^e with
-    m in [0.5, 1), so e is the bit length."""
-    _, e = torch.frexp(x.to(torch.float64))
-    return torch.where(x == 0, 32, 32 - e.to(torch.int64))
-
-
-def _delta(codes: torch.Tensor, i: torch.Tensor, j: torch.Tensor,
-           n: int) -> torch.Tensor:
-    """LCP length of the sorted (code, index) keys i and j; -1 when j is out
-    of range.  Equal codes fall back to 32 + clz(i ^ j)."""
-    valid = (j >= 0) & (j < n)
-    jc = j.clamp(0, n - 1)
-    x = codes[i] ^ codes[jc]
-    d = torch.where(x == 0, 32 + _clz32(i ^ jc), _clz32(x))
-    return torch.where(valid, d, -1)
-
-
-def build_radix_tree(codes: torch.Tensor):
-    """Vectorized Karras 2012 over sorted codes (N,): returns (left, right,
-    parent, first, last) as int32, leaf ids offset by N-1."""
-    n = codes.shape[0]
-    i = torch.arange(n - 1, device=codes.device, dtype=torch.int64)
-
-    d_raw = _delta(codes, i, i + 1, n) - _delta(codes, i, i - 1, n)
-    d = torch.where(d_raw >= 0, 1, -1)
-    delta_min = _delta(codes, i, i - d, n)
-
-    # Largest l >= 1 with delta(i, i + l*d) > delta_min (monotone predicate),
-    # by a fixed 31-step binary search.
-    l = torch.zeros_like(i)
-    for b in range(31):
-        cand = l + (1 << (30 - b))
-        l = torch.where(_delta(codes, i, i + cand * d, n) > delta_min, cand, l)
-    j = i + l * d
-    delta_node = _delta(codes, i, j, n)
-
-    # Largest s in [0, l-1] with delta(i, i + s*d) > delta_node.
-    s = torch.zeros_like(i)
-    for b in range(31):
-        cand = s + (1 << (30 - b))
-        ok = (cand <= l - 1) & (_delta(codes, i, i + cand * d, n) > delta_node)
-        s = torch.where(ok, cand, s)
-    gamma = i + s * d + torch.clamp_max(d, 0)
-
-    lo_ij = torch.minimum(i, j)
-    hi_ij = torch.maximum(i, j)
-    left = torch.where(lo_ij == gamma, n - 1 + gamma, gamma)
-    right = torch.where(hi_ij == gamma + 1, n - 1 + gamma + 1, gamma + 1)
-
-    parent = torch.full((2 * n - 1,), -1, dtype=torch.int64, device=codes.device)
-    parent[left] = i
-    parent[right] = i
-    leaves = torch.arange(n, device=codes.device, dtype=torch.int64)
-    first = torch.cat([lo_ij, leaves])
-    last = torch.cat([hi_ij, leaves])
-    return tuple(x.to(torch.int32) for x in (left, right, parent, first, last))
-
-
 def range_minmax_sparse(leaf_lo: torch.Tensor, leaf_hi: torch.Tensor,
                         first: torch.Tensor, last: torch.Tensor):
     """Box of every [first, last] sorted-leaf range via a sparse-table RMQ:
@@ -150,7 +96,7 @@ def range_minmax_sparse(leaf_lo: torch.Tensor, leaf_hi: torch.Tensor,
     flat = table.reshape(-1, 6)
     f = first.to(torch.int64)
     length = last.to(torch.int64) - f + 1
-    kq = 31 - _clz32(length)  # floor(log2(len)), exact
+    kq = 31 - clz32(length)  # floor(log2(len)), exact
     m = torch.minimum(flat[kq * n + f], flat[kq * n + f + length - (1 << kq)])
     return m[:, 0:3].contiguous(), (-m[:, 3:6]).contiguous()
 
@@ -186,18 +132,20 @@ def _thread_dfs(parent: torch.Tensor, first: torch.Tensor, last: torch.Tensor,
 
 def build_lbvh(tris: Triangles, leaf_size: int = 8, band: float = 0.0) -> BVH:
     """Morton sort -> radix tree -> node boxes -> DFS thread over the
-    treelet cut at leaf_size triangles.
+    treelet cut at leaf_size triangles.  Each stage runs in a named span
+    (``lbvh.*``), so a torch.profiler trace splits the build by stage.
 
     band > 0 inflates the triangle boxes so the soft path's extended
     barycentric-band hits are still found by traversal."""
     n = tris.num_tris
-    v0, v1, v2 = tris.corners()
-    tri_lo = torch.minimum(torch.minimum(v0, v1), v2)
-    tri_hi = torch.maximum(torch.maximum(v0, v1), v2)
-    if band > 0.0:
-        pad = band * ((v1 - v0).abs() + (v2 - v0).abs()) + 1e-7
-        tri_lo = tri_lo - pad
-        tri_hi = tri_hi + pad
+    with trace_span("lbvh.boxes"):
+        v0, v1, v2 = tris.corners()
+        tri_lo = torch.minimum(torch.minimum(v0, v1), v2)
+        tri_hi = torch.maximum(torch.maximum(v0, v1), v2)
+        if band > 0.0:
+            pad = band * ((v1 - v0).abs() + (v2 - v0).abs()) + 1e-7
+            tri_lo = tri_lo - pad
+            tri_hi = tri_hi + pad
     dev = tris.device
 
     if n == 1:  # single-triangle scene: one flat leaf
@@ -213,25 +161,32 @@ def build_lbvh(tris: Triangles, leaf_size: int = 8, band: float = 0.0) -> BVH:
                    flat_first=z.clone(), flat_count=z + 1, dfs=z.clone(),
                    leaf_size=leaf_size, band=band)
 
-    codes, order = torch.sort(triangle_morton_codes(tris), stable=True)
-    left, right, parent, first, last = build_radix_tree(codes)
-    node_lo, node_hi = range_minmax_sparse(tri_lo[order], tri_hi[order],
-                                           first, last)
-    dfs, esc, live, is_eff_leaf = _thread_dfs(parent, first, last, leaf_size)
-    m = 2 * n - 1
-    at = dfs[live].long()  # tpurt's scatter with mode="drop" of dead nodes
+    raw = triangle_morton_codes(tris)
+    with trace_span("lbvh.sort"):
+        codes, order = torch.sort(raw, stable=True)
+    with trace_span("lbvh.radix"):
+        left, right, parent, first, last = radix_tree(codes)
+    with trace_span("lbvh.rmq"):
+        node_lo, node_hi = range_minmax_sparse(tri_lo[order], tri_hi[order],
+                                               first, last)
+    with trace_span("lbvh.thread_dfs"):
+        dfs, esc, live, is_eff_leaf = _thread_dfs(parent, first, last, leaf_size)
+    with trace_span("lbvh.flat_scatter"):
+        m = 2 * n - 1
+        at = dfs[live].long()  # tpurt's scatter with mode="drop" of dead nodes
 
-    def scatter(fill, src):
-        out = torch.full((m,) + tuple(src.shape[1:]), fill, dtype=src.dtype,
-                         device=dev)
-        out[at] = src[live]
-        return out
+        def scatter(fill, src):
+            out = torch.full((m,) + tuple(src.shape[1:]), fill, dtype=src.dtype,
+                             device=dev)
+            out[at] = src[live]
+            return out
 
+        flat = dict(flat_lo=scatter(0.0, node_lo), flat_hi=scatter(0.0, node_hi),
+                    flat_escape=scatter(-1, esc),
+                    flat_is_leaf=scatter(False, is_eff_leaf),
+                    flat_first=scatter(0, first),
+                    flat_count=scatter(0, torch.where(is_eff_leaf, last - first + 1, 0)))
     return BVH(left=left, right=right, parent=parent, first=first, last=last,
                node_lo=node_lo, node_hi=node_hi, codes=codes,
-               tri_order=order.to(torch.int32),
-               flat_lo=scatter(0.0, node_lo), flat_hi=scatter(0.0, node_hi),
-               flat_escape=scatter(-1, esc), flat_is_leaf=scatter(False, is_eff_leaf),
-               flat_first=scatter(0, first),
-               flat_count=scatter(0, torch.where(is_eff_leaf, last - first + 1, 0)),
-               dfs=dfs, leaf_size=leaf_size, band=band)
+               tri_order=order.to(torch.int32), dfs=dfs, leaf_size=leaf_size,
+               band=band, **flat)

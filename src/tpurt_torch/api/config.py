@@ -1,8 +1,8 @@
 """Render and fit settings (counterpart of ``tpurt/api/config.py``'s
-RenderConfig and FitConfig).  Fields that no ported path reads are left out
-(tpurt's spp, light_seed, ckpt_every and seed come with the sampling and
-checkpoints that read them); the Config container, YAML loading and
-overrides are not ported yet."""
+RenderConfig and FitConfig).  Only the fields a ported path reads are here:
+tpurt's light_seed comes with the area lights that read it, FitConfig.seed
+has no reader in tpurt either, and DistConfig, the Config container, file
+loading and flat overrides wait for the slice whose code calls them."""
 
 from __future__ import annotations
 
@@ -19,6 +19,8 @@ class RenderConfig:
     method: str = "wide8"
     # treelet-cut leaf size of the binary engines' LBVH
     leaf_size: int = 8
+    # jittered samples per pixel (Renderer.render)
+    spp: int = 1
     # soft/differentiable path
     soft: bool = False
     k_layers: int = 4
@@ -49,7 +51,10 @@ class FitConfig:
     fit_verts: bool = True
     fit_albedo: bool = True
     grad_chunks: int = 1  # ray chunks per step; bounds the backward's memory
-    ckpt_path: str | None = None  # checkpoints are not ported yet: set raises
+    # checkpoints: every ckpt_every steps into ckpt_path (None: none); a fit
+    # resumes from the latest one there
+    ckpt_every: int = 50
+    ckpt_path: str | None = None
     # rebuild-on-drift: every `rebuild_every` steps, rebuild the topology
     # when the refit tree's quality (InverseRenderer.tree_quality) has
     # degraded past rebuild_ratio x its at-build value; 0 disables it

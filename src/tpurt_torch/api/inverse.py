@@ -12,6 +12,10 @@ albedo goes through the (T, 15) triangle table, so each chunk's backward
 stops at a detached copy of the table, the chunks' table gradients add up
 there, and one backward through the table brings them to the parameters.
 That is tpurt's per-chunk gradient sum with the memory of one chunk.
+
+With ``FitConfig.ckpt_path`` set, a fit resumes from the latest checkpoint
+there (parameters and optimizer state) and saves one every ``ckpt_every``
+steps, as tpurt's does (api/checkpoint.py).
 """
 
 from __future__ import annotations
@@ -26,11 +30,12 @@ from tpurt_torch.accel.bvh8 import refit_wide_direct
 from tpurt_torch.accel.lbvh import range_minmax_sparse
 from tpurt_torch.accel.packet import refit_packed
 from tpurt_torch.accel.refit import refit_aabbs
+from tpurt_torch.api.checkpoint import latest_step, restore_ckpt, save_ckpt
 from tpurt_torch.api.config import FitConfig, RenderConfig
 from tpurt_torch.core.geometry import Camera, Rays
 from tpurt_torch.core.scene import Scene
 from tpurt_torch.render.camera import gen_primary_rays
-from tpurt_torch.render.pipeline import make_tracer, render_rays, tri_table
+from tpurt_torch.render.pipeline import _require_ported, make_tracer, render_rays, tri_table
 
 
 def make_optimizer(cfg: FitConfig, params: dict[str, torch.Tensor]):
@@ -72,14 +77,11 @@ class InverseRenderer:
                 "a device mesh (data-parallel fit) is not ported to tpurt_torch "
                 "yet (ROADMAP.md queue 1, slice 5)")
         self.fit_cfg = fit or FitConfig()
-        if self.fit_cfg.ckpt_path:
-            raise NotImplementedError(
-                "fit checkpoints (ckpt_path) are not ported to tpurt_torch yet "
-                "(ROADMAP.md queue 1, item 17)")
         self.render_cfg = render or RenderConfig(
             method="wide8", soft=True, k_layers=6, sharpness=40.0, band=0.15)
         if not self.render_cfg.soft:
             raise ValueError("inverse rendering requires RenderConfig(soft=True)")
+        _require_ported(self.render_cfg.light_samples)
         self.scene0 = scene
         self.cam = cam
         self.tracer0 = make_tracer(scene, **self.render_cfg.tracer_kwargs())
@@ -193,8 +195,15 @@ class InverseRenderer:
             o, d, target = (torch.cat([x, zeros]) for x in (o, d, target))
         params = self.init_params()
         opt = make_optimizer(cfg, params)
+        start = 0
+        if cfg.ckpt_path and latest_step(cfg.ckpt_path) is not None:
+            state, start = restore_ckpt(cfg.ckpt_path)
+            with torch.no_grad():
+                for k, v in params.items():
+                    v.copy_(state["params"][k])
+            opt.load_state_dict(state["opt"])
         losses, grad_norms = [], []
-        for i in range(steps):
+        for i in range(start, steps):
             loss = self._step(params, opt, o, d, target)
             grad_norms.append({k: float(torch.linalg.vector_norm(v.grad))
                                for k, v in params.items()})
@@ -204,6 +213,9 @@ class InverseRenderer:
             if (cfg.rebuild_every and "verts" in params
                     and (i + 1) % cfg.rebuild_every == 0):
                 self._maybe_rebuild(params)
+            if cfg.ckpt_path and cfg.ckpt_every and (i + 1) % cfg.ckpt_every == 0:
+                save_ckpt(cfg.ckpt_path, {"params": {k: v.detach() for k, v in params.items()},
+                                          "opt": opt.state_dict()}, i + 1)
         final = {k: v.detach() for k, v in params.items()}
         return FitResult(scene=self.apply_params(final), params=final,
-                         losses=losses, steps_run=steps, grad_norms=grad_norms)
+                         losses=losses, steps_run=steps - start, grad_norms=grad_norms)

@@ -33,3 +33,11 @@ def srgb_encode(linear: torch.Tensor) -> torch.Tensor:
 
 def to_uint8(img: torch.Tensor) -> torch.Tensor:
     return torch.clamp(srgb_encode(img) * 255.0 + 0.5, 0, 255).to(torch.uint8)
+
+
+def sample_square(generator: torch.Generator, shape: tuple[int, ...]) -> torch.Tensor:
+    """Jittered offsets in [0, 1)^2 for AA: (*shape, 2) f32 on the
+    generator's device.  tpurt draws them from a jax.random key; the two
+    streams differ, so tests feed both packages the same numpy jitter."""
+    return torch.rand((*shape, 2), generator=generator, device=generator.device,
+                      dtype=torch.float32)

@@ -1,13 +1,14 @@
 """Scene container and the procedural scenes (counterpart of
 ``tpurt/core/scene.py``).
 
-The generators are tpurt's numpy code, copied, so vertices, faces and albedo
-are bitwise tpurt's for the same arguments; only the final conversion to
-tensors on ``device`` differs.  The OBJ/PLY loaders are not ported yet.
+The generators and the OBJ/PLY loaders are tpurt's numpy code, copied, so
+vertices, faces and albedo are bitwise tpurt's for the same arguments or
+bytes; only the final conversion to tensors on ``device`` differs.
 """
 
 from __future__ import annotations
 
+import os
 from dataclasses import dataclass
 
 import numpy as np
@@ -36,6 +37,110 @@ class Scene:
     @property
     def num_tris(self) -> int:
         return self.tris.num_tris
+
+
+# ---------------------------------------------------------------------------
+# Mesh file I/O (numpy, host-side)
+# ---------------------------------------------------------------------------
+def load_obj(path_or_buf, albedo=None, device="cuda") -> Triangles:
+    """Minimal Wavefront OBJ loader: v / f records, fans polygons, 1-based and
+    negative indices supported. Ignores vt/vn/materials."""
+    if hasattr(path_or_buf, "read"):
+        text = path_or_buf.read()
+    else:
+        with open(path_or_buf, "r") as f:
+            text = f.read()
+    verts: list[list[float]] = []
+    faces: list[list[int]] = []
+    for line in text.splitlines():
+        line = line.strip()
+        if line.startswith("v "):
+            parts = line.split()
+            verts.append([float(parts[1]), float(parts[2]), float(parts[3])])
+        elif line.startswith("f "):
+            idx = []
+            for tok in line.split()[1:]:
+                i = int(tok.split("/")[0])
+                idx.append(i - 1 if i > 0 else len(verts) + i)
+            for k in range(1, len(idx) - 1):  # fan triangulation
+                faces.append([idx[0], idx[k], idx[k + 1]])
+    v = np.asarray(verts, np.float32)
+    f = np.asarray(faces, np.int32)
+    return Triangles.create(v, f, albedo=albedo, device=device)
+
+
+def save_obj(path, tris: Triangles) -> None:
+    v = tris.verts.detach().cpu().numpy()
+    f = tris.faces.cpu().numpy()
+    with open(path, "w") as fh:
+        for p in v:
+            fh.write(f"v {p[0]} {p[1]} {p[2]}\n")
+        for t in f:
+            fh.write(f"f {t[0]+1} {t[1]+1} {t[2]+1}\n")
+
+
+_PLY_TYPES = {
+    "float": "<f4", "float32": "<f4", "double": "<f8", "float64": "<f8",
+    "uchar": "u1", "uint8": "u1", "char": "i1", "int8": "i1",
+    "short": "<i2", "ushort": "<u2", "int": "<i4", "int32": "<i4",
+    "uint": "<u4", "uint32": "<u4",
+}
+
+
+def load_ply(path, albedo=None, device="cuda") -> Triangles:
+    """PLY loader: ascii and binary_little_endian, vertex x/y/z + face lists
+    (a uchar count and int32 indices in the binary form)."""
+    with open(path, "rb") as f:
+        data = f.read()
+    header_end = data.find(b"end_header\n") + len(b"end_header\n")
+    header = data[:header_end].decode("ascii")
+    body = data[header_end:]
+    fmt = "ascii"
+    n_vert = n_face = 0
+    vert_props: list[tuple[str, str]] = []
+    cur = None
+    for line in header.splitlines():
+        t = line.split()
+        if not t:
+            continue
+        if t[0] == "format":
+            fmt = t[1]
+        elif t[0] == "element":
+            cur = t[1]
+            if t[1] == "vertex":
+                n_vert = int(t[2])
+            elif t[1] == "face":
+                n_face = int(t[2])
+        elif t[0] == "property" and cur == "vertex" and t[1] != "list":
+            vert_props.append((t[2], t[1]))
+    faces = []
+    if fmt == "ascii":
+        txt = body.decode("ascii").split("\n")
+        vs = np.array([[float(x) for x in txt[i].split()[:3]] for i in range(n_vert)],
+                      np.float32)
+        for i in range(n_vert, n_vert + n_face):
+            t = [int(x) for x in txt[i].split()]
+            k = t[0]
+            poly = t[1:1 + k]
+            for j in range(1, k - 1):
+                faces.append([poly[0], poly[j], poly[j + 1]])
+    elif fmt == "binary_little_endian":
+        vdt = np.dtype([(n, _PLY_TYPES[ty]) for n, ty in vert_props])
+        varr = np.frombuffer(body, dtype=vdt, count=n_vert)
+        vs = np.stack([varr["x"], varr["y"], varr["z"]], axis=-1).astype(np.float32)
+        buf = body[n_vert * vdt.itemsize:]
+        pos = 0
+        for _ in range(n_face):
+            k = buf[pos]
+            pos += 1
+            poly = np.frombuffer(buf, dtype="<i4", count=k, offset=pos)
+            pos += 4 * k
+            for j in range(1, k - 1):
+                faces.append([poly[0], poly[j], poly[j + 1]])
+    else:
+        raise ValueError(f"unsupported PLY format {fmt}")
+    return Triangles.create(vs, np.asarray(faces, np.int32), albedo=albedo,
+                            device=device)
 
 
 # ---------------------------------------------------------------------------
@@ -290,17 +395,32 @@ def _subdivided_box(sub: int):
             np.concatenate(fs).astype(np.int32))
 
 
-def get_scene(name: str, **kw) -> tuple[Scene, Camera]:
-    """Scene registry: 'cornell', 'bunny', 'sponza', 'sponza5m'."""
+def get_scene(name: str, device="cuda", **kw) -> tuple[Scene, Camera]:
+    """Scene registry used by the CLI: 'cornell', 'bunny', 'sponza',
+    'sponza5m', or the path of an .obj or .ply file (a point light at
+    (5, 5, 5), the camera framing the mesh's bounds)."""
     if name == "cornell":
-        return make_cornell_box(**kw)
+        return make_cornell_box(**kw, device=device)
     if name == "bunny":
-        return make_bunny_scene(**kw)
+        return make_bunny_scene(**kw, device=device)
     if name == "sponza":
-        return make_sponza_scene(**kw)
+        return make_sponza_scene(**kw, device=device)
     if name == "sponza5m":
         kw.setdefault("num_tris", 5_000_000)
         kw.setdefault("width", 3840)
         kw.setdefault("height", 2160)
-        return make_sponza_scene(**kw)
+        return make_sponza_scene(**kw, device=device)
+    if os.path.exists(name):
+        ext = os.path.splitext(name)[1].lower()
+        tris = (load_obj if ext == ".obj" else load_ply)(name, device=device)
+        scene = Scene.create(tris, PointLight.create((5, 5, 5), (100.0,) * 3, device=device),
+                             background=(0.1,) * 3)
+        v = tris.verts[tris.faces.long()].reshape(-1, 3).cpu().numpy()
+        lo, hi = v.min(axis=0), v.max(axis=0)
+        center = 0.5 * (lo + hi)
+        size = float(np.max(hi - lo))
+        cam = Camera.create(eye=center + np.array([0, 0.4 * size, 1.6 * size]),
+                            target=center, fov_y_deg=45.0, width=512, height=512,
+                            device=device)
+        return scene, cam
     raise ValueError(f"unknown scene {name!r}")

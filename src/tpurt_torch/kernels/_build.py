@@ -129,6 +129,10 @@ def load() -> ctypes.CDLL:
             _P, _P, _P, _P, _P, _P, _P, ctypes.c_int, ctypes.c_float, ctypes.c_int,
             ctypes.c_float, ctypes.c_float, _P, _P]
         lib.tpurt_knear_bin.restype = ctypes.c_int
+        lib.tpurt_morton.argtypes = [_P, _P, _P, ctypes.c_float, ctypes.c_int, _P, _P]
+        lib.tpurt_morton.restype = ctypes.c_int
+        lib.tpurt_radix.argtypes = [_P, ctypes.c_int, _P, _P, _P, _P, _P, _P]
+        lib.tpurt_radix.restype = ctypes.c_int
         lib.tpurt_error_string.argtypes = [ctypes.c_int]
         lib.tpurt_error_string.restype = ctypes.c_char_p
         _lib = lib

@@ -22,8 +22,7 @@ Engines (``Tracer.method``):
   of tpurt's ``"pallas8"``: CUDA kernels on the GPU, their plain-torch twins
   on the CPU.
 
-Area-light sampling and multi-sample rendering are not ported yet; asking
-for them raises.
+Area-light sampling is not ported yet; asking for it raises.
 """
 
 from __future__ import annotations
@@ -41,7 +40,7 @@ from tpurt_torch.accel.packet import PackedBVH, max_cut_leaves, pack_bvh
 from tpurt_torch.accel.traverse_ref import (
     k_nearest_ref, occluded_ref, occluder_ids_ref, traverse_ref)
 from tpurt_torch.core.geometry import Camera, Hit, KHits, Rays, T_MAX
-from tpurt_torch.core.math import cross
+from tpurt_torch.core.math import cross, sample_square
 from tpurt_torch.core.scene import Scene
 from tpurt_torch.diff.gather_grad import gather_verts
 from tpurt_torch.diff.intersect_vjp import intersect_tuv
@@ -60,13 +59,11 @@ SHADOW_T_FRAC = 1.0 - 1e-3  # stop shadow rays just before the light
 METHODS = ("brute", "bvh", "binary", "wide8")
 
 
-def _require_ported(light_samples: int, spp: int = 1) -> None:
-    for asked, what in ((light_samples > 0, "area-light sampling (light_samples > 0)"),
-                        (spp > 1, "multi-sample rendering (spp > 1)")):
-        if asked:
-            raise NotImplementedError(
-                f"{what} is not ported to tpurt_torch yet (ROADMAP.md queue 1, "
-                f"item 17)")
+def _require_ported(light_samples: int) -> None:
+    if light_samples > 0:
+        raise NotImplementedError(
+            "area-light sampling (light_samples > 0) is not ported to tpurt_torch "
+            "yet (ROADMAP.md queue 1, item 17)")
 
 
 def tri_table(tris) -> torch.Tensor:
@@ -349,23 +346,44 @@ def render_rays(tracer: Tracer, rays: Rays, *, soft: bool = False,
 def render(scene: Scene, cam: Camera, *, method: str = "brute",
            tracer: Tracer | None = None, soft: bool = False, k_layers: int = 4,
            sharpness: float = 100.0, band: float = 0.08, k_occ: int = 8,
-           spp: int = 1, light_samples: int = 0) -> torch.Tensor:
+           spp: int = 1, generator: torch.Generator | None = None,
+           light_samples: int = 0) -> torch.Tensor:
     """Render an (H, W, 3) linear-radiance image on the scene's device.
 
     A soft render builds its tracer with band-inflated boxes (band=band);
-    a hard one with band 0.  Primary rays are traced in Morton pixel order
-    (neighbouring rays on neighbouring pixels) and the image is put back in
-    row-major order; the per-ray engines give the same pixels in any
-    order."""
-    _require_ported(light_samples, spp)
+    a hard one with band 0.  spp > 1 with a generator averages spp
+    jittered samples (render_image)."""
+    _require_ported(light_samples)
     if tracer is None:
         tracer = make_tracer(scene, method, band=band if soft else 0.0)
     else:
         tracer = dataclasses.replace(tracer, scene=scene, table=tri_table(scene.tris))
-    rays = gen_primary_rays(cam)
-    perm, inv = (torch.as_tensor(x, device=rays.o.device)
+    return render_image(tracer, cam, spp=spp, generator=generator, soft=soft,
+                        k_layers=k_layers, sharpness=sharpness, band=band, k_occ=k_occ)
+
+
+def render_image(tracer: Tracer, cam: Camera, spp: int = 1,
+                 generator: torch.Generator | None = None, **kw) -> torch.Tensor:
+    """The camera's (H, W, 3) image through render_rays(tracer, ..., **kw).
+
+    Primary rays are traced in Morton pixel order (neighbouring rays on
+    neighbouring pixels) and the image is put back in row-major order; the
+    per-ray engines give the same pixels in any order.  With spp > 1 and a
+    generator, the mean of spp samples, each with its own sub-pixel jitter
+    from sample_square(generator); otherwise one sample at pixel centres,
+    as tpurt's render does without a key."""
+    perm, inv = (torch.as_tensor(x, device=cam.eye.device)
                  for x in pixel_morton_perm(cam.height, cam.width))
-    color = render_rays(tracer, Rays(o=rays.o[perm], d=rays.d[perm]), soft=soft,
-                        k_layers=k_layers, sharpness=sharpness, band=band,
-                        k_occ=k_occ)
-    return color[inv].reshape(cam.height, cam.width, 3)
+
+    def one(jitter):
+        rays = gen_primary_rays(cam, jitter)
+        return render_rays(tracer, Rays(o=rays.o[perm], d=rays.d[perm]), **kw)[inv]
+
+    if spp <= 1 or generator is None:
+        img = one(None)
+    else:
+        img = torch.zeros((cam.num_pixels, 3), dtype=torch.float32, device=cam.eye.device)
+        for _ in range(spp):
+            img = img + one(sample_square(generator, (cam.num_pixels,)))
+        img = img / spp
+    return img.reshape(cam.height, cam.width, 3)

@@ -17,10 +17,11 @@ from tpurt.core.geometry import Triangles as JTriangles
 from tpurt_torch.accel import bvh8
 from tpurt_torch.accel.bvh8 import build_wide, decode_lane_i32, encode_lane_i32
 from tpurt_torch.accel.lbvh import build_lbvh
-from tpurt_torch.accel.morton import expand_bits, triangle_morton_codes
+from tpurt_torch.accel.morton import triangle_morton_codes
 from tpurt_torch.core import scene as tscene
 from tpurt_torch.core.convert import bvh_from_numpy
 from tpurt_torch.core.geometry import Triangles
+from tpurt_torch.kernels.treebuild import expand_bits
 
 BVH_FIELDS = ("left", "right", "parent", "first", "last", "node_lo", "node_hi",
               "codes", "tri_order")

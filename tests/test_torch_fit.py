@@ -372,13 +372,15 @@ def test_tree_quality_matches_tpurt():
 
 
 @pytest.mark.parametrize("kw,match", [
-    (dict(fit=FitConfig(ckpt_path="ckpt")), "item 17"),
+    (dict(render=RenderConfig(method="brute", light_samples=2, **RK)), "item 17"),
     (dict(mesh=object()), "slice 5"),
 ])
 def test_unported_fit_options_raise(kw, match):
+    """Area lights (light_samples > 0) and a device mesh are refused when
+    the fit is set up."""
     scene, cam = make_cornell_box(device="cpu")
     with pytest.raises(NotImplementedError, match=match):
-        InverseRenderer(scene, cam, render=RenderConfig(method="brute", **RK), **kw)
+        InverseRenderer(scene, cam, **{"render": RenderConfig(method="brute", **RK), **kw})
 
 
 def test_hard_render_config_is_refused():

@@ -58,7 +58,7 @@ def test_render_with_a_prebuilt_tracer_and_uint8():
 
 @pytest.mark.parametrize("kw,item", [
     (dict(soft=True, light_samples=2), "item 17"),
-    (dict(spp=4), "item 17"),
+    (dict(spp=4, light_samples=2), "item 17"),
     (dict(light_samples=2), "item 17"),
 ])
 def test_unported_options_raise(kw, item):
