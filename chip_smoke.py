@@ -4,12 +4,15 @@ kernels, and of the 70K-triangle bunny at 512x512 through the binary-BVH
 kernels; the LBVH build through the Morton and radix-tree kernels at 1M and
 5M triangles, and the port's Renderer and CLI.
 
-    python3 chip_smoke.py
+    python3 chip_smoke.py [--parent DIR] [--parent NAME=DIR ...]
 
 Phases, one line each (any failure exits non-zero and prints no result):
   device   torch.cuda must be available; the card's name and power limit.
   build    nvcc builds the CUDA kernels from src/tpurt_torch/kernels/csrc,
-           one process per source; each kernel's registers and spills.
+           one process per source; each kernel's registers and spills (the
+           k-nearest kernels must not spill).  With --parent, the kernels of
+           each other source tree (a checkout of the parent commit, or of a
+           variant of these kernels) are built alongside.
   scene    the 1M-triangle sponza scene at 1920x1088: scene, LBVH, collapse
            and pack seconds (band 0, the hard render's tree).
   parity   closest8 and occluded8 against their plain-torch twins on the
@@ -25,7 +28,9 @@ Phases, one line each (any failure exits non-zero and prints no result):
            knear8 against its twin on every ray of both views: k = 4 on the
            primary rays (t_max = T_MAX) and k = 8 on the shadow-candidate
            rays from layer 0's points (t_max = 2 x the segment), as the soft
-           render calls it; kernel and twin full-frame ms, walk counts.
+           render calls it; the wrapper's ms (CUDA events), the kernel's
+           device ms (bare launches, CUDA events), the twin's full-frame ms,
+           walk counts.
   render   render(method="wide8") of the full frame through closest8 and
            occluded8, with the launch counts of that run.
   golden   cornell 64^2 and bunny-3K 48^2 renders on the card against the
@@ -41,8 +46,17 @@ Phases, one line each (any failure exits non-zero and prints no result):
   fit_pieces
            knear8 as the fit calls it (the step's refit tree, row-major
            chunks of 261,120 rays): both calls on chunk 0 against the twin
-           with their bounds (as knear_parity view=fit_chunk0), and each
-           call's kernel ms summed over the 8 chunks; the refit's ms.
+           with their bounds (as knear_parity view=fit_chunk0); each call
+           summed over the 8 chunks and as one launch over the whole
+           row-major frame, by CUDA events and the kernel's device ms; the
+           refit's ms.
+  knear_ab (with --parent) knear8 against each other tree's, and against
+           itself behind a Morton sort of the rays (morton_sorted), on the
+           same refit tree: every id list equal, then in turns other, new,
+           new, other the calls' ms (CUDA events) and each tree's kernel
+           device ms (bare launches), over the fit's 8 row-major chunks, one
+           row-major launch and the Morton frame, both calls; knear_bin the
+           same on the bunny.
   fit_check
            cornell 32^2 soft on the card: wide8 image against brute, wide8
            gradients against the same code on the CPU, finite differences,
@@ -64,7 +78,8 @@ knear_bin over the packed threaded tree):
            bunny), knear_bin on the bunny as
            the soft render calls it (k = 4 on the primary rays, k = 8 on the
            layer-0 shadow candidates, t_max = 2 x the segment); mismatch
-           fraction, max |t, u, v - twin's|, kernel and twin ms.
+           fraction, max |t, u, v - twin's|, kernel and twin ms (knear_bin
+           also its device ms).
   bound_bin
            each kernel's least time on the card from its twin's walk counts
            (the bunny frame, the 1M main view).
@@ -114,7 +129,10 @@ Then the kernels' JSON line and, last, {"ok": true, "device": {...}}.
 
 from __future__ import annotations
 
+import argparse
+import ctypes
 import dataclasses
+import functools
 import json
 import os
 import re
@@ -123,6 +141,7 @@ import subprocess
 import sys
 import tempfile
 import time
+from concurrent.futures import ThreadPoolExecutor
 
 HERE = os.path.dirname(os.path.abspath(__file__))
 sys.path.insert(0, os.path.join(HERE, "src"))
@@ -131,7 +150,8 @@ import numpy as np  # noqa: E402
 import torch  # noqa: E402
 
 from tpurt_torch.accel.bvh8 import (  # noqa: E402
-    collapse_wide, pack_wide, refit_wide_direct, tri_rows_bytes, wide_bytes)
+    WideBVH, collapse_wide, pack_wide, refit_wide_direct, tri_rows_bytes, wide_bytes)
+from tpurt_torch.accel.intersect import DEFAULT_T_MIN  # noqa: E402
 from tpurt_torch.accel import lbvh as lbvh_mod  # noqa: E402
 from tpurt_torch.accel import morton as morton_mod  # noqa: E402
 from tpurt_torch.accel.lbvh import BVH, build_lbvh  # noqa: E402
@@ -557,12 +577,13 @@ def bin_knear(packed):
 
 
 @torch.no_grad()
-def knear_call(out: dict, view: str, call: str, walks, rays: Rays, k: int, t_max,
+def knear_call(out: dict, view: str, call: str, walks, tree, rays: Rays, k: int, t_max,
                count: bool, name: str = "knear_parity", kernel: str = "knear8",
                layout: dict = WIDE) -> torch.Tensor:
-    """A k-nearest kernel against its twin (walks = (kernel, twin)) on every
-    ray of `rays`: the twin in PARITY_CHUNK chunks, timed as plain_ms, the
-    kernel's ms by CUDA events, and with `count` the bound from the twin's
+    """A k-nearest kernel against its twin (walks = (kernel, twin), over
+    `tree`) on every ray of `rays`: the twin in PARITY_CHUNK chunks, timed as
+    plain_ms, the wrapper's ms by CUDA events, the kernel's device ms from
+    bare launches (launch_ms), and with `count` the bound from the twin's
     walk counts; stored in out[key][call].  Fails on more than
     MAX_MISMATCH_FRAC of rays with differing id lists.  Returns the twin's
     ids."""
@@ -578,14 +599,18 @@ def knear_call(out: dict, view: str, call: str, walks, rays: Rays, k: int, t_max
     (ref,), plain = chunked(twin, n_r)
     bad = int((got != ref).any(dim=1).sum())
     ms = cuda_ms(lambda: run(rays, k, tm), iters=5)
+    dev_ms = launch_ms(this_library(), tree, [(rays, k, tm)])
     out["ms"][call], out["plain_ms"][call] = ms, plain
+    out.setdefault("device_ms", {})[call] = dev_ms
     out["mismatch_frac"][call] = bad / n_r
+    out.setdefault("inputs", {})[call] = (rays, k, tm)
     extra = {}
     if count:
         extra = out["bound"][call] = bound(counted(twin, n_r), n_r, 28, 4 * k, layout)
     phase(name, view=view, call=call, k=k, rays=n_r,
           id_list_mismatches=bad, filled_frac=f"{float((ref >= 0).float().mean()):.4f}",
-          **{f"{kernel}_ms": f"{ms:.4f}", f"{kernel}_plain_ms": f"{plain:.1f}"}, **extra)
+          **{f"{kernel}_ms": f"{ms:.4f}", f"{kernel}_device_ms": f"{dev_ms:.4f}",
+             f"{kernel}_plain_ms": f"{plain:.1f}"}, **extra)
     if bad > MAX_MISMATCH_FRAC * n_r:
         fail(f"{kernel} ({view}, {call}): {bad} id lists differ from the twin's")
     return ref
@@ -605,51 +630,254 @@ def knear_parity(view: str, tracer: Tracer, frame: Rays, count: bool = False,
     binary) against its twin on every ray of the frame, in both of the soft
     render's calls: k = 4 on the primary rays with t_max = T_MAX, and k = 8
     on the shadow-candidate rays from layer 0's points."""
-    walks, layout = ((bin_knear(tracer.packed), BIN) if tracer.method == "binary"
-                     else (wide8_knear(tracer.wide), WIDE))
+    tree, layout = ((tracer.packed, BIN) if tracer.method == "binary"
+                    else (tracer.wide, WIDE))
+    walks = bin_knear(tree) if tracer.method == "binary" else wide8_knear(tree)
     out = {"ms": {}, "plain_ms": {}, "mismatch_frac": {}, "bound": {}}
     kw = dict(name=name, kernel=kernel, layout=layout)
     with torch.no_grad():
-        ids = knear_call(out, view, "layers", walks, frame, SOFT["k_layers"], T_MAX, count,
-                         **kw)
+        ids = knear_call(out, view, "layers", walks, tree, frame, SOFT["k_layers"], T_MAX,
+                         count, **kw)
         cand, tm = occluder_call(tracer.table, tracer.scene, frame, ids)
-        knear_call(out, view, "occluders", walks, cand, SOFT["k_occ"], tm, count, **kw)
+        knear_call(out, view, "occluders", walks, tree, cand, SOFT["k_occ"], tm, count, **kw)
     return out
+
+
+def knear_calls(run, table, scene, rays: Rays, chunks: int) -> dict:
+    """The soft render's two k-nearest calls, as the fit makes them on each
+    of `chunks` consecutive chunks of `rays`, as (rays, k, t_max) inputs by
+    call; run(rays, k, t_max) computes the layer ids the occluder rays
+    start from."""
+    m = rays.o.shape[0] // chunks
+    out = {"layers": [], "occluders": []}
+    for c in range(chunks):
+        chunk = rays_slice(rays, slice(c * m, (c + 1) * m))
+        cand, tm = occluder_call(table, scene, chunk, run(chunk, SOFT["k_layers"], T_MAX))
+        out["layers"].append((chunk, SOFT["k_layers"], T_MAX))
+        out["occluders"].append((cand, SOFT["k_occ"], tm))
+    return out
+
+
+def knear_loop(run, calls: list):
+    """fn() running a k-nearest implementation run(rays, k, t_max) over
+    `calls` back to back, as the fit's chunk loop launches it."""
+    return lambda: [run(*c) for c in calls]
 
 
 @torch.no_grad()
 def fit_knear(inv: InverseRenderer, scene, cam: Camera) -> dict:
     """knear8 as InverseRenderer.fit calls it: on the step's refit tree and
     the fit's row-major ray chunks.  Both calls on chunk 0 against the twin,
-    with their bounds ([knear_parity] view=fit_chunk0), and the kernel's ms
-    of each call summed over the frame's FIT_CHUNKS chunks (CUDA events);
-    the refit's ms."""
+    with their bounds ([knear_parity] view=fit_chunk0); each call over the
+    frame's FIT_CHUNKS chunks, the wrapper calls' ms (CUDA events) and the
+    kernel's device ms (launch_ms); each call as one launch over the whole
+    row-major frame, to tell the chunks' launch tails from the row-major
+    order's incoherence; the refit's ms."""
     table = tri_table(scene.tris)
     refit_ms = cuda_ms(lambda: refit_wide_direct(inv.tracer0.wide, scene.tris, table=table),
                        iters=5)
     wide = refit_wide_direct(inv.tracer0.wide, scene.tris, table=table)
     rays = gen_primary_rays(cam)
     m = rays.o.shape[0] // FIT_CHUNKS
-    out = {"ms": {}, "plain_ms": {}, "mismatch_frac": {}, "bound": {},
-           "frame_ms": {"layers": 0.0, "occluders": 0.0}}
+    out = {"ms": {}, "plain_ms": {}, "mismatch_frac": {}, "bound": {}, "frame_ms": {},
+           "frame_device_ms": {}, "row_major_ms": {}, "row_major_device_ms": {}}
     chunk = rays_slice(rays, slice(0, m))
     walks = wide8_knear(wide)
-    ids = knear_call(out, "fit_chunk0", "layers", walks, chunk, SOFT["k_layers"], T_MAX, True)
+    ids = knear_call(out, "fit_chunk0", "layers", walks, wide, chunk, SOFT["k_layers"], T_MAX,
+                     True)
     cand, tm = occluder_call(table, scene, chunk, ids)
-    knear_call(out, "fit_chunk0", "occluders", walks, cand, SOFT["k_occ"], tm, True)
-    for c in range(FIT_CHUNKS):
-        chunk = rays_slice(rays, slice(c * m, (c + 1) * m))
-        ids = k8.k_nearest_wide8(chunk, wide, SOFT["k_layers"], BAND)
-        cand, tm = occluder_call(table, scene, chunk, ids)
-        out["frame_ms"]["layers"] += cuda_ms(
-            lambda: k8.k_nearest_wide8(chunk, wide, SOFT["k_layers"], BAND), iters=5)
-        out["frame_ms"]["occluders"] += cuda_ms(
-            lambda: k8.k_nearest_wide8(cand, wide, SOFT["k_occ"], BAND, t_max=tm), iters=5)
+    knear_call(out, "fit_chunk0", "occluders", walks, wide, cand, SOFT["k_occ"], tm, True)
+    run = walks[0]
+    chunks = knear_calls(run, table, scene, rays, FIT_CHUNKS)
+    whole = knear_calls(run, table, scene, rays, 1)
+    for call in ("layers", "occluders"):
+        out["frame_ms"][call] = cuda_ms(knear_loop(run, chunks[call]), iters=5)
+        out["frame_device_ms"][call] = launch_ms(this_library(), wide, chunks[call])
+        out["row_major_ms"][call] = cuda_ms(knear_loop(run, whole[call]), iters=5)
+        out["row_major_device_ms"][call] = launch_ms(this_library(), wide, whole[call])
+    out["wide"], out["chunks"], out["whole"] = wide, chunks, whole
     phase("fit_pieces", refit_ms=f"{refit_ms:.4f}", chunk_rays=m,
-          knear8_layers_ms=f"{out['ms']['layers']:.4f}",
-          knear8_occluders_ms=f"{out['ms']['occluders']:.4f}",
-          knear8_layers_frame_ms=f"{out['frame_ms']['layers']:.4f}",
-          knear8_occluders_frame_ms=f"{out['frame_ms']['occluders']:.4f}")
+          **{f"knear8_{call}_{key}": f"{out[field][call]:.4f}"
+             for call in ("layers", "occluders")
+             for key, field in (("ms", "ms"), ("device_ms", "device_ms"),
+                                ("frame_ms", "frame_ms"),
+                                ("frame_device_ms", "frame_device_ms"),
+                                ("row_major_frame_ms", "row_major_ms"),
+                                ("row_major_frame_device_ms", "row_major_device_ms"))})
+    return out
+
+
+# ---------------------------------------------------------------------------
+# The k-nearest kernels against a parent commit's (--parent)
+# ---------------------------------------------------------------------------
+def tree_csrc(name: str, root: str) -> str:
+    """The kernel sources of another source tree (a checkout of the parent
+    commit, or of a variant of these kernels) at `root`."""
+    csrc = os.path.join(root, "src", "tpurt_torch", "kernels", "csrc")
+    if not os.path.isdir(csrc):
+        fail(f"--parent {name}={root}: no {csrc}")
+    return csrc
+
+
+def bind_knear(root: str, path: str) -> ctypes.CDLL:
+    """The kernel library at `path`, built from the source tree at `root`,
+    with its two k-nearest entry points bound by the tree's own interface: a
+    ray counter before the stream where its source takes one (persistent
+    warps), none where it does not (one thread a ray, as in the parent
+    commit)."""
+    csrc = tree_csrc("tree", root)
+    lib = ctypes.CDLL(path)
+    lib.counter = {}
+    for fn, src in (("tpurt_knear8", "traverse8.cu"), ("tpurt_knear_bin", "traverse.cu")):
+        with open(os.path.join(csrc, src)) as f:
+            text = f.read()
+        lib.counter[fn] = "int* next" in text[text.index(f"int {fn}("):].split("{", 1)[0]
+    ptr, i32, f32 = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+    lib.tpurt_knear8.argtypes = ([ptr] * 5 + [i32, i32, f32, i32, f32, f32, ptr]
+                                 + [ptr] * (1 + lib.counter["tpurt_knear8"]))
+    lib.tpurt_knear_bin.argtypes = ([ptr] * 7 + [i32, f32, i32, f32, f32, ptr]
+                                    + [ptr] * (1 + lib.counter["tpurt_knear_bin"]))
+    lib.tpurt_knear8.restype = lib.tpurt_knear_bin.restype = i32
+    return lib
+
+
+@functools.cache
+def this_library() -> ctypes.CDLL:
+    """This checkout's kernels (built by _build.load()), bound by bind_knear
+    for bare launches."""
+    return bind_knear(HERE, _build.library_path())
+
+
+def parent_library(name: str, root: str, path: str) -> ctypes.CDLL:
+    """Another source tree's kernel library at `path`, built by the port's
+    loader from its csrc/ and bound by bind_knear; prints its k-nearest
+    kernels' ptxas report."""
+    lib = bind_knear(root, path)
+    report = {k: v for k, v in ptxas_report(path[:-3] + ".log").items() if "knear" in k}
+    phase("knear_ab", tree=name, root=root, lib=os.path.relpath(path, HERE),
+          counter=json.dumps(lib.counter), ptxas=json.dumps(report, separators=(",", ":")))
+    return lib
+
+
+def knear_launch(lib: ctypes.CDLL, tree, rays: Rays, k: int, t_max):
+    """lib's knear8 (tree a WideBVH) or knear_bin (a PackedBVH) on (rays, k,
+    t_max), its arguments made as the wrappers make them: (launch, ids),
+    where launch(counter) enqueues the kernel on the current stream (counter:
+    a zeroed int32 for a kernel that takes one, else unused) and ids is its
+    (n, k) output."""
+    def ptr(x: torch.Tensor) -> ctypes.c_void_p:
+        return ctypes.c_void_p(x.data_ptr())
+
+    o, d = rays.o.reshape(-1, 3), rays.d.reshape(-1, 3)
+    n = o.shape[0]
+    tm = torch.as_tensor(t_max, dtype=torch.float32, device=o.device).expand(n).contiguous()
+    ids = torch.empty((n, k), dtype=torch.int32, device=o.device)
+    wide = isinstance(tree, WideBVH)
+    fn = lib.tpurt_knear8 if wide else lib.tpurt_knear_bin
+    counted = lib.counter["tpurt_knear8" if wide else "tpurt_knear_bin"]
+    head = ((ptr(tree.wrow), ptr(tree.tri_rows)) if wide else
+            (ptr(tree.node_f32), ptr(tree.node_i32), ptr(tree.tri_rows), ptr(tree.tri_ids)))
+    head += (ptr(o), ptr(d), ptr(tm), n) + ((tree.max_rows,) if wide else ())
+    head += (ctypes.c_float(DEFAULT_T_MIN), k, ctypes.c_float(-BAND),
+             ctypes.c_float(1.0 + BAND), ptr(ids))
+    stream = ctypes.c_void_p(torch.cuda.current_stream().cuda_stream)
+
+    def launch(counter: torch.Tensor | None = None) -> None:
+        err = fn(*head, *([ptr(counter)] if counted else []), stream)
+        if err:
+            fail(f"a k-nearest kernel failed to launch: {err}")
+
+    launch.keep = (o, d, tm, ids)  # what the kernel reads and writes lives as long
+    return launch, ids
+
+
+def parent_knear(lib: ctypes.CDLL, tree):
+    """run(rays, k, t_max) through another tree's k-nearest kernel, a fresh
+    counter for every launch, as the wrappers call them."""
+    def run(rays: Rays, k: int, t_max) -> torch.Tensor:
+        launch, ids = knear_launch(lib, tree, rays, k, t_max)
+        launch(torch.zeros(1, dtype=torch.int32, device=rays.o.device))
+        return ids
+
+    return run
+
+
+def launch_ms(lib: ctypes.CDLL, tree, calls: list, passes: int = 5) -> float:
+    """The device ms of one pass of lib's k-nearest kernel over `calls`
+    ((rays, k, t_max) each), launched bare: CUDA events around `passes`
+    passes after a warm one, every argument, output and zeroed ray counter
+    made before the first event, so the events time the kernels and the
+    gaps between their launches, not the wrapper's checks, allocations and
+    counter fill.  (torch.profiler drops the kernel events of whole
+    sessions now and then, so it does not time these kernels.)"""
+    launches = [knear_launch(lib, tree, *c)[0] for c in calls]
+    dev = calls[0][0].o.device
+    counters = torch.zeros(((passes + 1) * len(calls), 1), dtype=torch.int32, device=dev)
+    for i, launch in enumerate(launches):
+        launch(counters[i])
+    start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+    torch.cuda.synchronize()
+    start.record()
+    for p in range(1, passes + 1):
+        for i, launch in enumerate(launches):
+            launch(counters[p * len(calls) + i])
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / passes
+
+
+def morton_sorted(run):
+    """run(rays, k, t_max) behind a sort of the rays by the Morton code of
+    their origin, then of their direction (the port's morton kernel,
+    torch.sort as glue), the ids scattered back into the caller's order: a
+    lever measured by [knear_ab] and not used by the port."""
+    def code(p: torch.Tensor) -> torch.Tensor:
+        lo, hi = p.amin(0), p.amax(0)
+        return tb.morton_codes(p, lo, tb.inv_extent(lo, hi))
+
+    def sorted_run(rays: Rays, k: int, t_max) -> torch.Tensor:
+        o, d = rays.o.reshape(-1, 3), rays.d.reshape(-1, 3)
+        perm = torch.sort((code(o) << 30) | code(d)).indices
+        tm = torch.as_tensor(t_max, dtype=torch.float32, device=o.device).expand(o.shape[0])
+        ids = run(Rays(o=o[perm], d=d[perm]), k, tm[perm])
+        return torch.empty_like(ids).index_copy_(0, perm, ids)
+
+    return sorted_run
+
+
+@torch.no_grad()
+def knear_ab(kernel: str, tree, runs: dict, libs: dict, cells: dict) -> dict:
+    """A k-nearest kernel against other trees' (the parent's first) on each
+    cell (name -> list of (rays, k, t_max) calls over `tree`, run back to
+    back): every call's ids equal (fails otherwise), then in turns other,
+    new, new, other for each other tree, the whole cell's ms by CUDA events
+    around the calls and, for each tree with a library, the kernel's device
+    ms from bare launches (launch_ms).  runs: {"new": run, name: run, ...},
+    each run(rays, k, t_max); libs: {"new": lib, name: lib, ...}."""
+    out = {}
+    for cell, calls in cells.items():
+        fns = {name: knear_loop(run, calls) for name, run in runs.items()}
+        got = {name: fn() for name, fn in fns.items()}
+        bad = {name: sum(int((a != b).any(dim=1).sum()) for a, b in zip(got["new"], ids))
+               for name, ids in got.items() if name != "new"}
+        del got
+        turns = [(name, cuda_ms(fns[name], iters=5))
+                 for other in runs if other != "new" for name in (other, "new", "new", other)]
+        dev_turns = [(name, launch_ms(libs[name], tree, calls))
+                     for other in libs if other != "new"
+                     for name in (other, "new", "new", other)] or [
+            ("new", launch_ms(libs["new"], tree, calls))]
+        mean = lambda ts, name: float(np.mean([t for s, t in ts if s == name]))  # noqa: E731
+        out[cell] = {name: dict(ms=mean(turns, name),
+                                device_ms=mean(dev_turns, name) if name in libs else None)
+                     for name in runs}
+        phase("knear_ab", kernel=kernel, cell=cell, launches=len(calls),
+              rays=sum(c[0].o.shape[0] for c in calls),
+              id_list_mismatches=json.dumps(bad),
+              turns=json.dumps([[s, round(t, 4)] for s, t in turns]),
+              device_turns=json.dumps([[s, round(t, 4)] for s, t in dev_turns]))
+        if any(bad.values()):
+            fail(f"{kernel} ({cell}): id lists differ from another tree's kernel: {bad}")
     return out
 
 
@@ -1114,20 +1342,23 @@ def kernel_device_ms(fn, kernel: str, calls: int = 30) -> float:
     events named `kernel`.  For a kernel of a few microseconds CUDA events
     around back-to-back calls time the host's launches instead (the
     wrapper's checks, allocations and ctypes call).  The profiler may miss
-    the events of the first calls after it starts, so a third of them is
-    enough."""
+    the events of the first calls after it starts, and now and then most of
+    a session's, so a third of them is enough and a session that holds
+    fewer is repeated, twice at most."""
     from torch.profiler import ProfilerActivity, profile
 
     fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        for _ in range(calls):
-            fn()
-        torch.cuda.synchronize()
-    durs = [e - s for s, e, name in device_kernels(prof) if kernel in name]
-    if len(durs) < calls // 3:
-        fail(f"the profile of {calls} calls holds {len(durs)} {kernel} events")
-    return sum(durs) / len(durs) / 1e3
+    for _ in range(3):
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            for _ in range(calls):
+                fn()
+            torch.cuda.synchronize()
+        durs = [e - s for s, e, name in device_kernels(prof) if kernel in name]
+        if len(durs) >= calls // 3:
+            return sum(durs) / len(durs) / 1e3
+    fail(f"three profiles of {calls} calls held too few {kernel} events "
+         f"(the last: {len(durs)})")
 
 
 def stage_times(tris) -> dict:
@@ -1324,6 +1555,12 @@ def cli_phase(bscene, bcam: Camera) -> None:
 
 
 def main() -> None:
+    ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    ap.add_argument("--parent", action="append", default=[], metavar="[NAME=]DIR",
+                    help="a checkout of the parent commit (or, named, of a variant of "
+                         "the kernels): time its k-nearest kernels against these in "
+                         "turns ([knear_ab]); repeatable")
+    args = ap.parse_args()
     if not torch.cuda.is_available():
         fail("torch.cuda.is_available() is False: this script needs an NVIDIA GPU")
     dev = torch.device("cuda")
@@ -1336,13 +1573,23 @@ def main() -> None:
           torch=torch.__version__, cuda=torch.version.cuda)
     t_start = time.perf_counter()
 
-    # -- build ----------------------------------------------------------
+    # -- build (the other trees' kernels alongside) -----------------------
     t0 = time.perf_counter()
-    _build.load()
+    trees = dict(p.split("=", 1) if "=" in p else ("parent", p) for p in args.parent)
+    with ThreadPoolExecutor() as pool:
+        builds = {name: pool.submit(_build.build, tree_csrc(name, root))
+                  for name, root in trees.items()}
+        _build.load()
+        built = {name: f.result() for name, f in builds.items()}
     lib = _build.library_path()
+    ptxas = ptxas_report(lib[:-3] + ".log")
     phase("build", seconds=f"{time.perf_counter() - t0:.2f}",
-          lib=os.path.relpath(lib, HERE),
-          ptxas=json.dumps(ptxas_report(lib[:-3] + ".log"), separators=(",", ":")))
+          lib=os.path.relpath(lib, HERE), ptxas=json.dumps(ptxas, separators=(",", ":")))
+    spills = {k: v["spill_bytes"] for k, v in ptxas.items()
+              if k.startswith("knear") and v.get("spill_bytes", 0)}
+    if spills:
+        fail(f"the k-nearest kernels spill: {spills}")
+    others = {name: parent_library(name, root, built[name]) for name, root in trees.items()}
 
     # -- scene and acceleration structure, stage by stage ----------------
     (scene, cam), s_scene = sync_time(lambda: make_sponza_scene(
@@ -1373,7 +1620,7 @@ def main() -> None:
           build_s=f"{s_band:.3f}")
     kn_main = knear_parity("main", soft_tracer, frame, count=True)
     kn_over = knear_parity("overview", soft_tracer, overview)
-    del soft_tracer
+    del soft_tracer, kn_main["inputs"], kn_over["inputs"]
 
     # -- the main path, hard: render() through closest8 and occluded8 ------
     reset_launches()
@@ -1415,6 +1662,20 @@ def main() -> None:
     # -- the main path, fit: InverseRenderer.fit through knear8 ------------
     fit = fit_phase(scene, cam)
     kn_fit = fit_knear(fit["inv"], scene, cam)
+    ab8 = None
+    if others:
+        runs = {"new": wide8_knear(kn_fit["wide"])[0],
+                **{name: parent_knear(lib, kn_fit["wide"]) for name, lib in others.items()}}
+        runs["morton_sorted"] = morton_sorted(runs["new"])
+        morton = knear_calls(runs["new"], tri_table(scene.tris), scene, frame, 1)
+        ab8 = knear_ab("knear8", kn_fit["wide"], runs, {"new": this_library(), **others}, {
+            f"{cell}_{call}": calls[call]
+            for cell, calls in (("fit_chunks", kn_fit["chunks"]),
+                                ("row_major_frame", kn_fit["whole"]),
+                                ("morton_frame", morton))
+            for call in ("layers", "occluders")})
+        del morton
+    del kn_fit["chunks"], kn_fit["whole"], kn_fit["inputs"], kn_fit["wide"]
     fit_check(dev)
     profile_fit(fit["inv"], fit["target"])
     fit_launches = fit["launches"]
@@ -1430,6 +1691,15 @@ def main() -> None:
     bin_b = bin_parity("bunny", b_tracer, bframe, count=True)
     kn_b = knear_parity("bunny", b_soft, bframe, count=True, name="bin_parity",
                         kernel="knear_bin")
+    ab_bin = None
+    if others:
+        runs = {"new": bin_knear(b_soft.packed)[0],
+                **{name: parent_knear(lib, b_soft.packed) for name, lib in others.items()}}
+        runs["morton_sorted"] = morton_sorted(runs["new"])
+        ab_bin = knear_ab("knear_bin", b_soft.packed, runs, {"new": this_library(), **others},
+                          {f"bunny_{call}": [kn_b["inputs"][call]]
+                           for call in ("layers", "occluders")})
+    del kn_b["inputs"]
     for call in ("layers", "occluders"):
         phase("bound_bin", view="bunny", kernel="knear_bin", call=call, **kn_b["bound"][call])
     bin_launches = render_bin(bscene, bcam, dev, b_tracer, bframe)
@@ -1454,23 +1724,33 @@ def main() -> None:
                for name in ("closest8", "occluded8")]
     # knear8: the layers call (k = 4) on the main view's Morton-ordered
     # frame, the occluders call beside it, and both calls as the fit makes
-    # them (row-major chunk 0, and summed over the fit's chunks); max_abs_err
-    # is the fraction of id lists that differ from the twin's, over every
-    # call, view and the fit's chunk
+    # them (row-major chunk 0, summed over the fit's chunks, and one launch
+    # over the row-major frame); ms by CUDA events around the wrapper,
+    # device_ms the kernel's own from bare launches; max_abs_err is the fraction
+    # of id lists that differ from the twin's, over every call, view and the
+    # fit's chunk; parent: with --parent, the parent commit's kernel against
+    # this one in turns on the same inputs (null without it)
     knear_err = max(v for kn in (kn_main, kn_over, kn_fit) for v in kn["mismatch_frac"].values())
     fit_keys = {}
     for call in ("layers", "occluders"):
         fit_keys.update({
             f"fit_chunk0_ms_{call}": round(kn_fit["ms"][call], 4),
+            f"fit_chunk0_device_ms_{call}": round(kn_fit["device_ms"][call], 4),
             f"fit_chunk0_plain_ms_{call}": round(kn_fit["plain_ms"][call], 4),
             f"fit_chunk0_bound_ms_{call}": round(kn_fit["bound"][call]["bound_ms"], 6),
-            f"fit_frame_ms_{call}": round(kn_fit["frame_ms"][call], 4)})
+            f"fit_frame_ms_{call}": round(kn_fit["frame_ms"][call], 4),
+            f"fit_frame_device_ms_{call}": round(kn_fit["frame_device_ms"][call], 4),
+            f"row_major_frame_ms_{call}": round(kn_fit["row_major_ms"][call], 4),
+            f"row_major_frame_device_ms_{call}": round(kn_fit["row_major_device_ms"][call], 4)})
     kernels.append(entry(
         "knear8", fit_launches["knear8"], knear_err, kn_main["ms"]["layers"],
         kn_main["plain_ms"]["layers"], kn_main["bound"]["layers"],
-        id_mismatch_frac=knear_err, occluders_ms=round(kn_main["ms"]["occluders"], 4),
+        id_mismatch_frac=knear_err, device_ms=round(kn_main["device_ms"]["layers"], 4),
+        occluders_ms=round(kn_main["ms"]["occluders"], 4),
+        occluders_device_ms=round(kn_main["device_ms"]["occluders"], 4),
         occluders_plain_ms=round(kn_main["plain_ms"]["occluders"], 4),
-        occluders_bound_ms=round(kn_main["bound"]["occluders"]["bound_ms"], 6), **fit_keys))
+        occluders_bound_ms=round(kn_main["bound"]["occluders"]["bound_ms"], 6), **fit_keys,
+        parent=ab8))
     # the binary kernels: the bunny frame (their configuration) first, the
     # 1M main view beside it; max_abs_err is the largest |t, u, v - twin's|
     # (closest_bin) or the mismatch fraction (occluded_bin, knear_bin) over
@@ -1490,9 +1770,11 @@ def main() -> None:
     kernels.append(entry(
         "knear_bin", fit_b["launches"]["knear_bin"], kn_err, kn_b["ms"]["layers"],
         kn_b["plain_ms"]["layers"], kn_b["bound"]["layers"], source=BIN_SRC,
-        id_mismatch_frac=kn_err, occluders_ms=round(kn_b["ms"]["occluders"], 4),
+        id_mismatch_frac=kn_err, device_ms=round(kn_b["device_ms"]["layers"], 4),
+        occluders_ms=round(kn_b["ms"]["occluders"], 4),
+        occluders_device_ms=round(kn_b["device_ms"]["occluders"], 4),
         occluders_plain_ms=round(kn_b["plain_ms"]["occluders"], 4),
-        occluders_bound_ms=round(kn_b["bound"]["occluders"]["bound_ms"], 6)))
+        occluders_bound_ms=round(kn_b["bound"]["occluders"]["bound_ms"], 6), parent=ab_bin))
     # -- the LBVH build: morton and radix (every make_tracer above ran them) --
     tbp = {"n2": treebuild_parity("n2", codes=torch.tensor([3, 7], dtype=torch.int64,
                                                           device=dev)),

@@ -43,20 +43,24 @@ def _nvcc() -> str:
     return found
 
 
-def _sources() -> list[str]:
-    return sorted(glob.glob(os.path.join(CSRC, "*.cu")))
+def _sources(csrc: str | None = None) -> list[str]:
+    return sorted(glob.glob(os.path.join(csrc or CSRC, "*.cu")))
 
 
-def _inputs() -> list[str]:
+def _inputs(csrc: str | None = None) -> list[str]:
     """Every file under csrc/ that a build reads: sources and headers."""
-    return sorted(p for p in glob.glob(os.path.join(CSRC, "**", "*"), recursive=True)
+    csrc = csrc or CSRC
+    return sorted(p for p in glob.glob(os.path.join(csrc, "**", "*"), recursive=True)
                   if p.endswith((".cu", ".cuh", ".h", ".hpp")))
 
 
-def library_path() -> str:
+def library_path(csrc: str | None = None) -> str:
+    """The library built from the sources in `csrc` (default csrc/), named
+    by a hash of the flags and of every source and header."""
+    csrc = csrc or CSRC
     h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
-    for src in _inputs():
-        h.update(os.path.relpath(src, CSRC).encode() + b"\0")
+    for src in _inputs(csrc):
+        h.update(os.path.relpath(src, csrc).encode() + b"\0")
         with open(src, "rb") as f:
             h.update(f.read())
     return os.path.join(BUILD_DIR, f"tpurt_kernels-{h.hexdigest()[:16]}.so")
@@ -73,18 +77,19 @@ def _run(procs: list) -> str:
     return "".join(stdout + stderr for _, _, stdout, stderr in done)
 
 
-def build() -> str:
+def build(csrc: str | None = None) -> str:
     """Compile the library unless an up-to-date one exists; returns its path.
     The compiler's output (ptxas register and spill report) is kept beside
-    it as ``.log``."""
-    path = library_path()
+    it as ``.log``.  csrc: another source directory (chip_smoke.py builds a
+    parent commit's kernels beside these to time them against each other)."""
+    path = library_path(csrc)
     if os.path.exists(path):
         return path
     os.makedirs(BUILD_DIR, exist_ok=True)
     nvcc = _nvcc()
     with tempfile.TemporaryDirectory(dir=BUILD_DIR) as tmpdir:
         objs, procs = [], []
-        for src in _sources():
+        for src in _sources(csrc):
             obj = os.path.join(tmpdir, os.path.basename(src) + ".o")
             cmd = [nvcc, *NVCC_FLAGS, "-c", "-o", obj, src]
             procs.append((cmd, subprocess.Popen(cmd, stdout=subprocess.PIPE,
@@ -117,7 +122,7 @@ def load() -> ctypes.CDLL:
         lib.tpurt_occluded8.restype = ctypes.c_int
         lib.tpurt_knear8.argtypes = [
             _P, _P, _P, _P, _P, ctypes.c_int, ctypes.c_int, ctypes.c_float,
-            ctypes.c_int, ctypes.c_float, ctypes.c_float, _P, _P]
+            ctypes.c_int, ctypes.c_float, ctypes.c_float, _P, _P, _P]
         lib.tpurt_knear8.restype = ctypes.c_int
         lib.tpurt_closest_bin.argtypes = [
             _P, _P, _P, _P, _P, _P, ctypes.c_int, ctypes.c_float, _P, _P, _P, _P, _P]
@@ -137,6 +142,13 @@ def load() -> ctypes.CDLL:
         lib.tpurt_error_string.restype = ctypes.c_char_p
         _lib = lib
     return _lib
+
+
+def check_aligned(*ptrs: int) -> None:
+    """Raise unless each device address is a multiple of 16: kernels that
+    read rows as 16-byte vectors need aligned bases."""
+    if any(p % 16 for p in ptrs):
+        raise ValueError("a kernel that reads 16-byte vectors got a misaligned base")
 
 
 def error_string(err: int) -> str:

@@ -26,19 +26,29 @@
 // inverse in _mt_scalar_tri's order (walk_common.cuh).  Built with
 // -fmad=false, the kernels agree with their plain-torch twins bit for bit.
 //
-// What bounds them on this card is what bounds the BVH8 walks
-// (traverse8.cu): every visit is a dependent load (the next node's index
-// comes out of the previous visit), and the 32 rays of a warp take
+// What bounds closest_bin and occluded_bin on this card is what bounds the
+// BVH8 walks (traverse8.cu): every visit is a dependent load (the next node's
+// index comes out of the previous visit), and the 32 rays of a warp take
 // different paths, so the warp runs the union of their visits.  A binary
 // walk makes several times as many visits as a BVH8 walk, each with one slab
-// test instead of eight.  The simple design keeps every array in global
+// test instead of eight.  Their simple design keeps every array in global
 // memory, read through L1/L2 (the node rows of a 1M-triangle scene are
 // 21 MB and fit the 50 MB L2), relies on Morton-ordered rays so that a
 // warp's rays walk similar chains, and needs no stack and no shared memory.
-// knear_bin keeps its sorted k-list in registers, the length templated on
-// 4, 8 or 16 (the smallest >= k) as knear8's is, with every loop over it
-// unrolled and guarded by i < k; a binary leaf holds each triangle once, so
-// the list needs no dedup.  Making the walks fast is left to later work.
+//
+// knear_bin has a walk of its own (knear_bin_walk), in the same order per
+// ray.  What bounds it is issued instructions and divergence: on the 70K
+// bunny a ray makes ~95 visits and tests ~9 leaves, from arrays that stay
+// in L2.  Its design is knear8's (traverse8.cu): the slab test's min/max as
+// min.NaN/max.NaN instructions; visits repeat until a lane's node is a
+// passing leaf or its chain ends (while-while), so lanes meet at the leaf
+// tests instead of the warp running a leaf test on almost every visit; a
+// leaf read as two half rows of 9 16-byte loads and one int4 of ids, each
+// tested accept-then-insert.  It keeps one thread a ray in one pass over
+// the launch: persistent warps, which pay in knear8's short fit launches,
+// did not pay on the bunny's one launch of 262,144 rays.  Its sorted k-list
+// (KList, walk_common.cuh) lives in registers, as knear8's, without the
+// dedup: a binary leaf holds each triangle once.
 
 #include "walk_common.cuh"
 
@@ -56,6 +66,20 @@ __device__ __forceinline__ bool slab_bin(const float4& a, const float4& b,
                       jmax(jmin(tz0, tz1), t_min));
   float t_far = jmin(jmin(jmax(tx0, tx1), jmax(ty0, ty1)),
                      jmin(jmax(tz0, tz1), t_upper));
+  return t_near <= t_far;
+}
+
+// slab_bin with nmin/nmax: the same decision in fewer instructions.
+__device__ __forceinline__ bool slab_bin_n(const float4& a, const float4& b,
+                                           const Ray& r, float t_min,
+                                           float t_upper) {
+  float tx0 = (a.x - r.ox) * r.ix, tx1 = (a.w - r.ox) * r.ix;
+  float ty0 = (a.y - r.oy) * r.iy, ty1 = (b.x - r.oy) * r.iy;
+  float tz0 = (a.z - r.oz) * r.iz, tz1 = (b.y - r.oz) * r.iz;
+  float t_near = nmax(nmax(nmin(tx0, tx1), nmin(ty0, ty1)),
+                      nmax(nmin(tz0, tz1), t_min));
+  float t_far = nmin(nmin(nmax(tx0, tx1), nmax(ty0, ty1)),
+                     nmin(nmax(tz0, tz1), t_upper));
   return t_near <= t_far;
 }
 
@@ -133,69 +157,53 @@ struct Occluded {
   }
 };
 
-// The k nearest band hits, sorted by (t, id): tpurt's bubble insert, one
-// candidate at a time.  A candidate enters only if it sorts before the k-th
-// entry (a later one would fall off the end of the bubble).
+// One ray's k-nearest walk down the escape chain.  Per ray it visits and
+// tests leaves in walk_bin's order, the twin's: a node is slab-tested
+// against the bound at the start of its visit, a passing leaf's 8 slots are
+// tested before the next visit.  How a warp runs it differs: visits repeat
+// (while-while) until this lane's node is a passing leaf or its chain ends,
+// so lanes meet at the leaf test instead of the warp running a leaf test on
+// almost every visit for whichever lane is at a leaf; and the leaf is read
+// as two half rows (9 16-byte loads and one int4 of ids each) and tested
+// accept-then-insert (knear_half).  The bound changes only in a leaf test,
+// so it is computed once per run of visits.
 template <int KM>
-struct KNear {
-  const Ray& r;
-  float t_min, tmax, neg_band, band_hi;
-  int k;
-  float ts[KM];
-  int ids[KM];
-
-  __device__ KNear(const Ray& ray, float tmin, float tm, float nb, float bh,
-                   int kk)
-      : r(ray), t_min(tmin), tmax(tm), neg_band(nb), band_hi(bh), k(kk) {
-#pragma unroll
-    for (int i = 0; i < KM; ++i) {
-      ts[i] = kTMax;
-      ids[i] = kBigId;
+__device__ __forceinline__ void knear_bin_walk(const float4* __restrict__ nf,
+                                               const int4* __restrict__ ni,
+                                               const float* __restrict__ rows,
+                                               const int* __restrict__ ids,
+                                               const Ray& r, float t_min,
+                                               float tmax, float neg_band,
+                                               float band_hi,
+                                               KList<KM, false>& L) {
+  int node = 0;
+  while (node >= 0) {
+    const float upper = L.upper(tmax);
+    int leaf_row = -1;
+    while (node >= 0) {
+      const float4 a = __ldg(nf + 2 * node), b = __ldg(nf + 2 * node + 1);
+      const int4 rec = __ldg(ni + node);
+      const bool boxed = slab_bin_n(a, b, r, t_min, upper);
+      const bool leaf = rec.w > 0;
+      node = (boxed && !leaf) ? node + 1 : rec.x;
+      if (boxed && leaf) {
+        leaf_row = rec.y;
+        break;
+      }
     }
-  }
-  __device__ __forceinline__ bool done() const { return false; }
-  __device__ __forceinline__ void kth(float& t, int& id) const {
-    t = ts[KM - 1];
-    id = ids[KM - 1];
-#pragma unroll
-    for (int i = 0; i < KM - 1; ++i)
-      if (i == k - 1) { t = ts[i]; id = ids[i]; }
-  }
-  // min(k-th t, t_max), with jnp.minimum's NaN rule
-  __device__ __forceinline__ float upper() const {
-    float t;
-    int id;
-    kth(t, id);
-    return jmin(t, tmax);
-  }
-  __device__ __forceinline__ void insert(float tc, int ic) {
-    float kt;
-    int kid;
-    kth(kt, kid);
-    if (!((tc < kt) || ((tc == kt) && (ic < kid)))) return;
-#pragma unroll
-    for (int i = 0; i < KM; ++i) {
-      bool less = (i < k) && ((tc < ts[i]) || ((tc == ts[i]) && (ic < ids[i])));
-      float tt = ts[i];
-      int ii = ids[i];
-      ts[i] = less ? tc : tt;
-      ids[i] = less ? ic : ii;
-      tc = less ? tt : tc;
-      ic = less ? ii : ic;
-    }
-  }
-  __device__ __forceinline__ void leaf(const float* tr, const int* lids) {
+    if (leaf_row < 0) break;
+    const float* tr = rows + (size_t)leaf_row * 128;
+    const int4* ip = reinterpret_cast<const int4*>(ids + (size_t)leaf_row * 8);
 #pragma unroll 1
-    for (int j = 0; j < 8; ++j) {
-      float t, u, v, det;
-      mt(tr + 9 * j, r, t, u, v, det);
-      const int tid = __ldg(lids + j);
-      bool ok = (fabsf(det) > kDetEps) && (u >= neg_band) && (v >= neg_band) &&
-                (u + v <= band_hi) && (t > t_min) && (t < tmax) && (tid >= 0);
-      if (ok) insert(t, tid);
+    for (int h = 0; h < 2; ++h) {
+      float f[36];
+      load_half(tr, h, f);
+      const int4 ia = __ldg(ip + h);
+      const int tid[4] = {ia.x, ia.y, ia.z, ia.w};
+      knear_half(f, tid, r, t_min, tmax, neg_band, band_hi, L);
     }
   }
-};
+}
 
 __global__ void __launch_bounds__(kBlock)
 closest_bin_kernel(const float4* __restrict__ nf, const int4* __restrict__ ni,
@@ -246,13 +254,13 @@ knear_bin_kernel(const float4* __restrict__ nf, const int4* __restrict__ ni,
   int i = blockIdx.x * blockDim.x + threadIdx.x;
   if (i >= n) return;
   const float tmax = tm[i];
-  const Ray r = load_ray(o, d, i);
-  KNear<KM> vis(r, t_min, tmax, neg_band, band_hi, k);
+  KList<KM, false> L(k);
   // An empty window accepts no candidate: the ray starts dead.
-  if (tmax > t_min) walk_bin(nf, ni, rows, ids, r, t_min, vis);
-#pragma unroll
-  for (int j = 0; j < KM; ++j)
-    if (j < k) ids_out[(size_t)i * k + j] = vis.ids[j] == kBigId ? -1 : vis.ids[j];
+  if (tmax > t_min) {
+    const Ray r = load_ray(o, d, i);
+    knear_bin_walk<KM>(nf, ni, rows, ids, r, t_min, tmax, neg_band, band_hi, L);
+  }
+  L.store(ids_out, (size_t)i);
 }
 
 }  // namespace

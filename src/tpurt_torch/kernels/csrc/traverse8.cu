@@ -11,9 +11,10 @@
 // hit in (t_min, t_max), the k nearest band hits by (t, id)) do not depend on
 // visit order, so a per-ray walk gives the packet walk's hits wherever the
 // ray's own box tests are conservative (see tpurt_torch/kernels/traverse8.py
-// for the one exception, inherited from tpurt's _safe_inv).  The three
-// kernels share one walk (walk<Visitor>); each supplies its cull bound, its
-// leaf-row test and its early exit.
+// for the one exception, inherited from tpurt's _safe_inv).  closest8 and
+// occluded8 share one walk (walk<Visitor>); knear8 has a walk of its own
+// (knear8_walk) that visits, pushes, pops and tests rows in the same order
+// per ray, so one plain-torch twin walk (_Walk) holds all three.
 //
 // The arithmetic copies tpurt's op for op: the slab as lo*inv - o*inv,
 // _safe_inv, Möller–Trumbore with the smooth inverse det/(det*det + 1e-12)
@@ -21,22 +22,36 @@
 // library is built with -fmad=false so nvcc contracts nothing into FMAs; the
 // plain-torch twins then agree with these kernels bit for bit.
 //
-// What bounds them on this card: every visit is a dependent 256-byte load of
-// a node record (the next node's address comes out of the previous visit),
-// followed by up to 8 dependent 512-byte triangle-row loads, so a thread is
-// mostly waiting on memory latency; and the 32 rays of a warp take different
-// paths, so the warp runs the union of their visits (divergence).  The
-// simple design keeps the node and triangle rows in global memory, read
-// through L1/L2 (at 1M triangles the node rows are 14 MB and fit the 50 MB
-// L2; the 99 MB of triangle rows do not), relies on Morton-ordered rays so
-// neighbouring threads walk similar paths, and keeps the stack in
-// thread-local memory.  knear8 adds a sorted k-list per ray, kept in
-// registers: its length is a compile-time bound (4, 8 or 16, the smallest
-// >= k; k <= 16) with every loop over it fully unrolled and guarded by
-// i < k, so no list index is dynamic; its cull bound min(k-th t, t_max)
-// shrinks only once k candidates are found, so its walks are longer than
-// closest8's.  Making them fast (packet or warp-cooperative walks,
-// persistent threads, compressed nodes) is left to later work.
+// What bounds closest8 and occluded8 on this card: every visit is a
+// dependent 256-byte load of a node record (the next node's address comes
+// out of the previous visit), followed by up to 8 dependent 512-byte
+// triangle-row loads; and the 32 rays of a warp take different paths, so
+// the warp runs the union of their visits (divergence).  Their simple design
+// keeps the node and triangle rows in global memory, read through L1/L2 (at
+// 1M triangles the node rows are 14 MB and fit the 50 MB L2; the 99 MB of
+// triangle rows do not), relies on Morton-ordered rays so neighbouring
+// threads walk similar paths, and keeps the stack in thread-local memory.
+//
+// What bounds knear8 is issued instructions and divergence, not memory: a
+// fit chunk's walks touch a few hundred distinct nodes and rows, which stay
+// in L1/L2, but each ray makes ~60 visits of 8 slab tests and tests ~35 rows
+// of 8 triangles, and the warp runs the union of its rays' walks.  Its
+// design cuts the instructions and the idle lanes: the slab test takes
+// NaN-propagating min/max as one instruction each (min.NaN/max.NaN), not
+// jmin/jmax's five or six; node records (14) and leaf rows (9 a half row)
+// come as 16-byte read-only loads issued together; a half row's 4 tests run
+// unrolled into an accept mask before a non-unrolled insert loop; visits
+// repeat until a lane has rows to test (while-while) and all rows of a
+// visit form one flat loop, so lanes meet at the row tests; and warps take
+// 32 rays at a time from a global counter for as long as there are rays
+// (persistent warps), so a launch's long walks do not leave SMs idle while
+// its last blocks finish.  The stack stays thread-local, as closest8's:
+// its hot entries sit in L1 (a copy with the first 16 in shared memory was
+// slower).  Its sorted k-list (KList, walk_common.cuh) lives in registers,
+// the length a compile-time bound (4, 8 or 16, the smallest >= k), every
+// loop over it unrolled and guarded by i < k; its cull bound min(k-th t,
+// t_max) shrinks only once k candidates are found, so its walks are longer
+// than closest8's.
 
 #include "walk_common.cuh"
 
@@ -62,6 +77,19 @@ __device__ __forceinline__ bool slab(const float* b, const Ray& r, float t_min,
                       jmax(jmin(tz0, tz1), t_min));
   float t_far = jmin(jmin(jmax(tx0, tx1), jmax(ty0, ty1)),
                      jmin(jmax(tz0, tz1), t_upper));
+  return t_near <= t_far;
+}
+
+// slab with nmin/nmax: the same decision in 25 instructions, not about 80.
+__device__ __forceinline__ bool slab_n(const float* b, const Ray& r,
+                                       float t_min, float t_upper) {
+  float tx0 = b[0] * r.ix - r.oix, tx1 = b[3] * r.ix - r.oix;
+  float ty0 = b[1] * r.iy - r.oiy, ty1 = b[4] * r.iy - r.oiy;
+  float tz0 = b[2] * r.iz - r.oiz, tz1 = b[5] * r.iz - r.oiz;
+  float t_near = nmax(nmax(nmin(tx0, tx1), nmin(ty0, ty1)),
+                      nmax(nmin(tz0, tz1), t_min));
+  float t_far = nmin(nmin(nmax(tx0, tx1), nmax(ty0, ty1)),
+                     nmin(nmax(tz0, tz1), t_upper));
   return t_near <= t_far;
 }
 
@@ -183,78 +211,99 @@ struct Occluded {
   }
 };
 
-// The k nearest band hits, kept sorted by (t, id) and deduplicated by id
-// (boundary rows shared by adjacent fat leaves repeat a triangle): tpurt's
-// insert, one candidate at a time.  The list length KM is a compile-time
-// bound (4, 8 or 16, the smallest >= k); every loop over the list is
-// unrolled to KM and guarded by i < k, so ts/ids stay in registers.  A
-// candidate enters only if it sorts before the k-th entry, which is also
-// tpurt's outcome (a later one falls off the end of the bubble, an equal
-// one is a duplicate).
-template <int KM>
-struct KNear {
-  const Ray& r;
-  float t_min, tmax, neg_band, band_hi;
-  int k;
-  float ts[KM];
-  int ids[KM];
+// ---------------------------------------------------------------------------
+// knear8: the k nearest band hits, on a walk of its own
+// ---------------------------------------------------------------------------
 
-  __device__ KNear(const Ray& ray, float tmin, float tm, float nb, float bh,
-                   int kk)
-      : r(ray), t_min(tmin), tmax(tm), neg_band(nb), band_hi(bh), k(kk) {
+// visit_mask with the node record's 56 used lanes (8 boxes, 8 metas) read as
+// 14 16-byte loads through the read-only path, all issued before the first
+// slab test.  Node records are 256 bytes, 16-byte aligned.
+__device__ __forceinline__ unsigned visit_mask_v(const float* wrow, int cur,
+                                                 const Ray& r, float t_min,
+                                                 float t_upper,
+                                                 int meta[kEntries]) {
+  const float4* p = reinterpret_cast<const float4*>(wrow) + (size_t)cur * 16;
+  float f[56];
 #pragma unroll
-    for (int i = 0; i < KM; ++i) {
-      ts[i] = kTMax;
-      ids[i] = kBigId;
+  for (int q = 0; q < 14; ++q) {
+    const float4 v = __ldg(p + q);
+    f[4 * q] = v.x; f[4 * q + 1] = v.y; f[4 * q + 2] = v.z; f[4 * q + 3] = v.w;
+  }
+  unsigned mask = 0;
+#pragma unroll
+  for (int c = 0; c < kEntries; ++c) {
+    meta[c] = decode_lane(f[48 + c]);
+    if (slab_n(f + 6 * c, r, t_min, t_upper)) mask |= 1u << c;
+  }
+  return mask;
+}
+
+// One ray's k-nearest walk.  Per ray it visits, pushes, pops and tests rows
+// in walk<Visitor>'s order, the twin's: a visit slab-tests the 8 children
+// against the bound at its start, pushes the passing internal ones in entry
+// order, and the passing leaves' rows are tested, child by child and row by
+// row, before the next node is visited.  How a warp runs it differs: node
+// visits repeat (while-while) until this lane's visit passed a leaf, so lanes
+// meet at the row tests; the rows of all passing leaves form one flat loop,
+// one row a trip, so a warp makes as many trips as its busiest lane has rows
+// (not the sum over children of each child's busiest lane); and each half
+// row is read as 9 16-byte loads and its ids as one, and tested
+// accept-then-insert (knear_half).  Pushing before the rows are tested does
+// not change the stack: rows touch only the k-list.
+template <int KM>
+__device__ __forceinline__ void knear8_walk(const float* __restrict__ wrow,
+                                            const float* __restrict__ rows,
+                                            const Ray& r, int max_rows,
+                                            float t_min, float tmax,
+                                            float neg_band, float band_hi,
+                                            KList<KM, true>& L) {
+  int stack[kStackV];
+  int sp = 0;
+  int cur = 0;
+  while (cur >= 0) {
+    const float upper = L.upper(tmax);
+    int meta[kEntries];
+    unsigned leaves = 0;
+    while (cur >= 0 && leaves == 0) {
+      const unsigned mask = visit_mask_v(wrow, cur, r, t_min, upper, meta);
+#pragma unroll
+      for (int c = 0; c < kEntries; ++c) {
+        if (!((mask >> c) & 1u)) continue;
+        if (meta[c] >= 0) push(stack, sp, meta[c]);
+        else leaves |= 1u << c;
+      }
+      cur = pop(stack, sp);
     }
-  }
-  __device__ __forceinline__ bool done() const { return false; }
-  __device__ __forceinline__ void kth(float& t, int& id) const {
-    t = ts[KM - 1];
-    id = ids[KM - 1];
-#pragma unroll
-    for (int i = 0; i < KM - 1; ++i)
-      if (i == k - 1) { t = ts[i]; id = ids[i]; }
-  }
-  // min(k-th t, t_max), with jnp.minimum's NaN rule
-  __device__ __forceinline__ float upper() const {
-    float t;
-    int id;
-    kth(t, id);
-    return jmin(t, tmax);
-  }
-  __device__ __forceinline__ void insert(float tc, int ic) {
-    float kt;
-    int kid;
-    kth(kt, kid);
-    if (!((tc < kt) || ((tc == kt) && (ic < kid)))) return;
-    bool dup = false;
-#pragma unroll
-    for (int i = 0; i < KM; ++i) dup |= (i < k) && (ids[i] == ic);
-    if (dup) return;
-#pragma unroll
-    for (int i = 0; i < KM; ++i) {
-      bool less = (i < k) && ((tc < ts[i]) || ((tc == ts[i]) && (ic < ids[i])));
-      float tt = ts[i];
-      int ii = ids[i];
-      ts[i] = less ? tc : tt;
-      ids[i] = less ? ic : ii;
-      tc = less ? tt : tc;
-      ic = less ? ii : ic;
-    }
-  }
-  __device__ __forceinline__ void row(const float* tr) {
+    int row = 0, left = 0;
 #pragma unroll 1
-    for (int j = 0; j < 8; ++j) {
-      float t, u, v, det;
-      mt(tr + 9 * j, r, t, u, v, det);
-      int tid = decode_lane(tr[72 + j]);
-      bool ok = (fabsf(det) > kDetEps) && (u >= neg_band) && (v >= neg_band) &&
-                (u + v <= band_hi) && (t > t_min) && (t < tmax) && (tid >= 0);
-      if (ok) insert(t, tid);
+    for (;;) {
+      while (left == 0 && leaves != 0) {
+        const int c = __ffs(leaves) - 1;
+        leaves &= leaves - 1;
+        int m = meta[0];
+#pragma unroll
+        for (int q = 1; q < kEntries; ++q)
+          if (q == c) m = meta[q];
+        const int nm = ~m;
+        row = nm >> 3;
+        left = max(0, min((nm & 7) + 1, max_rows));
+      }
+      if (left == 0) break;
+      const float* tr = rows + (size_t)row * 128;
+#pragma unroll 1
+      for (int h = 0; h < 2; ++h) {
+        float f[36];
+        load_half(tr, h, f);
+        const float4 ia = __ldg(reinterpret_cast<const float4*>(tr + 72) + h);
+        const int tid[4] = {decode_lane(ia.x), decode_lane(ia.y), decode_lane(ia.z),
+                            decode_lane(ia.w)};
+        knear_half(f, tid, r, t_min, tmax, neg_band, band_hi, L);
+      }
+      ++row;
+      --left;
     }
   }
-};
+}
 
 template <bool kShade>
 __global__ void __launch_bounds__(kBlock)
@@ -303,23 +352,59 @@ occluded8_kernel(const float* __restrict__ wrow, const float* __restrict__ rows,
   blk_out[i] = blocked ? 1 : 0;
 }
 
+// Persistent warps: each warp takes the next 32 rays from a global counter
+// (zeroed by the wrapper for every launch) until none are left, so the
+// long walks of a launch no longer leave an SM idle while its last blocks
+// finish.  Returns the first ray of the warp's batch, or n when the work
+// is done; every lane of the warp gets the same value.
+__device__ __forceinline__ int next_batch(int* next) {
+  int base = 0;
+  if ((threadIdx.x & 31) == 0) base = atomicAdd(next, 32);
+  return __shfl_sync(0xffffffffu, base, 0);
+}
+
+// Blocks of a persistent launch: as many as stay resident on the card at
+// once (the occupancy the compiled kernel allows on every SM), but no more
+// than the rays need.
+template <class Kernel>
+__host__ int resident_blocks(Kernel kernel, int n) {
+  int dev = 0, sms = 0, per_sm = 0;
+  cudaGetDevice(&dev);
+  cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel, kBlock, 0);
+  const int need = (n + kBlock - 1) / kBlock;
+  const int most = sms * (per_sm > 0 ? per_sm : 1);
+  return need < most ? need : most;
+}
+
+// Launch a persistent kernel for n rays on `stream`.
+template <class Kernel, class... Args>
+__host__ void launch_persistent(Kernel kernel, int n, cudaStream_t stream, Args... args) {
+  kernel<<<resident_blocks(kernel, n), kBlock, 0, stream>>>(args...);
+}
+
 template <int KM>
 __global__ void __launch_bounds__(kBlock)
 knear8_kernel(const float* __restrict__ wrow, const float* __restrict__ rows,
               const float* __restrict__ o, const float* __restrict__ d,
               const float* __restrict__ tm, int n, int max_rows, float t_min,
-              int k, float neg_band, float band_hi, int* __restrict__ ids_out) {
-  int i = blockIdx.x * blockDim.x + threadIdx.x;
-  if (i >= n) return;
-  const float tmax = tm[i];
-  const Ray r = load_ray(o, d, i);
-  KNear<KM> vis(r, t_min, tmax, neg_band, band_hi, k);
-  // An empty window (t_max <= t_min, the pipeline's miss rays) accepts no
-  // candidate: the ray starts dead and emits k empty slots.
-  if (tmax > t_min) walk(wrow, rows, r, max_rows, t_min, vis);
-#pragma unroll
-  for (int j = 0; j < KM; ++j)
-    if (j < k) ids_out[(size_t)i * k + j] = vis.ids[j] == kBigId ? -1 : vis.ids[j];
+              int k, float neg_band, float band_hi, int* __restrict__ ids_out,
+              int* __restrict__ next) {
+  for (;;) {
+    const int base = next_batch(next);
+    if (base >= n) return;
+    const int i = base + (threadIdx.x & 31);
+    if (i >= n) continue;
+    const float tmax = tm[i];
+    KList<KM, true> L(k);
+    // An empty window (t_max <= t_min, the pipeline's miss rays) accepts no
+    // candidate: the ray starts dead and emits k empty slots.
+    if (tmax > t_min) {
+      const Ray r = load_ray(o, d, i);
+      knear8_walk<KM>(wrow, rows, r, max_rows, t_min, tmax, neg_band, band_hi, L);
+    }
+    L.store(ids_out, (size_t)i);
+  }
 }
 
 }  // namespace
@@ -357,22 +442,23 @@ int tpurt_occluded8(const float* wrow, const float* rows, const float* o,
 
 // ids: (n, k) int32, k in [1, 16] (the wrapper checks).  neg_band and
 // band_hi are -band and 1 + band rounded once to f32, as the twin compares.
+// next: one int32 the wrapper zeroed on this stream, the persistent warps'
+// ray counter.  wrow and rows must be 16-byte aligned (the wrapper checks).
 int tpurt_knear8(const float* wrow, const float* rows, const float* o,
                  const float* d, const float* tm, int n, int max_rows,
                  float t_min, int k, float neg_band, float band_hi, int* ids,
-                 cudaStream_t stream) {
+                 int* next, cudaStream_t stream) {
   if (n <= 0) return 0;
   if (k < 1 || k > kKMax) return (int)cudaErrorInvalidValue;
-  int grid = (n + kBlock - 1) / kBlock;
   if (k <= 4) {
-    knear8_kernel<4><<<grid, kBlock, 0, stream>>>(
-        wrow, rows, o, d, tm, n, max_rows, t_min, k, neg_band, band_hi, ids);
+    launch_persistent(knear8_kernel<4>, n, stream, wrow, rows, o, d, tm, n,
+                      max_rows, t_min, k, neg_band, band_hi, ids, next);
   } else if (k <= 8) {
-    knear8_kernel<8><<<grid, kBlock, 0, stream>>>(
-        wrow, rows, o, d, tm, n, max_rows, t_min, k, neg_band, band_hi, ids);
+    launch_persistent(knear8_kernel<8>, n, stream, wrow, rows, o, d, tm, n,
+                      max_rows, t_min, k, neg_band, band_hi, ids, next);
   } else {
-    knear8_kernel<16><<<grid, kBlock, 0, stream>>>(
-        wrow, rows, o, d, tm, n, max_rows, t_min, k, neg_band, band_hi, ids);
+    launch_persistent(knear8_kernel<16>, n, stream, wrow, rows, o, d, tm, n,
+                      max_rows, t_min, k, neg_band, band_hi, ids, next);
   }
   return (int)cudaGetLastError();
 }

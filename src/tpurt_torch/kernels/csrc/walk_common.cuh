@@ -1,7 +1,8 @@
 // Device helpers shared by the BVH walks (traverse8.cu, traverse.cu): the
 // ray record, tpurt's _safe_inv, NaN-propagating min/max and Möller–Trumbore
-// in tpurt's op order.  Everything here has internal linkage, so each
-// source that includes it gets its own copy.
+// in tpurt's op order; for the two k-nearest kernels, the sorted k-list and
+// the half-row test.  Everything here has internal linkage, so each source
+// that includes it gets its own copy.
 
 #pragma once
 
@@ -30,6 +31,23 @@ __device__ __forceinline__ float jmin(float a, float b) {
 }
 __device__ __forceinline__ float jmax(float a, float b) {
   return (a != a) ? a : ((b != b) ? b : (a > b ? a : b));
+}
+
+// The same as one instruction each (min.NaN / max.NaN, sm_80 and later):
+// NaN in either operand gives NaN.  They can differ from jmin/jmax only in
+// which zero (+0 or -0) or which NaN payload they return, which no
+// comparison tells apart, so a walk that only compares their results (a
+// slab test, a cull bound) decides exactly as with jmin/jmax.  jmin and
+// jmax cost five or six instructions each.
+__device__ __forceinline__ float nmin(float a, float b) {
+  float r;
+  asm("min.NaN.f32 %0, %1, %2;" : "=f"(r) : "f"(a), "f"(b));
+  return r;
+}
+__device__ __forceinline__ float nmax(float a, float b) {
+  float r;
+  asm("max.NaN.f32 %0, %1, %2;" : "=f"(r) : "f"(a), "f"(b));
+  return r;
 }
 
 struct Ray {
@@ -64,6 +82,131 @@ __device__ __forceinline__ void mt(const float* tri, const Ray& r, float& t,
   float qz = tvx * e1y - tvy * e1x;
   v = (r.dx * qx + r.dy * qy + r.dz * qz) * inv_det;
   t = (e2x * qx + e2y * qy + e2z * qz) * inv_det;
+}
+
+// ---------------------------------------------------------------------------
+// The k-nearest kernels' shared parts (knear8, knear_bin)
+// ---------------------------------------------------------------------------
+
+// The k nearest band hits of one ray, sorted by (t, id): tpurt's bubble
+// insert, one candidate at a time.  The list length KM is a compile-time
+// bound (4, 8 or 16, the smallest >= k); every loop over the list is
+// unrolled to KM and guarded by i < k, so ts/ids stay in registers.  A
+// candidate enters only if it sorts before the k-th entry, which is also
+// tpurt's outcome (a later one falls off the end of the bubble, an equal
+// one is a duplicate).  kDedup (knear8): a candidate whose id is already
+// listed is dropped, since boundary rows shared by adjacent fat leaves
+// repeat a triangle; a binary leaf holds each triangle once.
+template <int KM, bool kDedup>
+struct KList {
+  int k;
+  float ts[KM];
+  int ids[KM];
+
+  __device__ explicit KList(int kk) : k(kk) {
+#pragma unroll
+    for (int i = 0; i < KM; ++i) {
+      ts[i] = kTMax;
+      ids[i] = kBigId;
+    }
+  }
+  __device__ __forceinline__ void kth(float& t, int& id) const {
+    t = ts[KM - 1];
+    id = ids[KM - 1];
+#pragma unroll
+    for (int i = 0; i < KM - 1; ++i)
+      if (i == k - 1) { t = ts[i]; id = ids[i]; }
+  }
+  // The walk's cull bound min(k-th t, t_max), with jnp.minimum's NaN rule.
+  __device__ __forceinline__ float upper(float tmax) const {
+    float t;
+    int id;
+    kth(t, id);
+    return jmin(t, tmax);
+  }
+  __device__ __forceinline__ void insert(float tc, int ic) {
+    float kt;
+    int kid;
+    kth(kt, kid);
+    if (!((tc < kt) || ((tc == kt) && (ic < kid)))) return;
+    if (kDedup) {
+      bool dup = false;
+#pragma unroll
+      for (int i = 0; i < KM; ++i) dup |= (i < k) && (ids[i] == ic);
+      if (dup) return;
+    }
+#pragma unroll
+    for (int i = 0; i < KM; ++i) {
+      bool less = (i < k) && ((tc < ts[i]) || ((tc == ts[i]) && (ic < ids[i])));
+      float tt = ts[i];
+      int ii = ids[i];
+      ts[i] = less ? tc : tt;
+      ids[i] = less ? ic : ii;
+      tc = less ? tt : tc;
+      ic = less ? ii : ic;
+    }
+  }
+  // Row-major (N, k) output, the empty slots as -1.
+  __device__ __forceinline__ void store(int* out, size_t i) const {
+#pragma unroll
+    for (int j = 0; j < KM; ++j)
+      if (j < k) out[i * k + j] = ids[j] == kBigId ? -1 : ids[j];
+  }
+};
+
+// Half h (0 or 1) of a leaf row's 8 triangles: triangles 4h..4h+3, their
+// (v0, e1, e2) at 36h..36h+35, as 9 16-byte loads through the read-only
+// path, all issued before any is used.  The row must be 16-byte aligned
+// (rows are 512 bytes; the wrappers check the base pointer).  A half row
+// holds 36 floats in registers where a whole row would hold 72, which
+// leaves room for a fourth or fifth block on each SM.
+__device__ __forceinline__ void load_half(const float* row, int h, float (&f)[36]) {
+  const float4* p = reinterpret_cast<const float4*>(row) + 9 * h;
+#pragma unroll
+  for (int q = 0; q < 9; ++q) {
+    const float4 v = __ldg(p + q);
+    f[4 * q] = v.x; f[4 * q + 1] = v.y; f[4 * q + 2] = v.z; f[4 * q + 3] = v.w;
+  }
+}
+
+// Accept, then insert: a half row's 4 band tests unrolled into an accept
+// mask (which also drops what cannot sort before the k-th entry at the
+// half's start: the k-th only falls while inserting, so insert() would
+// drop it too), then the accepted candidates inserted in slot order by a
+// loop that is not unrolled, so a warp runs it as often as its busiest lane
+// accepts.  The same candidates reach insert() in the same order as a
+// one-slot-at-a-time test, so the list is the same.
+template <int KM, bool kDedup>
+__device__ __forceinline__ void knear_half(const float (&f)[36], const int (&tid)[4],
+                                           const Ray& r, float t_min, float tmax,
+                                           float neg_band, float band_hi,
+                                           KList<KM, kDedup>& L) {
+  float kt;
+  int kid;
+  L.kth(kt, kid);
+  float t[4];
+  unsigned ok = 0;
+#pragma unroll
+  for (int j = 0; j < 4; ++j) {
+    float u, v, det;
+    mt(f + 9 * j, r, t[j], u, v, det);
+    const bool a = (fabsf(det) > kDetEps) && (u >= neg_band) && (v >= neg_band) &&
+                   (u + v <= band_hi) && (t[j] > t_min) && (t[j] < tmax) &&
+                   (tid[j] >= 0) &&
+                   ((t[j] < kt) || ((t[j] == kt) && (tid[j] < kid)));
+    ok |= (unsigned)a << j;
+  }
+#pragma unroll 1
+  while (ok) {
+    const int j = __ffs(ok) - 1;
+    ok &= ok - 1;
+    float tc = t[0];
+    int ic = tid[0];
+#pragma unroll
+    for (int q = 1; q < 4; ++q)
+      if (q == j) { tc = t[q]; ic = tid[q]; }
+    L.insert(tc, ic);
+  }
 }
 
 }  // namespace

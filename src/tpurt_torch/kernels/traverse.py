@@ -192,6 +192,8 @@ def k_nearest_ids_packed(rays: Rays, packed: PackedBVH, k: int, band: float,
     if o.device.type == "cpu":
         return k_nearest_ids_packed_ref(rays, packed, k, band, t_min, t_max)
     tmax = _tmax_flat(rays, t_max)
+    _build.check_aligned(*(x.data_ptr() for x in (packed.node_f32, packed.node_i32,
+                                                    packed.tri_rows, packed.tri_ids)))
     lib = _build.load()
     n = o.shape[0]
     ids = torch.empty((n, k), dtype=torch.int32, device=o.device)

@@ -418,13 +418,16 @@ def k_nearest_wide8(rays: Rays, wide: WideBVH, k: int, band: float,
         return k_nearest_wide8_ref(rays, wide, k, band, t_min, t_max)
     tmax = _tmax_flat(rays, t_max)
     _check_stack(wide)
+    _build.check_aligned(wide.wrow.data_ptr(), wide.tri_rows.data_ptr())
     lib = _build.load()
     n = o.shape[0]
     ids = torch.empty((n, k), dtype=torch.int32, device=o.device)
+    # the persistent warps' ray counter, fresh for every launch
+    nxt = torch.zeros(1, dtype=torch.int32, device=o.device)
     err = lib.tpurt_knear8(
         _ptr(wide.wrow), _ptr(wide.tri_rows), _ptr(o), _ptr(d), _ptr(tmax), n,
         wide.max_rows, ctypes.c_float(t_min), k, ctypes.c_float(-band),
-        ctypes.c_float(1.0 + band), _ptr(ids),
+        ctypes.c_float(1.0 + band), _ptr(ids), _ptr(nxt),
         ctypes.c_void_p(torch.cuda.current_stream(o.device).cuda_stream))
     if err:
         raise RuntimeError(f"knear8 kernel launch failed: {_build.error_string(err)}")
