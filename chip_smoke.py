@@ -10,16 +10,17 @@ Phases, one line each (any failure exits non-zero and prints no result):
   device   torch.cuda must be available; the card's name and power limit.
   build    nvcc builds the CUDA kernels from src/tpurt_torch/kernels/csrc,
            one process per source; each kernel's registers and spills (the
-           k-nearest kernels must not spill).  With --parent, the kernels of
-           each other source tree (a checkout of the parent commit, or of a
-           variant of these kernels) are built alongside.
+           k-nearest and closest-hit kernels must not spill).  With
+           --parent, the kernels of each other source tree (a checkout of
+           the parent commit, or of a variant of these kernels) are built
+           alongside.
   scene    the 1M-triangle sponza scene at 1920x1088: scene, LBVH, collapse
            and pack seconds (band 0, the hard render's tree).
   parity   closest8 and occluded8 against their plain-torch twins on the
            card, on every ray of the Morton-ordered 1920x1088 frame and its
            shadow rays, for the scene's camera and for an overview of the
-           courtyard; the twins' full-frame milliseconds and (main view)
-           their walk counts, from which the kernels' bounds are computed.
+           courtyard; the twins' full-frame milliseconds and their walk
+           counts, from which the kernels' bounds are computed ([bound]).
   subset_timing
            kernel and twin milliseconds on 65,536 of the frame's rays.
   scene_band
@@ -35,10 +36,20 @@ Phases, one line each (any failure exits non-zero and prints no result):
            occluded8, with the launch counts of that run.
   golden   cornell 64^2 and bunny-3K 48^2 renders on the card against the
            reference images in tests/golden.
-  timing   per-kernel milliseconds (CUDA events) and full-frame rays/s.
+  timing   per-kernel milliseconds (CUDA events) and full-frame rays/s,
+           the main view and the overview.
   profile  torch.profiler over 5 hard frames: each kernel's and the torch
            glue's share of device time, the device's idle share; closest8 on
            row-major against Morton-ordered rays.
+  closest_ab
+           the closest-hit kernels (closest8 on both views' frames; later
+           closest_bin on the 1M main view, the overview's first rays and
+           the bunny) and, as controls, the any-hit kernels (occluded8 on the
+           main view's shadow rays, occluded_bin on the bunny's) against each
+           other tree's (--parent): ids or flags equal, t, u, v
+           and shading lanes bitwise, then in turns other, new, new, other
+           the call's ms (CUDA events) and the kernel's device ms (bare
+           launches); without other trees, this build's alone.
   fit      InverseRenderer.fit: 3 Adam steps of verts and albedo on the 1M
            scene at 1920x1088 (soft, k_layers 4, k_occ 8, 8 ray chunks)
            toward the albedo x 0.8 render; step seconds, fwd+bwd rays/s,
@@ -82,7 +93,9 @@ knear_bin over the packed threaded tree):
            also its device ms).
   bound_bin
            each kernel's least time on the card from its twin's walk counts
-           (the bunny frame, the 1M main view).
+           (the bunny frame, the 1M main view); closest_bin's from its
+           near-first walk and from the parent's escape walk, the smaller
+           its bound.
   render_bin
            render(method="binary") of the bunny's 512x512 hard frame, with
            the launch counts of that run, against the wide8 image; the
@@ -156,6 +169,7 @@ from tpurt_torch.accel import lbvh as lbvh_mod  # noqa: E402
 from tpurt_torch.accel import morton as morton_mod  # noqa: E402
 from tpurt_torch.accel.lbvh import BVH, build_lbvh  # noqa: E402
 from tpurt_torch.accel.packet import max_cut_leaves, pack_bvh  # noqa: E402
+from tpurt_torch.accel.traverse_ref import closest_walk, safe_inv  # noqa: E402
 from tpurt_torch.api.config import FitConfig, RenderConfig  # noqa: E402
 from tpurt_torch.api.inverse import InverseRenderer  # noqa: E402
 from tpurt_torch.api.renderer import Renderer  # noqa: E402
@@ -265,6 +279,9 @@ RADIX_DELTA_OPS, RADIX_STEP_OPS = 10, 6
 KERNEL_NAMES = ("closest8_kernel", "occluded8_kernel", "knear8_kernel",
                 "closest_bin_kernel", "occluded_bin_kernel", "knear_bin_kernel",
                 "morton_kernel", "radix_kernel")
+WALK_KERNELS = ("closest8", "occluded8", "knear8", "closest_bin", "occluded_bin", "knear_bin")
+# The redesigned kernels, which [build] fails on if ptxas reports a spill.
+NO_SPILL = ("knear8", "knear_bin", "closest8", "closest_bin")
 # Each kernel engine's hard-frame kernels (closest hit, any hit) and its
 # closest-hit call as render_rays makes it.
 HARD_KERNELS = {
@@ -444,6 +461,19 @@ def parity(view: str, tracer: Tracer, frame: Rays, count: bool = False) -> dict:
     return out
 
 
+def both_bounds(name: str, view: str, kernel: str, walks: dict, n_rays: int, in_bytes: int,
+                out_bytes: int, layout: dict = WIDE) -> dict:
+    """A kernel's bound from each walk's counts where its visit order changed
+    (walks: {"near_first": counts, "escape": counts}, closest_bin's order and
+    the parent commit's), each printed; returns the smaller, the least work
+    the function needs, with both beside it."""
+    each = {walk: bound(c, n_rays, in_bytes, out_bytes, layout) for walk, c in walks.items()}
+    for walk, b in each.items():
+        phase(name, view=view, kernel=kernel, walk=walk, **b)
+    least = min(each.values(), key=lambda b: b["bound_ms"])
+    return dict(least, **{f"{walk}_bound_ms": b["bound_ms"] for walk, b in each.items()})
+
+
 def subset_timing(wide, frame: Rays, par: dict) -> None:
     """Kernel and twin milliseconds on every k-th ray of the frame
     (SUBSET_RAYS of them) and their shadow rays."""
@@ -466,7 +496,7 @@ def subset_timing(wide, frame: Rays, par: dict) -> None:
           **{f"{k}_plain_ms": f"{plain[k]:.4f}" for k in plain})
 
 
-def frame_timing(tracer: Tracer, frame: Rays, par: dict) -> dict:
+def frame_timing(view: str, tracer: Tracer, frame: Rays, par: dict) -> dict:
     """Full-frame kernel milliseconds and the whole hard frame's rays/s;
     shading is the frame minus the two kernels."""
     wide, n = tracer.wide, frame.o.shape[0]
@@ -474,7 +504,7 @@ def frame_timing(tracer: Tracer, frame: Rays, par: dict) -> dict:
     ms = {"closest8": cuda_ms(lambda: k8.traverse_wide8(frame, wide, shade_out=True)),
           "occluded8": cuda_ms(lambda: k8.occluded_wide8(sh_rays, wide, t_sh))}
     total = cuda_ms(lambda: render_rays(tracer, frame))
-    phase("timing", rays=n, shadow_rays=sh_rays.o.shape[0],
+    phase("timing", view=view, rays=n, shadow_rays=sh_rays.o.shape[0],
           closest8_ms=f"{ms['closest8']:.4f}", occluded8_ms=f"{ms['occluded8']:.4f}",
           shading_ms_derived=f"{total - ms['closest8'] - ms['occluded8']:.4f}",
           frame_ms=f"{total:.4f}", rays_per_s=f"{n / (total * 1e-3):.1f}")
@@ -599,7 +629,7 @@ def knear_call(out: dict, view: str, call: str, walks, tree, rays: Rays, k: int,
     (ref,), plain = chunked(twin, n_r)
     bad = int((got != ref).any(dim=1).sum())
     ms = cuda_ms(lambda: run(rays, k, tm), iters=5)
-    dev_ms = launch_ms(this_library(), tree, [(rays, k, tm)])
+    dev_ms = launch_ms(this_library(), kernel, tree, [(rays, k, tm)])
     out["ms"][call], out["plain_ms"][call] = ms, plain
     out.setdefault("device_ms", {})[call] = dev_ms
     out["mismatch_frac"][call] = bad / n_r
@@ -692,9 +722,11 @@ def fit_knear(inv: InverseRenderer, scene, cam: Camera) -> dict:
     whole = knear_calls(run, table, scene, rays, 1)
     for call in ("layers", "occluders"):
         out["frame_ms"][call] = cuda_ms(knear_loop(run, chunks[call]), iters=5)
-        out["frame_device_ms"][call] = launch_ms(this_library(), wide, chunks[call])
+        out["frame_device_ms"][call] = launch_ms(this_library(), "knear8", wide,
+                                                 chunks[call])
         out["row_major_ms"][call] = cuda_ms(knear_loop(run, whole[call]), iters=5)
-        out["row_major_device_ms"][call] = launch_ms(this_library(), wide, whole[call])
+        out["row_major_device_ms"][call] = launch_ms(this_library(), "knear8", wide,
+                                                     whole[call])
     out["wide"], out["chunks"], out["whole"] = wide, chunks, whole
     phase("fit_pieces", refit_ms=f"{refit_ms:.4f}", chunk_rays=m,
           **{f"knear8_{call}_{key}": f"{out[field][call]:.4f}"
@@ -719,16 +751,17 @@ def tree_csrc(name: str, root: str) -> str:
     return csrc
 
 
-def bind_knear(root: str, path: str) -> ctypes.CDLL:
+def bind_tree(root: str, path: str) -> ctypes.CDLL:
     """The kernel library at `path`, built from the source tree at `root`,
-    with its two k-nearest entry points bound by the tree's own interface: a
-    ray counter before the stream where its source takes one (persistent
-    warps), none where it does not (one thread a ray, as in the parent
-    commit)."""
+    with its walk entry points bound for bare launches by the tree's own
+    interface: the k-nearest ones and closest8 with a ray counter before the
+    stream where its source takes one (persistent warps), none where it does
+    not (one thread a ray, as in earlier commits)."""
     csrc = tree_csrc("tree", root)
     lib = ctypes.CDLL(path)
     lib.counter = {}
-    for fn, src in (("tpurt_knear8", "traverse8.cu"), ("tpurt_knear_bin", "traverse.cu")):
+    for fn, src in (("tpurt_knear8", "traverse8.cu"), ("tpurt_knear_bin", "traverse.cu"),
+                    ("tpurt_closest8", "traverse8.cu")):
         with open(os.path.join(csrc, src)) as f:
             text = f.read()
         lib.counter[fn] = "int* next" in text[text.index(f"int {fn}("):].split("{", 1)[0]
@@ -737,80 +770,113 @@ def bind_knear(root: str, path: str) -> ctypes.CDLL:
                                  + [ptr] * (1 + lib.counter["tpurt_knear8"]))
     lib.tpurt_knear_bin.argtypes = ([ptr] * 7 + [i32, f32, i32, f32, f32, ptr]
                                     + [ptr] * (1 + lib.counter["tpurt_knear_bin"]))
-    lib.tpurt_knear8.restype = lib.tpurt_knear_bin.restype = i32
+    lib.tpurt_closest8.argtypes = ([ptr] * 4 + [i32, i32, f32]
+                                   + [ptr] * (8 + lib.counter["tpurt_closest8"]))
+    lib.tpurt_occluded8.argtypes = [ptr] * 5 + [i32, i32, f32, ptr, ptr]
+    lib.tpurt_closest_bin.argtypes = [ptr] * 6 + [i32, f32] + [ptr] * 5
+    lib.tpurt_occluded_bin.argtypes = [ptr] * 7 + [i32, f32, ptr, ptr]
+    for fn in ("knear8", "knear_bin", "closest8", "occluded8", "closest_bin", "occluded_bin"):
+        getattr(lib, f"tpurt_{fn}").restype = i32
     return lib
 
 
 @functools.cache
 def this_library() -> ctypes.CDLL:
-    """This checkout's kernels (built by _build.load()), bound by bind_knear
+    """This checkout's kernels (built by _build.load()), bound by bind_tree
     for bare launches."""
-    return bind_knear(HERE, _build.library_path())
+    return bind_tree(HERE, _build.library_path())
 
 
 def parent_library(name: str, root: str, path: str) -> ctypes.CDLL:
     """Another source tree's kernel library at `path`, built by the port's
-    loader from its csrc/ and bound by bind_knear; prints its k-nearest
-    kernels' ptxas report."""
-    lib = bind_knear(root, path)
-    report = {k: v for k, v in ptxas_report(path[:-3] + ".log").items() if "knear" in k}
-    phase("knear_ab", tree=name, root=root, lib=os.path.relpath(path, HERE),
+    loader from its csrc/ and bound by bind_tree; prints its walk kernels'
+    ptxas report."""
+    lib = bind_tree(root, path)
+    report = {k: v for k, v in ptxas_report(path[:-3] + ".log").items()
+              if k.startswith(WALK_KERNELS)}
+    phase("tree", tree=name, root=root, lib=os.path.relpath(path, HERE),
           counter=json.dumps(lib.counter), ptxas=json.dumps(report, separators=(",", ":")))
     return lib
 
 
-def knear_launch(lib: ctypes.CDLL, tree, rays: Rays, k: int, t_max):
-    """lib's knear8 (tree a WideBVH) or knear_bin (a PackedBVH) on (rays, k,
-    t_max), its arguments made as the wrappers make them: (launch, ids),
-    where launch(counter) enqueues the kernel on the current stream (counter:
-    a zeroed int32 for a kernel that takes one, else unused) and ids is its
-    (n, k) output."""
+def walk_launch(lib: ctypes.CDLL, kernel: str, tree, rays: Rays, t_max=None,
+                k: int | None = None):
+    """lib's walk kernel (closest8, occluded8, knear8 over a WideBVH;
+    closest_bin, occluded_bin, knear_bin over a PackedBVH) on `rays` (t_max:
+    the any-hit and k-nearest kernels' window, k: the k-nearest list
+    length), its arguments and outputs made as the wrappers make them:
+    (launch, out), where launch(counter) enqueues the kernel on the current
+    stream (counter: a zeroed int32 for a kernel that takes one, made as the
+    wrapper makes it when not given) and out is its outputs (closest: id, t,
+    u, v and closest8's shading lanes; any hit: the flags; k-nearest: the
+    (n, k) ids)."""
     def ptr(x: torch.Tensor) -> ctypes.c_void_p:
         return ctypes.c_void_p(x.data_ptr())
 
     o, d = rays.o.reshape(-1, 3), rays.d.reshape(-1, 3)
-    n = o.shape[0]
-    tm = torch.as_tensor(t_max, dtype=torch.float32, device=o.device).expand(n).contiguous()
-    ids = torch.empty((n, k), dtype=torch.int32, device=o.device)
+    n, dev = o.shape[0], o.device
     wide = isinstance(tree, WideBVH)
-    fn = lib.tpurt_knear8 if wide else lib.tpurt_knear_bin
-    counted = lib.counter["tpurt_knear8" if wide else "tpurt_knear_bin"]
     head = ((ptr(tree.wrow), ptr(tree.tri_rows)) if wide else
             (ptr(tree.node_f32), ptr(tree.node_i32), ptr(tree.tri_rows), ptr(tree.tri_ids)))
-    head += (ptr(o), ptr(d), ptr(tm), n) + ((tree.max_rows,) if wide else ())
-    head += (ctypes.c_float(DEFAULT_T_MIN), k, ctypes.c_float(-BAND),
-             ctypes.c_float(1.0 + BAND), ptr(ids))
+    rows = (tree.max_rows,) if wide else ()
+    t_min = ctypes.c_float(DEFAULT_T_MIN)
+    if kernel.startswith("closest"):
+        f32 = dict(dtype=torch.float32, device=dev)
+        t, u, v = (torch.empty(n, **f32) for _ in range(3))
+        tri = torch.empty(n, dtype=torch.int32, device=dev)
+        sh = [torch.empty((n, 3), **f32) for _ in range(3)] if wide else []
+        out = (tri, t, u, v, *sh)
+        args = (*head, ptr(o), ptr(d), n, *rows, t_min, ptr(t), ptr(u), ptr(v), ptr(tri),
+                *(ptr(x) for x in sh))
+    else:
+        tm = torch.as_tensor(t_max, dtype=torch.float32, device=dev).expand(n).contiguous()
+        if kernel.startswith("knear"):
+            out = (torch.empty((n, k), dtype=torch.int32, device=dev),)
+            tail = (k, ctypes.c_float(-BAND), ctypes.c_float(1.0 + BAND))
+        else:
+            out = (torch.empty(n, dtype=torch.uint8, device=dev),)
+            tail = ()
+        args = (*head, ptr(o), ptr(d), ptr(tm), n, *rows, t_min, *tail, ptr(out[0]))
+    fn = getattr(lib, f"tpurt_{kernel}")
+    counted = lib.counter.get(f"tpurt_{kernel}", False)
     stream = ctypes.c_void_p(torch.cuda.current_stream().cuda_stream)
 
     def launch(counter: torch.Tensor | None = None) -> None:
-        err = fn(*head, *([ptr(counter)] if counted else []), stream)
+        if counted and counter is None:
+            counter = torch.zeros(1, dtype=torch.int32, device=dev)
+        err = fn(*args, *([ptr(counter)] if counted else []), stream)
         if err:
-            fail(f"a k-nearest kernel failed to launch: {err}")
+            fail(f"{kernel} failed to launch: {err}")
 
-    launch.keep = (o, d, tm, ids)  # what the kernel reads and writes lives as long
-    return launch, ids
+    launch.keep = (o, d, args)  # what the kernel reads lives as long
+    return launch, out
+
+
+def knear_kernel(tree) -> str:
+    return "knear8" if isinstance(tree, WideBVH) else "knear_bin"
 
 
 def parent_knear(lib: ctypes.CDLL, tree):
     """run(rays, k, t_max) through another tree's k-nearest kernel, a fresh
     counter for every launch, as the wrappers call them."""
     def run(rays: Rays, k: int, t_max) -> torch.Tensor:
-        launch, ids = knear_launch(lib, tree, rays, k, t_max)
-        launch(torch.zeros(1, dtype=torch.int32, device=rays.o.device))
+        launch, (ids,) = walk_launch(lib, knear_kernel(tree), tree, rays, t_max, k)
+        launch()
         return ids
 
     return run
 
 
-def launch_ms(lib: ctypes.CDLL, tree, calls: list, passes: int = 5) -> float:
-    """The device ms of one pass of lib's k-nearest kernel over `calls`
-    ((rays, k, t_max) each), launched bare: CUDA events around `passes`
-    passes after a warm one, every argument, output and zeroed ray counter
-    made before the first event, so the events time the kernels and the
-    gaps between their launches, not the wrapper's checks, allocations and
-    counter fill.  (torch.profiler drops the kernel events of whole
-    sessions now and then, so it does not time these kernels.)"""
-    launches = [knear_launch(lib, tree, *c)[0] for c in calls]
+def launch_ms(lib: ctypes.CDLL, kernel: str, tree, calls: list, passes: int = 5) -> float:
+    """The device ms of one pass of lib's `kernel` over `calls` ((rays, k,
+    t_max) each; k None but for the k-nearest kernels), launched bare: CUDA
+    events around `passes` passes after a warm one, every argument, output
+    and zeroed ray counter made before the first event, so the events time
+    the kernels and the gaps between their launches, not the wrapper's
+    checks, allocations and counter fill.  (torch.profiler drops the kernel
+    events of whole sessions now and then, so it does not time these
+    kernels.)"""
+    launches = [walk_launch(lib, kernel, tree, rays, t_max, k)[0] for rays, k, t_max in calls]
     dev = calls[0][0].o.device
     counters = torch.zeros(((passes + 1) * len(calls), 1), dtype=torch.int32, device=dev)
     for i, launch in enumerate(launches):
@@ -863,10 +929,10 @@ def knear_ab(kernel: str, tree, runs: dict, libs: dict, cells: dict) -> dict:
         del got
         turns = [(name, cuda_ms(fns[name], iters=5))
                  for other in runs if other != "new" for name in (other, "new", "new", other)]
-        dev_turns = [(name, launch_ms(libs[name], tree, calls))
+        dev_turns = [(name, launch_ms(libs[name], kernel, tree, calls))
                      for other in libs if other != "new"
                      for name in (other, "new", "new", other)] or [
-            ("new", launch_ms(libs["new"], tree, calls))]
+            ("new", launch_ms(libs["new"], kernel, tree, calls))]
         mean = lambda ts, name: float(np.mean([t for s, t in ts if s == name]))  # noqa: E731
         out[cell] = {name: dict(ms=mean(turns, name),
                                 device_ms=mean(dev_turns, name) if name in libs else None)
@@ -879,6 +945,129 @@ def knear_ab(kernel: str, tree, runs: dict, libs: dict, cells: dict) -> dict:
         if any(bad.values()):
             fail(f"{kernel} ({cell}): id lists differ from another tree's kernel: {bad}")
     return out
+
+
+# ---------------------------------------------------------------------------
+# The closest-hit kernels against other trees' ([closest_ab])
+# ---------------------------------------------------------------------------
+def wrapper_call(kernel: str, tree, rays: Rays, t_max=None):
+    """fn() calling this checkout's wrapper of `kernel` as the hard render
+    calls it."""
+    return {"closest8": lambda: k8.traverse_wide8(rays, tree, shade_out=True),
+            "occluded8": lambda: k8.occluded_wide8(rays, tree, t_max),
+            "closest_bin": lambda: kb.traverse_packed(rays, tree),
+            "occluded_bin": lambda: kb.occluded_packed(rays, tree, t_max)}[kernel]
+
+
+@torch.no_grad()
+def closest_ab(libs: dict, cells: dict) -> dict:
+    """The closest-hit kernels (and the any-hit kernels as controls) of this
+    checkout ("new") against other trees' (libs: {"new": lib, name: lib,
+    ...}: the parent commit's, variants) on each cell (name -> (kernel,
+    tree, rays, t_max)): every tree's ids or flags equal to this build's,
+    and where ids agree t, u, v and shading lanes bitwise; a tree that
+    differs fails the script at its end, after the differing rays are
+    printed (differing_rays), unless each differing id is explained there.
+    Then in turns other, new, new, other for each other tree, the call's ms
+    by CUDA events (this build through its wrapper, the others with their
+    outputs made a call, as a wrapper makes them) and the kernel's device ms
+    from bare launches (launch_ms).  Without other trees, this build's alone."""
+    out = {}
+    for cell, (kernel, tree, rays, t_max) in cells.items():
+        got = {}
+        for name, lib in libs.items():
+            launch, res = walk_launch(lib, kernel, tree, rays, t_max)
+            launch()
+            got[name] = res
+        torch.cuda.synchronize()
+        ref = got.pop("new")
+        bad = {name: int((res[0] != ref[0]).sum()) for name, res in got.items()}
+        unexplained = {name: differing_rays(cell, kernel, tree, name, rays, ref, res)
+                       for name, res in got.items() if bad[name]}
+        err = {name: max([0.0] + [max_abs(a[res[0] == ref[0]], b[res[0] == ref[0]])
+                                  for a, b in zip(res[1:], ref[1:])])
+               for name, res in got.items()}
+        del got, ref
+
+        def call(name):
+            if name == "new":
+                return wrapper_call(kernel, tree, rays, t_max)
+            return lambda: walk_launch(libs[name], kernel, tree, rays, t_max)[0]()
+
+        order = [name for other in libs if other != "new"
+                 for name in (other, "new", "new", other)] or ["new"]
+        turns = [(name, cuda_ms(call(name), iters=5)) for name in order]
+        dev_turns = [(name, launch_ms(libs[name], kernel, tree, [(rays, None, t_max)],
+                                      passes=10)) for name in order]
+        mean = lambda ts, name: float(np.mean([t for s, t in ts if s == name]))  # noqa: E731
+        out[cell] = {name: dict(ms=mean(turns, name), device_ms=mean(dev_turns, name))
+                     for name in libs}
+        phase("closest_ab", kernel=kernel, cell=cell, rays=rays.o.reshape(-1, 3).shape[0],
+              mismatches=json.dumps(bad), max_abs_err=json.dumps(err),
+              **{f"{name}_ms": f"{v['ms']:.4f}" for name, v in out[cell].items()},
+              **{f"{name}_device_ms": f"{v['device_ms']:.4f}" for name, v in out[cell].items()},
+              turns=json.dumps([[s, round(t, 4)] for s, t in turns]),
+              device_turns=json.dumps([[s, round(t, 4)] for s, t in dev_turns]))
+        if any(unexplained.get(name) or err[name] > MAX_ABS_ERR for name in bad):
+            FAILURES.append(f"{kernel} ({cell}): outputs differ from a --parent tree's "
+                            f"kernel: {bad} ids ({unexplained} unexplained), {err}")
+    return out
+
+
+# Failures that stop the script at its end, after every measurement.
+FAILURES = []
+
+
+def differing_rays(cell: str, kernel: str, tree, name: str, rays: Rays, ref: tuple,
+                   res: tuple) -> int:
+    """The rays on which tree `name`'s ids differ from this build's, each
+    printed as the bits of its floats (float.hex) with both kernels' id and
+    t.  Only a closest_bin ray can be explained (ROADMAP P6): its visit
+    order changed, and tpurt's smooth inverse det / (det^2 + 1e-12) shrinks
+    t where |det| is near 1e-6, so a hit can lie before its own triangle's
+    box along the ray, and whether a walk takes it then depends on the
+    order.  Such a ray is explained when both hold: each kernel returns its
+    own walk's id (the near-first twin this build's, the escape twin the
+    parent commit's), and the better of the two hits lies outside its
+    triangle's box (outside_box).  Any other differing ray, closest8's
+    included, is not.  Returns the number of differing rays not explained."""
+    o, d = rays.o.reshape(-1, 3), rays.d.reshape(-1, 3)
+    idx = torch.nonzero(res[0] != ref[0])[:, 0]
+    twins = None
+    if kernel == "closest_bin":
+        sub = Rays(o=o[idx].contiguous(), d=d[idx].contiguous())
+        twins = (kb.traverse_packed_ref(sub, tree), closest_walk(sub, kb.PackedLayout(tree)))
+    unexplained = 0
+    for j, i in enumerate(idx.tolist()):
+        ids = (int(ref[0][i]), int(res[0][i]))
+        twin_ids = outside = None
+        if twins is not None:
+            twin_ids = (int(twins[0].tri[j]), int(twins[1].tri[j]))
+            outside = hit_outside_box(tree, o[i], d[i],
+                                      *min((float(ref[1][i]), ids[0]), (float(res[1][i]), ids[1])))
+        explained = twin_ids == ids and bool(outside)
+        unexplained += not explained
+        phase("closest_ab", cell=cell, tree=name, differing_ray=i,
+              o=json.dumps([float(x).hex() for x in o[i].tolist()]),
+              d=json.dumps([float(x).hex() for x in d[i].tolist()]),
+              new_id=ids[0], other_id=ids[1],
+              new_t=float(ref[1][i]).hex() if len(ref) > 1 else None,
+              other_t=float(res[1][i]).hex() if len(res) > 1 else None,
+              twin_ids=json.dumps(twin_ids), outside_box=outside, explained=explained)
+    return unexplained
+
+
+def hit_outside_box(packed, o: torch.Tensor, d: torch.Tensor, t: float, tri: int) -> bool:
+    """Whether t lies outside the slab interval of triangle `tri`'s own box
+    (from its packed row) along the ray, by the binary slab test."""
+    row, slot = (int(x) for x in torch.nonzero(packed.tri_ids == tri)[0])
+    v0, e1, e2 = packed.tri_rows[row, 9 * slot:9 * slot + 9].reshape(3, 3)
+    corners = torch.stack([v0, v0 + e1, v0 + e2])
+    inv = safe_inv(d)
+    t0, t1 = (corners.amin(0) - o) * inv, (corners.amax(0) - o) * inv
+    near = float(torch.minimum(t0, t1).max().clamp_min(DEFAULT_T_MIN))
+    far = float(torch.maximum(t0, t1).min())
+    return not near <= t <= far
 
 
 # ---------------------------------------------------------------------------
@@ -957,11 +1146,16 @@ def bin_parity(view: str, tracer: Tracer, frame: Rays, count: bool = False,
                err={"closest_bin": max(errs.values()), "occluded_bin": float(blk_bad > 0)},
                mismatch={"closest_bin": id_bad / n, "occluded_bin": blk_bad / n_sh})
     if count:
+        def escape_twin(lo: int, hi: int, stats=None):
+            closest_walk(rays_slice(frame, slice(lo, hi)), kb.PackedLayout(packed),
+                         stats=stats)
+
         out["bound"] = {
-            "closest_bin": bound(counted(closest_twin, n), n, 24, 16, BIN),
+            "closest_bin": both_bounds("bound_bin", view, "closest_bin", {
+                "near_first": counted(closest_twin, n), "escape": counted(escape_twin, n)},
+                n, 24, 16, BIN),
             "occluded_bin": bound(counted(occluded_twin, n_sh), n_sh, 28, 1, BIN)}
-        for name, b in out["bound"].items():
-            phase("bound_bin", view=view, kernel=name, **b)
+        phase("bound_bin", view=view, kernel="occluded_bin", **out["bound"]["occluded_bin"])
     return out
 
 
@@ -1559,7 +1753,7 @@ def main() -> None:
     ap.add_argument("--parent", action="append", default=[], metavar="[NAME=]DIR",
                     help="a checkout of the parent commit (or, named, of a variant of "
                          "the kernels): time its k-nearest kernels against these in "
-                         "turns ([knear_ab]); repeatable")
+                         "turns ([knear_ab], [closest_ab]); repeatable")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         fail("torch.cuda.is_available() is False: this script needs an NVIDIA GPU")
@@ -1586,10 +1780,11 @@ def main() -> None:
     phase("build", seconds=f"{time.perf_counter() - t0:.2f}",
           lib=os.path.relpath(lib, HERE), ptxas=json.dumps(ptxas, separators=(",", ":")))
     spills = {k: v["spill_bytes"] for k, v in ptxas.items()
-              if k.startswith("knear") and v.get("spill_bytes", 0)}
+              if k.startswith(NO_SPILL) and v.get("spill_bytes", 0)}
     if spills:
-        fail(f"the k-nearest kernels spill: {spills}")
+        fail(f"kernels that must not spill spill: {spills}")
     others = {name: parent_library(name, root, built[name]) for name, root in trees.items()}
+    walk_libs = {"new": this_library(), **others}
 
     # -- scene and acceleration structure, stage by stage ----------------
     (scene, cam), s_scene = sync_time(lambda: make_sponza_scene(
@@ -1610,7 +1805,7 @@ def main() -> None:
         eye=OVERVIEW_EYE, target=OVERVIEW_TARGET, fov_y_deg=50.0, width=WIDTH,
         height=HEIGHT, device=dev))
     main_par = parity("main", tracer, frame, count=True)
-    over_par = parity("overview", tracer, overview)
+    over_par = parity("overview", tracer, overview, count=True)
     subset_timing(wide, frame, main_par)
 
     # -- the soft path's tree and knear8 against its twin ------------------
@@ -1644,8 +1839,13 @@ def main() -> None:
     phase("golden", **goldens(dev, "wide8"))
 
     # -- full-frame timing and where its device time goes -----------------
-    frame_ms = frame_timing(tracer, frame, main_par)
+    frame_ms = frame_timing("main", tracer, frame, main_par)
+    over_ms = frame_timing("overview", tracer, overview, over_par)
     profile_frame(tracer, cam, frame)
+    ab = closest_ab(walk_libs, cells={
+        "closest8_main": ("closest8", wide, frame, None),
+        "closest8_overview": ("closest8", wide, overview, None),
+        "occluded8_main": ("occluded8", wide, main_par["sh_rays"], main_par["t_sh"])})
     del tracer, wide, main_par["sh_rays"], over_par["sh_rays"]
 
     # -- the binary kernels on the same 1M frame (hard only) --------------
@@ -1657,6 +1857,10 @@ def main() -> None:
                           of_rays=overview.o.shape[0])
     bin_main["frame_ms"] = bin_timing("sponza1m_main", s_tracer, frame, bin_main,
                                       beside=frame_ms)
+    ab.update(closest_ab(walk_libs, cells={
+        "closest_bin_main": ("closest_bin", s_tracer.packed, frame, None),
+        "closest_bin_overview": ("closest_bin", s_tracer.packed,
+                                 rays_slice(overview, slice(0, BIN_OVERVIEW_RAYS)), None)}))
     del s_tracer, bin_main["sh_rays"], bin_over["sh_rays"], overview
 
     # -- the main path, fit: InverseRenderer.fit through knear8 ------------
@@ -1689,6 +1893,10 @@ def main() -> None:
     b_soft = bin_tracer("bunny", bscene, band=BAND)
     bframe = morton_rays(bcam)
     bin_b = bin_parity("bunny", b_tracer, bframe, count=True)
+    ab.update(closest_ab(walk_libs, cells={
+        "closest_bin_bunny": ("closest_bin", b_tracer.packed, bframe, None),
+        "occluded_bin_bunny": ("occluded_bin", b_tracer.packed, bin_b["sh_rays"],
+                               bin_b["t_sh"])}))
     kn_b = knear_parity("bunny", b_soft, bframe, count=True, name="bin_parity",
                         kernel="knear_bin")
     ab_bin = None
@@ -1719,8 +1927,25 @@ def main() -> None:
                 "bound_ms": round(b["bound_ms"], 6), "bound_by": b["bound_by"],
                 "library_ms": None, **extra}
 
+    # closest8 and occluded8: the main view's frame; ms by CUDA events
+    # around the wrapper, device_ms the kernel's own from bare launches
+    # ([closest_ab]); closest8 also on the overview; parent: with
+    # --parent, each other tree's ms and device ms in turns on the same
+    # cells ([closest_ab]; null without)
+    def ab_of(prefix: str):
+        if len(walk_libs) == 1:
+            return None
+        return {cell: v for cell, v in ab.items() if cell.startswith(prefix)}
+
     kernels = [entry(name, launches[name], max(main_par["err"][name], over_par["err"][name]),
-                     frame_ms[name], main_par["plain_ms"][name], main_par["bound"][name])
+                     frame_ms[name], main_par["plain_ms"][name], main_par["bound"][name],
+                     device_ms=round(ab[f"{name}_main"]["new"]["device_ms"], 4),
+                     **({} if name == "occluded8" else dict(
+                         overview_ms=round(over_ms[name], 4),
+                         overview_device_ms=round(ab["closest8_overview"]["new"]["device_ms"], 4),
+                         overview_plain_ms=round(over_par["plain_ms"][name], 4),
+                         overview_bound_ms=round(over_par["bound"][name]["bound_ms"], 6))),
+                     parent=ab_of(name))
                for name in ("closest8", "occluded8")]
     # knear8: the layers call (k = 4) on the main view's Morton-ordered
     # frame, the occluders call beside it, and both calls as the fit makes
@@ -1755,17 +1980,31 @@ def main() -> None:
     # 1M main view beside it; max_abs_err is the largest |t, u, v - twin's|
     # (closest_bin) or the mismatch fraction (occluded_bin, knear_bin) over
     # every view
+    # closest_bin: its bound the smaller of the near-first and escape walks'
+    # (both beside it); device_ms from [closest_ab]; parent as closest8's
     for name in ("closest_bin", "occluded_bin"):
+        extra = dict(parent=ab_of(name)) if name == "occluded_bin" else dict(
+            near_first_bound_ms=round(bin_b["bound"][name]["near_first_bound_ms"], 6),
+            escape_bound_ms=round(bin_b["bound"][name]["escape_bound_ms"], 6),
+            sponza1m_near_first_bound_ms=round(
+                bin_main["bound"][name]["near_first_bound_ms"], 6),
+            sponza1m_escape_bound_ms=round(bin_main["bound"][name]["escape_bound_ms"], 6),
+            sponza1m_device_ms=round(ab["closest_bin_main"]["new"]["device_ms"], 4),
+            overview_rays=BIN_OVERVIEW_RAYS,
+            overview_ms=round(bin_over["ms"][name], 4),
+            overview_device_ms=round(ab["closest_bin_overview"]["new"]["device_ms"], 4),
+            parent=ab_of(name))
         kernels.append(entry(
             name, bin_launches[name],
             max(bin_b["err"][name], bin_main["err"][name], bin_over["err"][name]),
             bin_b["ms"][name], bin_b["plain_ms"][name], bin_b["bound"][name], source=BIN_SRC,
             mismatch_frac=max(p["mismatch"][name] for p in (bin_b, bin_main, bin_over)),
+            device_ms=round(ab[f"{name}_bunny"]["new"]["device_ms"], 4),
             sponza1m_ms=round(bin_main["ms"][name], 4),
             sponza1m_plain_ms=round(bin_main["plain_ms"][name], 4),
             sponza1m_bound_ms=round(bin_main["bound"][name]["bound_ms"], 6),
             sponza1m_bound_by=bin_main["bound"][name]["bound_by"],
-            sponza1m_wide8_ms=round(frame_ms[name.replace("_bin", "8")], 4)))
+            sponza1m_wide8_ms=round(frame_ms[name.replace("_bin", "8")], 4), **extra))
     kn_err = max(kn_b["mismatch_frac"].values())
     kernels.append(entry(
         "knear_bin", fit_b["launches"]["knear_bin"], kn_err, kn_b["ms"]["layers"],
@@ -1820,6 +2059,8 @@ def main() -> None:
             build_stage_ms=round(stages["sponza1m"]["ms"][name], 4),
             sponza5m_build_stage_ms=round(stages["sponza5m"]["ms"][name], 4)))
     phase("done", seconds=f"{time.perf_counter() - t_start:.1f}")
+    if FAILURES:
+        fail("; ".join(FAILURES))
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind, "count": torch.cuda.device_count()}}),

@@ -8,7 +8,8 @@ layout half of ``tpurt/accel/packet.py``), byte for byte tpurt's:
   tri_ids:  (L, LEAF_CAP) i32 triangle id per slot, -1 pad
 
 Nodes are the LBVH's flat (DFS) arrays over the treelet cut and leaf rows
-are numbered in DFS order.  make_tracer packs with the static bound
+are numbered in DFS order: internal node n's children are n + 1 and
+escape[n + 1].  make_tracer packs with the static bound
 max_cut_leaves instead of the live leaf count, as tpurt does, so the arrays
 carry unreachable zero rows past the live prefix.
 
@@ -48,6 +49,9 @@ class PackedBVH:
     tri_rows: torch.Tensor
     tri_ids: torch.Tensor
     band: float = 0.0
+    # levels below the root of the deepest leaf (-1: not computed); a
+    # near-first walk's stack holds at most one entry a level
+    depth: int = -1
 
     @property
     def num_nodes(self) -> int:
@@ -72,6 +76,23 @@ def _leaf_rows(tris: Triangles, tid: torch.Tensor) -> torch.Tensor:
                      torch.where(ok, v2[g] - v0[g], 0.0)], dim=-1)
     rows = tri.reshape(tid.shape[0], LEAF_CAP * 9)
     return torch.nn.functional.pad(rows, (0, 128 - LEAF_CAP * 9))
+
+
+@torch.no_grad()
+def tree_depth(node_i32: torch.Tensor) -> int:
+    """The levels below the root of the deepest leaf reachable from node 0
+    of a packed layout: level by level, internal node n's children are
+    n + 1 and escape[n + 1].  Unreachable rows past the live tree are never
+    read."""
+    escape, is_leaf = node_i32[:, 0].long(), node_i32[:, 3] > 0
+    level = torch.zeros(1, dtype=torch.int64, device=node_i32.device)
+    depth = 0
+    while True:
+        inner = level[~is_leaf[level]]
+        if not inner.numel():
+            return depth
+        level = torch.cat([inner + 1, escape[inner + 1]])
+        depth += 1
 
 
 @torch.no_grad()
@@ -102,7 +123,8 @@ def pack_bvh(tris: Triangles, bvh: BVH, n_leaves: int | None = None) -> PackedBV
     tri_ids = torch.full((n_leaves, LEAF_CAP), -1, dtype=torch.int32, device=tid.device)
     tri_ids[leaf_row[is_leaf].long()] = tid
     return PackedBVH(node_f32=_node_f32(bvh, n_live), node_i32=node_i32,
-                     tri_rows=_leaf_rows(tris, tri_ids), tri_ids=tri_ids, band=bvh.band)
+                     tri_rows=_leaf_rows(tris, tri_ids), tri_ids=tri_ids, band=bvh.band,
+                     depth=tree_depth(node_i32))
 
 
 @torch.no_grad()

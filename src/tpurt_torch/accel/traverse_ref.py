@@ -16,10 +16,11 @@ walk's.
 
 The walk reads the tree through a layout: ``FlatLayout`` (the LBVH's flat
 arrays and Morton-sorted corners, this module's functions) or the packed
-rows of kernels/traverse.py (the kernels' twins).  Given a ``stats`` dict,
-a walk also counts itself (node visits, leaf visits, distinct nodes and
-leaves; kernels/traverse8.walk_counts reads them), adding to what the dict
-holds.
+rows of kernels/traverse.py (the twins of occluded_bin and knear_bin;
+closest_bin's walks near-first, kernels/traverse.py closest_near_walk).
+Given a ``stats`` dict, a walk also counts itself (node visits, leaf
+visits, distinct nodes and leaves; kernels/traverse8.walk_counts reads
+them), adding to what the dict holds.
 
 tpurt's soft_occlusion_ref (called by no tpurt path) is not ported yet.
 """
@@ -89,15 +90,16 @@ class FlatLayout:
 
 
 def _slab(o, inv, box, t_min, upper):
-    """(A, 3) rays, (A, 6) boxes, (A,) upper -> (A,) pass mask, in tpurt's
-    order and nesting; torch.minimum/maximum propagate NaN like jnp's."""
+    """(A, 3) rays, (A, 6) boxes, (A,) upper -> (A,) pass mask and (A,)
+    t_near, in tpurt's order and nesting; torch.minimum/maximum propagate
+    NaN like jnp's."""
     t0 = (box[:, 0:3] - o) * inv
     t1 = (box[:, 3:6] - o) * inv
     tn, tf = torch.minimum(t0, t1), torch.maximum(t0, t1)
     mn, mx = torch.minimum, torch.maximum
     t_near = mx(mx(tn[:, 0], tn[:, 1]), mx(tn[:, 2], t_min))
     t_far = mn(mn(tf[:, 0], tf[:, 1]), mn(tf[:, 2], upper))
-    return t_near <= t_far
+    return t_near <= t_far, t_near
 
 
 def _walk(o, d, layout, t_min: float, act, upper, on_leaf, done=None,
@@ -116,7 +118,7 @@ def _walk(o, d, layout, t_min: float, act, upper, on_leaf, done=None,
                      seen_rows=torch.zeros(m, dtype=torch.bool, device=dev))
     while act.numel():
         node = cur[act]
-        boxed = _slab(o[act], inv[act], layout.box[node], tmin, upper(act))
+        boxed, _ = _slab(o[act], inv[act], layout.box[node], tmin, upper(act))
         leaf = layout.is_leaf[node]
         enter = boxed & leaf
         if stats is not None:
@@ -142,41 +144,58 @@ def _tmax_flat(rays: Rays, t_max) -> torch.Tensor:
     return tm.expand(rays.shape).reshape(-1).contiguous()
 
 
-def closest_walk(rays: Rays, layout, t_min: float = DEFAULT_T_MIN,
-                 stats: dict | None = None) -> Hit:
-    """Closest hit by (t, id); a miss is t = T_MAX, u = v = 0, tri = -1."""
-    o, d = rays.o.reshape(-1, 3), rays.d.reshape(-1, 3)
-    n, dev = o.shape[0], o.device
-    t_b = torch.full((n,), T_MAX, dtype=torch.float32, device=dev)
-    u_b = torch.zeros(n, dtype=torch.float32, device=dev)
-    v_b = torch.zeros_like(u_b)
-    id_b = torch.full((n,), -1, dtype=torch.int32, device=dev)
-    inf = torch.tensor(float("inf"), device=dev)
+class Best:
+    """The closest hit so far of each of n rays by (t, id): t = T_MAX,
+    u = v = 0, id = -1 until one is taken."""
 
-    def on_leaf(sel, node):
-        tri, tid, valid = layout.leaf(node)
+    def __init__(self, n: int, dev):
+        self.t = torch.full((n,), T_MAX, dtype=torch.float32, device=dev)
+        self.u = torch.zeros(n, dtype=torch.float32, device=dev)
+        self.v = torch.zeros_like(self.u)
+        self.id = torch.full((n,), -1, dtype=torch.int32, device=dev)
+
+    def take(self, o, d, sel, tri, tid, valid, t_min: float) -> None:
+        """Test rays `sel` (indices into o, d) against their (A, C, 9)
+        triangles with ids tid and slot mask valid (A, C), and keep each
+        ray's lexicographic (t, id) minimum of the accepted candidates where
+        it beats the best so far: the kernels' slot-by-slot `better` test,
+        which is order-invariant."""
+        inf = torch.tensor(float("inf"), device=o.device)
         t, u, v, det = mt9(o[sel], d[sel], tri)
         ok = (valid & (det.abs() > DET_EPS) & (u >= 0.0) & (v >= 0.0)
               & (u + v <= 1.0) & (t > t_min) & (t < T_MAX))
-        # lexicographic (t, id) minimum of the leaf's accepted candidates
         tm = torch.where(ok, t, inf).amin(dim=1, keepdim=True)
         cand = ok & (t == tm)
         im = torch.where(cand, tid, BIG_ID).amin(dim=1, keepdim=True)
         j = (cand & (tid == im)).int().argmax(dim=1, keepdim=True)
         tk, ik = tm[:, 0], im[:, 0]
-        tb, ib = t_b[sel], id_b[sel]
+        tb, ib = self.t[sel], self.id[sel]
         better = ok.any(dim=1) & ((tk < tb) | ((tk == tb) & (ik < ib) & (ib >= 0)))
         s = sel[better]
-        t_b[s] = tk[better]
-        u_b[s] = u.gather(1, j)[better, 0]
-        v_b[s] = v.gather(1, j)[better, 0]
-        id_b[s] = ik[better]
+        self.t[s] = tk[better]
+        self.u[s] = u.gather(1, j)[better, 0]
+        self.v[s] = v.gather(1, j)[better, 0]
+        self.id[s] = ik[better]
 
-    _walk(o, d, layout, t_min, torch.arange(n, device=dev), lambda a: t_b[a],
+    def hit(self, shape) -> Hit:
+        return Hit(t=self.t.reshape(shape), u=self.u.reshape(shape),
+                   v=self.v.reshape(shape), tri=self.id.reshape(shape))
+
+
+def closest_walk(rays: Rays, layout, t_min: float = DEFAULT_T_MIN,
+                 stats: dict | None = None) -> Hit:
+    """Closest hit by (t, id); a miss is t = T_MAX, u = v = 0, tri = -1."""
+    o, d = rays.o.reshape(-1, 3), rays.d.reshape(-1, 3)
+    n, dev = o.shape[0], o.device
+    best = Best(n, dev)
+
+    def on_leaf(sel, node):
+        tri, tid, valid = layout.leaf(node)
+        best.take(o, d, sel, tri, tid, valid, t_min)
+
+    _walk(o, d, layout, t_min, torch.arange(n, device=dev), lambda a: best.t[a],
           on_leaf, stats=stats)
-    shape = rays.shape
-    return Hit(t=t_b.reshape(shape), u=u_b.reshape(shape), v=v_b.reshape(shape),
-               tri=id_b.reshape(shape))
+    return best.hit(rays.shape)
 
 
 def occluded_walk(rays: Rays, layout, t_max, t_min: float = DEFAULT_T_MIN,

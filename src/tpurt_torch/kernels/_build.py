@@ -19,6 +19,8 @@ import shutil
 import subprocess
 import tempfile
 
+import torch
+
 _HERE = os.path.dirname(os.path.abspath(__file__))
 CSRC = os.path.join(_HERE, "csrc")
 BUILD_DIR = os.path.join(_HERE, "_build")
@@ -114,7 +116,7 @@ def load() -> ctypes.CDLL:
         lib = ctypes.CDLL(build())
         lib.tpurt_closest8.argtypes = [
             _P, _P, _P, _P, ctypes.c_int, ctypes.c_int, ctypes.c_float,
-            _P, _P, _P, _P, _P, _P, _P, _P]
+            _P, _P, _P, _P, _P, _P, _P, _P, _P]
         lib.tpurt_closest8.restype = ctypes.c_int
         lib.tpurt_occluded8.argtypes = [
             _P, _P, _P, _P, _P, ctypes.c_int, ctypes.c_int, ctypes.c_float,
@@ -149,6 +151,26 @@ def check_aligned(*ptrs: int) -> None:
     read rows as 16-byte vectors need aligned bases."""
     if any(p % 16 for p in ptrs):
         raise ValueError("a kernel that reads 16-byte vectors got a misaligned base")
+
+
+def ptr(x: torch.Tensor) -> ctypes.c_void_p:
+    """x's device address, as a kernel's pointer argument."""
+    return ctypes.c_void_p(x.data_ptr())
+
+
+def stream(dev: torch.device) -> ctypes.c_void_p:
+    """The current CUDA stream of `dev`, as a kernel's stream argument."""
+    return ctypes.c_void_p(torch.cuda.current_stream(dev).cuda_stream)
+
+
+def on_device(x: torch.Tensor) -> torch.cuda.device:
+    """The context every kernel launch is made in: x's card made current,
+    so that the launch, the wrapper's current_stream() and the library's
+    cudaGetDevice() all refer to the card the tensors live on, not to
+    whichever card happens to be current.  x must be a CUDA tensor."""
+    if x.device.type != "cuda":
+        raise ValueError(f"a kernel launch needs a CUDA tensor, got one on {x.device}")
+    return torch.cuda.device(x.device)
 
 
 def error_string(err: int) -> str:

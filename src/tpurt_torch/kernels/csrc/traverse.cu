@@ -9,16 +9,18 @@
 // What they compute is tpurt's; how is not.  The TPU kernels walk a
 // (sub, 128) ray packet with one scalar node cursor, descending where any ray
 // of the packet wants to, with the nodes lane-packed into VMEM and one-hot
-// lane extracts to read them.  Here one thread walks one ray down its own
-// stackless escape chain: a node whose box passes is entered at index + 1 (a
-// leaf's 8 triangle slots are tested), any other is skipped through its
-// escape link, and -1 ends the walk.  The threaded DFS layout is what makes
-// the walk stackless.  A node visit reads its 32-byte node_f32 row as two
-// float4 and its 16-byte node_i32 row as one int4; a leaf visit reads the 72
-// floats of its triangle row and its 8 ids.  The selections (lexicographic
-// (t, id) closest hit, any hit in (t_min, t_max), the k nearest band hits by
-// (t, id)) do not depend on visit order, so per-ray walks give the packet
-// walks' hits wherever a ray's own slab test is conservative.
+// lane extracts to read them.  Here one thread walks one ray.  occluded_bin
+// and knear_bin walk its stackless escape chain: a node whose box passes is
+// entered at index + 1 (a leaf's 8 triangle slots are tested), any other is
+// skipped through its escape link, and -1 ends the walk.  closest_bin walks
+// near-first with a short stack (closest_bin_walk, below): the layout holds
+// both children of internal node n, n + 1 and escape[n + 1].  A node visit
+// reads its 32-byte node_f32 row as two float4 and its 16-byte node_i32 row
+// as one int4; a leaf visit reads the 72 floats of its triangle row and its
+// 8 ids.  The selections (lexicographic (t, id) closest hit, any hit in
+// (t_min, t_max), the k nearest band hits by (t, id)) do not depend on visit
+// order, so per-ray walks give the packet walks' hits wherever a ray's own
+// slab test is conservative.
 //
 // The arithmetic copies tpurt's op for op: the binary slab as (lo - o) * inv
 // (not the wide walks' lo*inv - o*inv) with tpurt's max/min nesting and
@@ -26,15 +28,27 @@
 // inverse in _mt_scalar_tri's order (walk_common.cuh).  Built with
 // -fmad=false, the kernels agree with their plain-torch twins bit for bit.
 //
-// What bounds closest_bin and occluded_bin on this card is what bounds the
-// BVH8 walks (traverse8.cu): every visit is a dependent load (the next node's
-// index comes out of the previous visit), and the 32 rays of a warp take
-// different paths, so the warp runs the union of their visits.  A binary
-// walk makes several times as many visits as a BVH8 walk, each with one slab
-// test instead of eight.  Their simple design keeps every array in global
-// memory, read through L1/L2 (the node rows of a 1M-triangle scene are
-// 21 MB and fit the 50 MB L2), relies on Morton-ordered rays so that a
-// warp's rays walk similar chains, and needs no stack and no shared memory.
+// What bounds occluded_bin on this card is what bounds the BVH8 walks
+// (traverse8.cu): every visit is a dependent load (the next node's index
+// comes out of the previous visit), and the 32 rays of a warp take different
+// paths, so the warp runs the union of their visits.  A binary walk makes
+// several times as many visits as a BVH8 walk, each with one slab test
+// instead of eight.  Its simple design keeps every array in global memory,
+// read through L1/L2 (the node rows of a 1M-triangle scene are 21 MB and fit
+// the 50 MB L2), relies on Morton-ordered rays so that a warp's rays walk
+// similar chains, and needs no stack and no shared memory.
+//
+// What bounded closest_bin was the length of its walks: the escape chain's
+// order is fixed, left subtree first, and a node is culled only once the
+// best hit has shrunk, which happens only when the chain reaches the near
+// leaf; on the 1M sponza's main view a ray made 552 visits though it hits a
+// box 0.15 units away.  Its design walks near-first: at an internal node
+// both children are slab-tested against [t_min, t_b], the walk goes on into
+// the nearer and pushes the farther with its entry distance onto a stack
+// of at most one entry a level, and a pop drops what lies beyond the best
+// hit.  With it, knear_bin's levers: min.NaN/max.NaN slab tests, descents
+// repeating until a lane holds a leaf (while-while), and leaves read as
+// half rows of 16-byte loads.
 //
 // knear_bin has a walk of its own (knear_bin_walk), in the same order per
 // ray.  What bounds it is issued instructions and divergence: on the 70K
@@ -109,32 +123,6 @@ __device__ __forceinline__ void walk_bin(const float4* __restrict__ nf,
   }
 }
 
-// Closest hit by (t, id): tpurt's `better` test, slot by slot.
-struct Closest {
-  const Ray& r;
-  float t_min;
-  float t_b = kTMax, u_b = 0.0f, v_b = 0.0f;
-  int id_b = -1;
-
-  __device__ Closest(const Ray& ray, float tmin) : r(ray), t_min(tmin) {}
-  __device__ __forceinline__ bool done() const { return false; }
-  __device__ __forceinline__ float upper() const { return t_b; }
-  __device__ __forceinline__ void leaf(const float* tr, const int* ids) {
-#pragma unroll
-    for (int j = 0; j < 8; ++j) {
-      float t, u, v, det;
-      mt(tr + 9 * j, r, t, u, v, det);
-      const int tid = __ldg(ids + j);
-      bool better = (t < t_b) || ((t == t_b) && (tid < id_b) && (id_b >= 0));
-      bool ok = (fabsf(det) > kDetEps) && (u >= 0.0f) && (v >= 0.0f) &&
-                (u + v <= 1.0f) && (t > t_min) && better && (tid >= 0);
-      if (ok) {
-        t_b = t; u_b = u; v_b = v; id_b = tid;
-      }
-    }
-  }
-};
-
 // Any hit in (t_min, t_max); the walk stops after the first blocking leaf.
 struct Occluded {
   const Ray& r;
@@ -205,6 +193,145 @@ __device__ __forceinline__ void knear_bin_walk(const float4* __restrict__ nf,
   }
 }
 
+// ---------------------------------------------------------------------------
+// closest_bin: the closest hit, on a near-first walk with a short stack
+// ---------------------------------------------------------------------------
+
+// Entries of the near-first walk's stack: one a level at most, so a tree as
+// deep as this fits (kernels/traverse.py's BIN_STACK; its wrapper refuses a
+// deeper tree).  An LBVH over 30-bit Morton codes is at most 63 levels deep.
+constexpr int kBinStack = 64;
+// A walk position: an internal node (>= 0) whose box passed, a passing leaf
+// as ~leaf_row (< 0), or the end of the walk.
+constexpr int kWalkEnd = -0x7FFFFFFF - 1;
+
+// slab_bin_n's test, also returning the box's entry distance t_near.
+__device__ __forceinline__ bool slab_bin_near(const float4& a, const float4& b, const Ray& r,
+                                              float t_min, float t_upper, float& t_near) {
+  float tx0 = (a.x - r.ox) * r.ix, tx1 = (a.w - r.ox) * r.ix;
+  float ty0 = (a.y - r.oy) * r.iy, ty1 = (b.x - r.oy) * r.iy;
+  float tz0 = (a.z - r.oz) * r.iz, tz1 = (b.y - r.oz) * r.iz;
+  t_near = nmax(nmax(nmin(tx0, tx1), nmin(ty0, ty1)), nmax(nmin(tz0, tz1), t_min));
+  const float t_far =
+      nmin(nmin(nmax(tx0, tx1), nmax(ty0, ty1)), nmin(nmax(tz0, tz1), t_upper));
+  return t_near <= t_far;
+}
+
+// The best hit so far by (t, id).
+struct BestBin {
+  float t = kTMax, u = 0.0f, v = 0.0f;
+  int id = -1;
+};
+
+// A leaf's 8 tests, slot by slot (tpurt's `better` test), as two half rows
+// of 9 16-byte loads and one int4 of ids each.
+__device__ __forceinline__ void closest_bin_leaf(const float* __restrict__ tr,
+                                                 const int4* __restrict__ ip, const Ray& r,
+                                                 float t_min, BestBin& b) {
+#pragma unroll 1
+  for (int h = 0; h < 2; ++h) {
+    float f[36];
+    load_half(tr, h, f);
+    const int4 ia = __ldg(ip + h);
+    const int tid[4] = {ia.x, ia.y, ia.z, ia.w};
+#pragma unroll
+    for (int j = 0; j < 4; ++j) {
+      float t, u, v, det;
+      mt(f + 9 * j, r, t, u, v, det);
+      const bool better = (t < b.t) || ((t == b.t) && (tid[j] < b.id) && (b.id >= 0));
+      const bool ok = (fabsf(det) > kDetEps) && (u >= 0.0f) && (v >= 0.0f) &&
+                      (u + v <= 1.0f) && (t > t_min) && better && (tid[j] >= 0);
+      if (ok) {
+        b.t = t; b.u = u; b.v = v; b.id = tid[j];
+      }
+    }
+  }
+}
+
+// The near-first walk's stack of (position, t_near) pairs, with tpurt's
+// clamp at the last entry.  A pop drops entries whose box lies beyond the
+// best hit (t_near > t_b): the slab test against [t_min, t_b] that passed
+// when the entry was pushed would fail now.
+struct BinStack {
+  int pos[kBinStack];
+  float t_near[kBinStack];
+  int sp = 0;
+
+  __device__ __forceinline__ void push(int p, float tn) {
+    const int s = min(sp, kBinStack - 1);
+    pos[s] = p;
+    t_near[s] = tn;
+    ++sp;
+  }
+  __device__ __forceinline__ int pop(float t_b) {
+    while (sp > 0) {
+      --sp;
+      const int s = min(sp, kBinStack - 1);
+      if (!(t_near[s] > t_b)) return pos[s];
+    }
+    return kWalkEnd;
+  }
+};
+
+// From internal node n (its box passed): slab-test both children, n + 1 and
+// escape[n + 1], against [t_min, t_b]; go to the nearer passing child (the
+// smaller t_near, the left on a tie) and push the other one, or go to the
+// only passing child, or pop.  Returns the next position.
+__device__ __forceinline__ int closest_bin_descend(const float4* __restrict__ nf,
+                                                   const int4* __restrict__ ni, int n,
+                                                   const Ray& r, float t_min, float t_b,
+                                                   BinStack& st) {
+  const int left = n + 1;
+  const int4 li = __ldg(ni + left);
+  const float4 la = __ldg(nf + 2 * left), lb = __ldg(nf + 2 * left + 1);
+  const int right = li.x;
+  const int4 ri = __ldg(ni + right);
+  const float4 ra = __ldg(nf + 2 * right), rb = __ldg(nf + 2 * right + 1);
+  float tl, trn;
+  const bool pl = slab_bin_near(la, lb, r, t_min, t_b, tl);
+  const bool pr = slab_bin_near(ra, rb, r, t_min, t_b, trn);
+  const int cl = li.w > 0 ? ~li.y : left, cr = ri.w > 0 ? ~ri.y : right;
+  if (pl && pr) {
+    const bool left_first = tl <= trn;
+    st.push(left_first ? cr : cl, left_first ? trn : tl);
+    return left_first ? cl : cr;
+  }
+  if (pl) return cl;
+  if (pr) return cr;
+  return st.pop(t_b);
+}
+
+// One ray's closest-hit walk, near-first: the root's box is tested, then
+// each internal node's two children (closest_bin_descend); a passing leaf is
+// tested when the walk reaches it, then the stack is popped.  The best hit
+// tightens as early as the near geometry allows, and every pop culls
+// against it.  How a warp runs it: descents repeat (while-while) until this
+// lane holds a leaf or its walk ends, so lanes meet at the leaf tests.
+// The twin (kernels/traverse.py closest_near_walk) walks in the same order.
+__device__ __forceinline__ void closest_bin_walk(const float4* __restrict__ nf,
+                                                 const int4* __restrict__ ni,
+                                                 const float* __restrict__ rows,
+                                                 const int* __restrict__ ids, const Ray& r,
+                                                 float t_min, BestBin& b) {
+  BinStack st;
+  int pos;
+  {
+    const float4 a = __ldg(nf), c = __ldg(nf + 1);
+    const int4 rec = __ldg(ni);
+    float tn;
+    if (!slab_bin_near(a, c, r, t_min, b.t, tn)) return;
+    pos = rec.w > 0 ? ~rec.y : 0;
+  }
+  while (pos != kWalkEnd) {
+    while (pos >= 0) pos = closest_bin_descend(nf, ni, pos, r, t_min, b.t, st);
+    if (pos == kWalkEnd) break;
+    const int leaf_row = ~pos;
+    closest_bin_leaf(rows + (size_t)leaf_row * 128,
+                     reinterpret_cast<const int4*>(ids + (size_t)leaf_row * 8), r, t_min, b);
+    pos = st.pop(b.t);
+  }
+}
+
 __global__ void __launch_bounds__(kBlock)
 closest_bin_kernel(const float4* __restrict__ nf, const int4* __restrict__ ni,
                    const float* __restrict__ rows, const int* __restrict__ ids,
@@ -215,12 +342,12 @@ closest_bin_kernel(const float4* __restrict__ nf, const int4* __restrict__ ni,
   int i = blockIdx.x * blockDim.x + threadIdx.x;
   if (i >= n) return;
   const Ray r = load_ray(o, d, i);
-  Closest vis(r, t_min);
-  walk_bin(nf, ni, rows, ids, r, t_min, vis);
-  t_out[i] = vis.t_b;
-  u_out[i] = vis.u_b;
-  v_out[i] = vis.v_b;
-  id_out[i] = vis.id_b;
+  BestBin b;
+  closest_bin_walk(nf, ni, rows, ids, r, t_min, b);
+  t_out[i] = b.t;
+  u_out[i] = b.u;
+  v_out[i] = b.v;
+  id_out[i] = b.id;
 }
 
 __global__ void __launch_bounds__(kBlock)

@@ -11,10 +11,11 @@
 // hit in (t_min, t_max), the k nearest band hits by (t, id)) do not depend on
 // visit order, so a per-ray walk gives the packet walk's hits wherever the
 // ray's own box tests are conservative (see tpurt_torch/kernels/traverse8.py
-// for the one exception, inherited from tpurt's _safe_inv).  closest8 and
-// occluded8 share one walk (walk<Visitor>); knear8 has a walk of its own
-// (knear8_walk) that visits, pushes, pops and tests rows in the same order
-// per ray, so one plain-torch twin walk (_Walk) holds all three.
+// for the one exception, inherited from tpurt's _safe_inv).  Each kernel
+// has a walk of its own: occluded8 the shared stack walk (walk<Visitor>),
+// knear8 knear8_walk and closest8 closest8_walk.  All three push a visit's
+// passing children in entry order, and each visits, pushes, pops and tests
+// rows per ray in the order of its plain-torch twin (_Walk).
 //
 // The arithmetic copies tpurt's op for op: the slab as lo*inv - o*inv,
 // _safe_inv, Möller–Trumbore with the smooth inverse det/(det*det + 1e-12)
@@ -22,15 +23,29 @@
 // library is built with -fmad=false so nvcc contracts nothing into FMAs; the
 // plain-torch twins then agree with these kernels bit for bit.
 //
-// What bounds closest8 and occluded8 on this card: every visit is a
-// dependent 256-byte load of a node record (the next node's address comes
-// out of the previous visit), followed by up to 8 dependent 512-byte
-// triangle-row loads; and the 32 rays of a warp take different paths, so
-// the warp runs the union of their visits (divergence).  Their simple design
-// keeps the node and triangle rows in global memory, read through L1/L2 (at
-// 1M triangles the node rows are 14 MB and fit the 50 MB L2; the 99 MB of
-// triangle rows do not), relies on Morton-ordered rays so neighbouring
-// threads walk similar paths, and keeps the stack in thread-local memory.
+// What bounds occluded8 on this card: every visit is a dependent 256-byte
+// load of a node record (the next node's address comes out of the previous
+// visit), followed by up to 8 dependent 512-byte triangle-row loads; and the
+// 32 rays of a warp take different paths, so the warp runs the union of
+// their visits (divergence).  Its simple design keeps the node and triangle
+// rows in global memory, read through L1/L2 (at 1M triangles the node rows
+// are 14 MB and fit the 50 MB L2; the 99 MB of triangle rows do not), relies
+// on Morton-ordered rays so neighbouring threads walk similar paths, and
+// keeps the stack in thread-local memory.
+//
+// What bounds closest8 is what bounded knear8 (below): issued instructions
+// and divergence.  On the 1M sponza's main view a ray makes ~36 visits of 8
+// slab tests and tests ~8 rows, from node and triangle rows that stay in
+// L1/L2.  Its design takes knear8's levers for the instructions: min.NaN/
+// max.NaN slab tests, node records and half rows as 16-byte read-only
+// loads, one flat loop over a visit's rows, and persistent warps, which on
+// the overview (misses and long walks side by side) keep SMs from idling
+// in a launch's tail.  It reads the shading lanes once, for the winner,
+// after the walk, so an accepted candidate copies four values, not
+// thirteen.  Two levers lost and were left out: tpurt's near-first order
+// (children pushed by descending (lo + hi) . d) made the walks longer on
+// both 1M views, and repeating visits until a lane has rows (knear8's
+// while-while) cost more than it gathered (PERF.md's levers table).
 //
 // What bounds knear8 is issued instructions and divergence, not memory: a
 // fit chunk's walks touch a few hundred distinct nodes and rows, which stay
@@ -152,43 +167,6 @@ __device__ __forceinline__ void walk(const float* __restrict__ wrow,
   }
 }
 
-// Closest hit by (t, id); with kShade also the winner's albedo, emission
-// and unnormalised e1 x e2.
-template <bool kShade>
-struct Closest {
-  const Ray& r;
-  float t_min;
-  float t_b = kTMax, u_b = 0.0f, v_b = 0.0f;
-  int id_b = -1;
-  float sh[9] = {0.0f, 0.0f, 0.0f, 0.0f, 0.0f, 0.0f, 0.0f, 0.0f, 0.0f};
-
-  __device__ Closest(const Ray& ray, float tmin) : r(ray), t_min(tmin) {}
-  __device__ __forceinline__ bool done() const { return false; }
-  __device__ __forceinline__ float upper() const { return t_b; }
-  __device__ __forceinline__ void row(const float* tr) {
-#pragma unroll
-    for (int j = 0; j < 8; ++j) {
-      float t, u, v, det;
-      mt(tr + 9 * j, r, t, u, v, det);
-      int tid = decode_lane(tr[72 + j]);
-      bool better = (t < t_b) || ((t == t_b) && (tid < id_b) && (id_b >= 0));
-      bool ok = (fabsf(det) > kDetEps) && (u >= 0.0f) && (v >= 0.0f) &&
-                (u + v <= 1.0f) && (t > t_min) && better && (tid >= 0);
-      if (ok) {
-        t_b = t; u_b = u; v_b = v; id_b = tid;
-        if (kShade) {
-          const float* e = tr + 9 * j;  // e1 at 3..5, e2 at 6..8
-          sh[0] = tr[80 + 3 * j]; sh[1] = tr[81 + 3 * j]; sh[2] = tr[82 + 3 * j];
-          sh[3] = tr[104 + 3 * j]; sh[4] = tr[105 + 3 * j]; sh[5] = tr[106 + 3 * j];
-          sh[6] = e[4] * e[8] - e[5] * e[7];
-          sh[7] = e[5] * e[6] - e[3] * e[8];
-          sh[8] = e[3] * e[7] - e[4] * e[6];
-        }
-      }
-    }
-  }
-};
-
 // Any hit in (t_min, t_max).
 struct Occluded {
   const Ray& r;
@@ -305,33 +283,6 @@ __device__ __forceinline__ void knear8_walk(const float* __restrict__ wrow,
   }
 }
 
-template <bool kShade>
-__global__ void __launch_bounds__(kBlock)
-closest8_kernel(const float* __restrict__ wrow, const float* __restrict__ rows,
-                const float* __restrict__ o, const float* __restrict__ d, int n,
-                int max_rows, float t_min, float* __restrict__ t_out,
-                float* __restrict__ u_out, float* __restrict__ v_out,
-                int* __restrict__ id_out, float* __restrict__ alb_out,
-                float* __restrict__ emi_out, float* __restrict__ nrm_out) {
-  int i = blockIdx.x * blockDim.x + threadIdx.x;
-  if (i >= n) return;
-  const Ray r = load_ray(o, d, i);
-  Closest<kShade> vis(r, t_min);
-  walk(wrow, rows, r, max_rows, t_min, vis);
-  t_out[i] = vis.t_b;
-  u_out[i] = vis.u_b;
-  v_out[i] = vis.v_b;
-  id_out[i] = vis.id_b;
-  if (kShade) {
-#pragma unroll
-    for (int k = 0; k < 3; ++k) {
-      alb_out[3 * i + k] = vis.sh[k];
-      emi_out[3 * i + k] = vis.sh[3 + k];
-      nrm_out[3 * i + k] = vis.sh[6 + k];
-    }
-  }
-}
-
 __global__ void __launch_bounds__(kBlock)
 occluded8_kernel(const float* __restrict__ wrow, const float* __restrict__ rows,
                  const float* __restrict__ o, const float* __restrict__ d,
@@ -407,26 +358,173 @@ knear8_kernel(const float* __restrict__ wrow, const float* __restrict__ rows,
   }
 }
 
+// ---------------------------------------------------------------------------
+// closest8: the closest hit, on a walk of its own
+// ---------------------------------------------------------------------------
+
+// albedo, emission and unnormalised e1 x e2 of triangle j of row tr, in
+// tpurt's op order.
+__device__ __forceinline__ void shade_lanes(const float* tr, int j, float (&sh)[9]) {
+  const float* e = tr + 9 * j;  // e1 at 3..5, e2 at 6..8
+  sh[0] = tr[80 + 3 * j]; sh[1] = tr[81 + 3 * j]; sh[2] = tr[82 + 3 * j];
+  sh[3] = tr[104 + 3 * j]; sh[4] = tr[105 + 3 * j]; sh[5] = tr[106 + 3 * j];
+  sh[6] = e[4] * e[8] - e[5] * e[7];
+  sh[7] = e[5] * e[6] - e[3] * e[8];
+  sh[8] = e[3] * e[7] - e[4] * e[6];
+}
+
+// The best hit so far by (t, id).  The walk keeps only the winner's row and
+// lane; the shading lanes are read once after it (kShade).
+template <bool kShade>
+struct Best8 {
+  float t = kTMax, u = 0.0f, v = 0.0f;
+  int id = -1;
+  int row = -1;  // the winner's row index (a 32-bit index, not a pointer, keeps
+  int lane = 0;  // closest8<true> from spilling)
+
+  // tpurt's accept-and-better test for one candidate, slot by slot.
+  __device__ __forceinline__ void take(float tc, float uc, float vc, float det, int tid,
+                                       float t_min, int ri, int j) {
+    const bool better = (tc < t) || ((tc == t) && (tid < id) && (id >= 0));
+    const bool ok = (fabsf(det) > kDetEps) && (uc >= 0.0f) && (vc >= 0.0f) &&
+                    (uc + vc <= 1.0f) && (tc > t_min) && better && (tid >= 0);
+    if (ok) {
+      t = tc; u = uc; v = vc; id = tid;
+      if constexpr (kShade) {
+        row = ri;
+        lane = j;
+      }
+    }
+  }
+};
+
+// Row ri's 8 tests, slot by slot, as two half rows of 9 16-byte loads and
+// one of ids each (load_half).
+template <bool kShade>
+__device__ __forceinline__ void closest8_row(const float* __restrict__ rows, int ri,
+                                             const Ray& r, float t_min, Best8<kShade>& b) {
+  const float* tr = rows + (size_t)ri * 128;
+#pragma unroll 1
+  for (int h = 0; h < 2; ++h) {
+    float f[36];
+    load_half(tr, h, f);
+    const float4 ia = __ldg(reinterpret_cast<const float4*>(tr + 72) + h);
+    const int tid[4] = {decode_lane(ia.x), decode_lane(ia.y), decode_lane(ia.z),
+                        decode_lane(ia.w)};
+#pragma unroll
+    for (int j = 0; j < 4; ++j) {
+      float t, u, v, det;
+      mt(f + 9 * j, r, t, u, v, det);
+      b.take(t, u, v, det, tid[j], t_min, ri, 4 * h + j);
+    }
+  }
+}
+
+// One ray's closest-hit walk.  A visit slab-tests the 8 children against
+// the bound at its start (visit_mask_v), pushes the passing internal ones in
+// entry order and pops the next node; the passing leaves' rows are tested
+// before that node is visited, child by child and row by row: the twin's
+// order (traverse_wide8_ref).  How a warp runs it: the rows of all passing
+// leaves form one flat loop, one row a trip.  Popping before the rows are
+// tested does not change the walk: rows touch only the best hit, and a
+// visit reads the bound when it starts.
+template <bool kShade>
+__device__ __forceinline__ void closest8_walk(const float* __restrict__ wrow,
+                                              const float* __restrict__ rows, const Ray& r,
+                                              int max_rows, float t_min, Best8<kShade>& b) {
+  int stack[kStackV];
+  int sp = 0;
+  int cur = 0;
+  while (cur >= 0) {
+    int meta[kEntries];
+    const unsigned mask = visit_mask_v(wrow, cur, r, t_min, b.t, meta);
+    unsigned leaves = 0;
+#pragma unroll
+    for (int c = 0; c < kEntries; ++c) {
+      if (!((mask >> c) & 1u)) continue;
+      if (meta[c] >= 0) push(stack, sp, meta[c]);
+      else leaves |= 1u << c;
+    }
+    cur = pop(stack, sp);
+    int row = 0, left = 0;
+#pragma unroll 1
+    for (;;) {
+      while (left == 0 && leaves != 0) {
+        const int c = __ffs(leaves) - 1;
+        leaves &= leaves - 1;
+        int m = meta[0];
+#pragma unroll
+        for (int q = 1; q < kEntries; ++q)
+          if (q == c) m = meta[q];
+        const int nm = ~m;
+        row = nm >> 3;
+        left = max(0, min((nm & 7) + 1, max_rows));
+      }
+      if (left == 0) break;
+      closest8_row(rows, row, r, t_min, b);
+      ++row;
+      --left;
+    }
+  }
+}
+
+// Persistent warps, as knear8: each warp takes 32 rays at a time until none
+// are left.
+template <bool kShade>
+__global__ void __launch_bounds__(kBlock)
+closest8_kernel(const float* __restrict__ wrow, const float* __restrict__ rows,
+                const float* __restrict__ o, const float* __restrict__ d, int n,
+                int max_rows, float t_min, float* __restrict__ t_out,
+                float* __restrict__ u_out, float* __restrict__ v_out,
+                int* __restrict__ id_out, float* __restrict__ alb_out,
+                float* __restrict__ emi_out, float* __restrict__ nrm_out,
+                int* __restrict__ next) {
+  for (;;) {
+    const int base = next_batch(next);
+    if (base >= n) return;
+    const int i = base + (threadIdx.x & 31);
+    if (i >= n) continue;
+    const Ray r = load_ray(o, d, i);
+    Best8<kShade> b;
+    closest8_walk(wrow, rows, r, max_rows, t_min, b);
+    t_out[i] = b.t;
+    u_out[i] = b.u;
+    v_out[i] = b.v;
+    id_out[i] = b.id;
+    if constexpr (kShade) {
+      float sh[9] = {0.0f, 0.0f, 0.0f, 0.0f, 0.0f, 0.0f, 0.0f, 0.0f, 0.0f};
+      if (b.row >= 0) shade_lanes(rows + (size_t)b.row * 128, b.lane, sh);
+#pragma unroll
+      for (int k = 0; k < 3; ++k) {
+        alb_out[3 * i + k] = sh[k];
+        emi_out[3 * i + k] = sh[3 + k];
+        nrm_out[3 * i + k] = sh[6 + k];
+      }
+    }
+  }
+}
+
 }  // namespace
 
 extern "C" {
 
 // Every entry point launches on `stream`, never synchronises, and returns
 // cudaGetLastError() of the launch (0 on success).
+// alb, emi, nrm: (n, 3) shading outputs, or all null.  next: one int32 the
+// wrapper zeroed on this stream, the persistent warps' ray counter.  wrow
+// and rows must be 16-byte aligned (the wrapper checks).
 int tpurt_closest8(const float* wrow, const float* rows, const float* o,
                    const float* d, int n, int max_rows, float t_min, float* t,
                    float* u, float* v, int* id, float* alb, float* emi,
-                   float* nrm, cudaStream_t stream) {
+                   float* nrm, int* next, cudaStream_t stream) {
   if (n <= 0) return 0;
-  int grid = (n + kBlock - 1) / kBlock;
-  if (alb != nullptr) {
-    closest8_kernel<true><<<grid, kBlock, 0, stream>>>(
-        wrow, rows, o, d, n, max_rows, t_min, t, u, v, id, alb, emi, nrm);
-  } else {
-    closest8_kernel<false><<<grid, kBlock, 0, stream>>>(
-        wrow, rows, o, d, n, max_rows, t_min, t, u, v, id, nullptr, nullptr,
-        nullptr);
-  }
+  if (alb != nullptr)
+    launch_persistent(closest8_kernel<true>, n, stream, wrow, rows, o, d, n, max_rows,
+                      t_min, t, u, v, id, alb, emi, nrm, next);
+  else
+    launch_persistent(closest8_kernel<false>, n, stream, wrow, rows, o, d, n, max_rows,
+                      t_min, t, u, v, id, (float*)nullptr, (float*)nullptr,
+                      (float*)nullptr, next);
   return (int)cudaGetLastError();
 }
 

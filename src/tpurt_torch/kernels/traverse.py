@@ -18,10 +18,13 @@ tpurt's hits wherever a ray's own slab test is conservative; the exceptions
 are inherited (ROADMAP queue 3): P1, a direction component in [-1e-30, 0)
 fails every slab test, and P3, band hits outside the band-inflated box.
 
-The twins are accel/traverse_ref.py's lockstep walks reading the packed
-rows: the kernel's visit order and leaf-slot order, so the two agree bit
-for bit when the kernel is built without FMA contraction.  Given a
-``stats`` dict, a twin counts its walk (traverse8.walk_counts reads it).
+The twins read the packed rows in the kernels' visit order and leaf-slot
+order, so the two agree bit for bit when the kernels are built without FMA
+contraction.  occluded_bin's and knear_bin's are accel/traverse_ref.py's
+lockstep escape walks; closest_bin's is closest_near_walk below, the
+kernel's near-first walk with its short stack (BIN_STACK entries, one a
+level: a deeper tree raises).  Given a ``stats`` dict, a twin counts its
+walk (traverse8.walk_counts reads it).
 """
 
 from __future__ import annotations
@@ -31,17 +34,23 @@ import ctypes
 import torch
 
 from tpurt_torch.accel.intersect import DEFAULT_T_MIN
-from tpurt_torch.accel.packet import LEAF_CAP, PackedBVH
+from tpurt_torch.accel.packet import LEAF_CAP, PackedBVH, tree_depth
 from tpurt_torch.accel.traverse_ref import (
-    _tmax_flat, closest_walk, knear_walk, occluded_walk)
+    Best, _slab, _tmax_flat, knear_walk, occluded_walk, safe_inv)
 from tpurt_torch.core.geometry import Hit, Rays, T_MAX
 from tpurt_torch.kernels import _build
+from tpurt_torch.kernels._build import ptr as _ptr, stream as _stream
 
 # Kernel launches per wrapper since the last reset_launches(); only a real
 # CUDA launch counts.
 LAUNCHES = {"closest_bin": 0, "occluded_bin": 0, "knear_bin": 0}
 # Largest k of the k-nearest kernel (its longest compile-time list).
 KMAX = 16
+# Entries of closest_bin's stack (csrc/traverse.cu kBinStack): one a level,
+# so a tree up to this deep fits.
+BIN_STACK = 64
+# A walk position that ends the walk (kWalkEnd).
+_END = -(2**31)
 
 
 def reset_launches() -> None:
@@ -66,13 +75,111 @@ class PackedLayout:
         return self.rows[r], tid, tid >= 0
 
 
+def _check_depth(packed: PackedBVH) -> None:
+    """Raise when the tree is deeper than closest_bin's stack: a push past
+    its end would drop a subtree silently.  depth -1 means the layout was
+    packed elsewhere: compute it."""
+    depth = packed.depth if packed.depth >= 0 else tree_depth(packed.node_i32)
+    if depth > BIN_STACK:
+        raise RuntimeError(
+            f"the packed BVH is {depth} levels deep, more than closest_bin's "
+            f"stack holds ({BIN_STACK})")
+
+
 # ---------------------------------------------------------------------------
 # Plain-torch twins
 # ---------------------------------------------------------------------------
+def closest_near_walk(rays: Rays, packed: PackedBVH, t_min: float = DEFAULT_T_MIN,
+                      stats: dict | None = None) -> Hit:
+    """closest_bin's walk in lockstep: the root's box is tested; from an
+    internal node n whose box passed, both children (n + 1 and
+    escape[n + 1]) are tested against [t_min, t_b], the walk goes on into
+    the nearer passing one (the smaller t_near, the left on a tie) and
+    pushes the other with its t_near, or goes on into the only passing one,
+    or pops; a passing leaf is tested when reached, then the stack is
+    popped.  A pop drops entries with t_near > t_b.  Positions are node
+    indices for internal nodes and ~leaf_row for leaves; the stack holds
+    BIN_STACK entries, clamped at the last as in the kernel.  stats counts
+    slab tests as visits (the root's and two a descent) and leaves tested
+    as rows, as the kernel's bound reads them."""
+    _check_depth(packed)
+    lay = PackedLayout(packed)
+    o, d = rays.o.reshape(-1, 3), rays.d.reshape(-1, 3)
+    n, dev = o.shape[0], o.device
+    inv = safe_inv(d)
+    tmin = torch.tensor(t_min, dtype=torch.float32, device=dev)
+    best = Best(n, dev)
+    stack = torch.zeros((n, BIN_STACK), dtype=torch.int64, device=dev)
+    stack_t = torch.zeros((n, BIN_STACK), dtype=torch.float32, device=dev)
+    sp = torch.zeros(n, dtype=torch.int64, device=dev)
+    pos = torch.full((n,), _END, dtype=torch.int64, device=dev)
+    if stats is not None and "visits" not in stats:
+        stats.update(visits=0, rows=torch.zeros((), dtype=torch.int64, device=dev),
+                     seen_nodes=torch.zeros(lay.box.shape[0], dtype=torch.bool, device=dev),
+                     seen_rows=torch.zeros(lay.rows.shape[0], dtype=torch.bool, device=dev))
+
+    def tested(nodes):
+        if stats is not None:
+            stats["visits"] += nodes.numel()
+            stats["seen_nodes"][nodes] = True
+
+    def position(node):
+        return torch.where(lay.is_leaf[node], ~lay.leaf_row[node], node)
+
+    def pop(sel):
+        pos[sel] = _END
+        while sel.numel():
+            sel = sel[sp[sel] > 0]
+            sp[sel] -= 1
+            top = torch.clamp_max(sp[sel], BIN_STACK - 1)
+            keep = ~(stack_t[sel, top] > best.t[sel])
+            pos[sel[keep]] = stack[sel, top][keep]
+            sel = sel[~keep]
+
+    root = torch.zeros(n, dtype=torch.int64, device=dev)
+    ok, _ = _slab(o, inv, lay.box[root], tmin, best.t)
+    tested(root)
+    pos[ok] = position(root[ok])
+    act = torch.nonzero(ok)[:, 0]
+    while act.numel():
+        p = pos[act]
+        inner, leaf = act[p >= 0], act[p < 0]
+        if inner.numel():
+            left = pos[inner] + 1
+            right = lay.escape[left]
+            up = best.t[inner]
+            pl, tl = _slab(o[inner], inv[inner], lay.box[left], tmin, up)
+            pr, tr = _slab(o[inner], inv[inner], lay.box[right], tmin, up)
+            tested(torch.cat([left, right]))
+            cl, cr = position(left), position(right)
+            both, left_first = pl & pr, tl <= tr
+            b = inner[both]
+            top = torch.clamp_max(sp[b], BIN_STACK - 1)
+            stack[b, top] = torch.where(left_first, cr, cl)[both]
+            stack_t[b, top] = torch.where(left_first, tr, tl)[both]
+            sp[b] += 1
+            pos[inner] = torch.where(both, torch.where(left_first, cl, cr),
+                                     torch.where(pl, cl, cr))
+            dead = inner[~(pl | pr)]
+        else:
+            dead = inner
+        if leaf.numel():
+            rows = ~pos[leaf]
+            if stats is not None:
+                stats["rows"] += leaf.numel()
+                stats["seen_rows"][rows] = True
+            tid = lay.ids[rows]
+            best.take(o, d, leaf, lay.rows[rows], tid, tid >= 0, t_min)
+        pop(torch.cat([dead, leaf]))
+        act = act[pos[act] != _END]
+    return best.hit(rays.shape)
+
+
 def traverse_packed_ref(rays: Rays, packed: PackedBVH, t_min: float = DEFAULT_T_MIN,
                         stats: dict | None = None) -> Hit:
-    """Plain-torch twin of closest_bin; same returns as traverse_packed."""
-    return closest_walk(rays, PackedLayout(packed), t_min, stats)
+    """Plain-torch twin of closest_bin (closest_near_walk); same returns as
+    traverse_packed."""
+    return closest_near_walk(rays, packed, t_min, stats)
 
 
 def occluded_packed_ref(rays: Rays, packed: PackedBVH, t_max,
@@ -92,14 +199,6 @@ def k_nearest_ids_packed_ref(rays: Rays, packed: PackedBVH, k: int, band: float,
 # ---------------------------------------------------------------------------
 # CUDA wrappers
 # ---------------------------------------------------------------------------
-def _ptr(x: torch.Tensor) -> ctypes.c_void_p:
-    return ctypes.c_void_p(x.data_ptr())
-
-
-def _stream(dev: torch.device) -> ctypes.c_void_p:
-    return ctypes.c_void_p(torch.cuda.current_stream(dev).cuda_stream)
-
-
 def _check_inputs(rays: Rays, packed: PackedBVH):
     """Raise on anything the kernels do not take; returns flat (o, d)."""
     o, d = rays.o, rays.d
@@ -147,14 +246,17 @@ def traverse_packed(rays: Rays, packed: PackedBVH, t_min: float = DEFAULT_T_MIN)
     o, d = _check_inputs(rays, packed)
     if o.device.type == "cpu":
         return traverse_packed_ref(rays, packed, t_min)
+    _check_depth(packed)
     lib = _build.load()
     n = o.shape[0]
     f32 = dict(dtype=torch.float32, device=o.device)
     t, u, v = (torch.empty(n, **f32) for _ in range(3))
     tri = torch.empty(n, dtype=torch.int32, device=o.device)
-    _raise_on(lib.tpurt_closest_bin(
-        *_packed_args(packed), _ptr(o), _ptr(d), n, ctypes.c_float(t_min),
-        _ptr(t), _ptr(u), _ptr(v), _ptr(tri), _stream(o.device)), "closest_bin")
+    with _build.on_device(o):
+        err = lib.tpurt_closest_bin(
+            *_packed_args(packed), _ptr(o), _ptr(d), n, ctypes.c_float(t_min),
+            _ptr(t), _ptr(u), _ptr(v), _ptr(tri), _stream(o.device))
+    _raise_on(err, "closest_bin")
     LAUNCHES["closest_bin"] += 1
     shape = rays.shape
     return Hit(t=t.reshape(shape), u=u.reshape(shape), v=v.reshape(shape),
@@ -172,9 +274,11 @@ def occluded_packed(rays: Rays, packed: PackedBVH, t_max,
     lib = _build.load()
     n = o.shape[0]
     blk = torch.empty(n, dtype=torch.uint8, device=o.device)
-    _raise_on(lib.tpurt_occluded_bin(
-        *_packed_args(packed), _ptr(o), _ptr(d), _ptr(tmax), n,
-        ctypes.c_float(t_min), _ptr(blk), _stream(o.device)), "occluded_bin")
+    with _build.on_device(o):
+        err = lib.tpurt_occluded_bin(
+            *_packed_args(packed), _ptr(o), _ptr(d), _ptr(tmax), n,
+            ctypes.c_float(t_min), _ptr(blk), _stream(o.device))
+    _raise_on(err, "occluded_bin")
     LAUNCHES["occluded_bin"] += 1
     return blk.bool().reshape(rays.shape)
 
@@ -197,9 +301,11 @@ def k_nearest_ids_packed(rays: Rays, packed: PackedBVH, k: int, band: float,
     lib = _build.load()
     n = o.shape[0]
     ids = torch.empty((n, k), dtype=torch.int32, device=o.device)
-    _raise_on(lib.tpurt_knear_bin(
-        *_packed_args(packed), _ptr(o), _ptr(d), _ptr(tmax), n,
-        ctypes.c_float(t_min), k, ctypes.c_float(-band), ctypes.c_float(1.0 + band),
-        _ptr(ids), _stream(o.device)), "knear_bin")
+    with _build.on_device(o):
+        err = lib.tpurt_knear_bin(
+            *_packed_args(packed), _ptr(o), _ptr(d), _ptr(tmax), n,
+            ctypes.c_float(t_min), k, ctypes.c_float(-band), ctypes.c_float(1.0 + band),
+            _ptr(ids), _stream(o.device))
+    _raise_on(err, "knear_bin")
     LAUNCHES["knear_bin"] += 1
     return ids

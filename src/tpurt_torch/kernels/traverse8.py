@@ -40,6 +40,7 @@ from tpurt_torch.accel.traverse_ref import _tmax_flat, mt9
 from tpurt_torch.accel.traverse_ref import safe_inv as _safe_inv
 from tpurt_torch.core.geometry import Hit, Rays, T_MAX
 from tpurt_torch.kernels import _build
+from tpurt_torch.kernels._build import ptr as _ptr, stream as _stream
 
 # Per-ray stack depth; tpurt's STACKV.  _check_stack guarantees a topology's
 # worst case fits, since a push past the end would drop a subtree silently.
@@ -317,10 +318,6 @@ def k_nearest_wide8_ref(rays: Rays, wide: WideBVH, k: int, band: float,
 # ---------------------------------------------------------------------------
 # CUDA wrappers
 # ---------------------------------------------------------------------------
-def _ptr(x: torch.Tensor) -> ctypes.c_void_p:
-    return ctypes.c_void_p(x.data_ptr())
-
-
 def _check_inputs(rays: Rays, wide: WideBVH):
     """Raise on anything the kernels do not take; returns flat (o, d)."""
     o, d = rays.o, rays.d
@@ -355,6 +352,7 @@ def traverse_wide8(rays: Rays, wide: WideBVH, t_min: float = DEFAULT_T_MIN,
     if o.device.type == "cpu":
         return traverse_wide8_ref(rays, wide, t_min, shade_out)
     _check_stack(wide)
+    _build.check_aligned(wide.wrow.data_ptr(), wide.tri_rows.data_ptr())
     lib = _build.load()
     n = o.shape[0]
     f32 = dict(dtype=torch.float32, device=o.device)
@@ -364,11 +362,14 @@ def traverse_wide8(rays: Rays, wide: WideBVH, t_min: float = DEFAULT_T_MIN,
     tri = torch.empty(n, dtype=torch.int32, device=o.device)
     sh = [torch.empty((n, 3), **f32) for _ in range(3)] if shade_out else []
     null = ctypes.c_void_p(None)
-    err = lib.tpurt_closest8(
-        _ptr(wide.wrow), _ptr(wide.tri_rows), _ptr(o), _ptr(d), n,
-        wide.max_rows, ctypes.c_float(t_min), _ptr(t), _ptr(u), _ptr(v),
-        _ptr(tri), *([_ptr(x) for x in sh] if shade_out else [null] * 3),
-        ctypes.c_void_p(torch.cuda.current_stream(o.device).cuda_stream))
+    # the persistent warps' ray counter, fresh for every launch
+    nxt = torch.zeros(1, dtype=torch.int32, device=o.device)
+    with _build.on_device(o):
+        err = lib.tpurt_closest8(
+            _ptr(wide.wrow), _ptr(wide.tri_rows), _ptr(o), _ptr(d), n,
+            wide.max_rows, ctypes.c_float(t_min), _ptr(t), _ptr(u), _ptr(v),
+            _ptr(tri), *([_ptr(x) for x in sh] if shade_out else [null] * 3),
+            _ptr(nxt), _stream(o.device))
     if err:
         raise RuntimeError(f"closest8 kernel launch failed: {_build.error_string(err)}")
     LAUNCHES["closest8"] += 1
@@ -393,10 +394,10 @@ def occluded_wide8(rays: Rays, wide: WideBVH, t_max,
     lib = _build.load()
     n = o.shape[0]
     blk = torch.empty(n, dtype=torch.uint8, device=o.device)
-    err = lib.tpurt_occluded8(
-        _ptr(wide.wrow), _ptr(wide.tri_rows), _ptr(o), _ptr(d), _ptr(tmax), n,
-        wide.max_rows, ctypes.c_float(t_min), _ptr(blk),
-        ctypes.c_void_p(torch.cuda.current_stream(o.device).cuda_stream))
+    with _build.on_device(o):
+        err = lib.tpurt_occluded8(
+            _ptr(wide.wrow), _ptr(wide.tri_rows), _ptr(o), _ptr(d), _ptr(tmax), n,
+            wide.max_rows, ctypes.c_float(t_min), _ptr(blk), _stream(o.device))
     if err:
         raise RuntimeError(f"occluded8 kernel launch failed: {_build.error_string(err)}")
     LAUNCHES["occluded8"] += 1
@@ -424,11 +425,11 @@ def k_nearest_wide8(rays: Rays, wide: WideBVH, k: int, band: float,
     ids = torch.empty((n, k), dtype=torch.int32, device=o.device)
     # the persistent warps' ray counter, fresh for every launch
     nxt = torch.zeros(1, dtype=torch.int32, device=o.device)
-    err = lib.tpurt_knear8(
-        _ptr(wide.wrow), _ptr(wide.tri_rows), _ptr(o), _ptr(d), _ptr(tmax), n,
-        wide.max_rows, ctypes.c_float(t_min), k, ctypes.c_float(-band),
-        ctypes.c_float(1.0 + band), _ptr(ids), _ptr(nxt),
-        ctypes.c_void_p(torch.cuda.current_stream(o.device).cuda_stream))
+    with _build.on_device(o):
+        err = lib.tpurt_knear8(
+            _ptr(wide.wrow), _ptr(wide.tri_rows), _ptr(o), _ptr(d), _ptr(tmax), n,
+            wide.max_rows, ctypes.c_float(t_min), k, ctypes.c_float(-band),
+            ctypes.c_float(1.0 + band), _ptr(ids), _ptr(nxt), _stream(o.device))
     if err:
         raise RuntimeError(f"knear8 kernel launch failed: {_build.error_string(err)}")
     LAUNCHES["knear8"] += 1

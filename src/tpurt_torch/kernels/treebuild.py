@@ -26,6 +26,7 @@ import numpy as np
 import torch
 
 from tpurt_torch.kernels import _build
+from tpurt_torch.kernels._build import ptr as _ptr, stream as _stream
 
 MORTON_BITS = 10  # per axis -> 30-bit codes
 # The upper clamp of a normalised coordinate: 1 - 1e-7 rounded to f32, the
@@ -143,14 +144,6 @@ def radix_tree_ref(codes: torch.Tensor):
 # ---------------------------------------------------------------------------
 # CUDA wrappers
 # ---------------------------------------------------------------------------
-def _ptr(x: torch.Tensor) -> ctypes.c_void_p:
-    return ctypes.c_void_p(x.data_ptr())
-
-
-def _stream(dev: torch.device) -> ctypes.c_void_p:
-    return ctypes.c_void_p(torch.cuda.current_stream(dev).cuda_stream)
-
-
 def _check(name: str, x: torch.Tensor, dtype: torch.dtype, shape: tuple,
            dev: torch.device) -> None:
     if x.device != dev:
@@ -184,9 +177,12 @@ def morton_codes(points: torch.Tensor, lo: torch.Tensor,
         raise ValueError(f"unsupported device {dev}")
     n = points.shape[0]
     codes = torch.empty(n, dtype=torch.int64, device=dev)
-    _raise_on(_build.load().tpurt_morton(
-        _ptr(points), _ptr(lo), _ptr(inv), ctypes.c_float(MORTON_CLAMP_HI), n,
-        _ptr(codes), _stream(dev)), "morton")
+    lib = _build.load()
+    with _build.on_device(points):
+        err = lib.tpurt_morton(
+            _ptr(points), _ptr(lo), _ptr(inv), ctypes.c_float(MORTON_CLAMP_HI), n,
+            _ptr(codes), _stream(dev))
+    _raise_on(err, "morton")
     LAUNCHES["morton"] += 1
     return codes
 
@@ -211,8 +207,11 @@ def radix_tree(codes: torch.Tensor):
     leaves = torch.arange(n, **i32)
     first = torch.cat([torch.empty(n - 1, **i32), leaves])
     last = torch.cat([torch.empty(n - 1, **i32), leaves])
-    _raise_on(_build.load().tpurt_radix(
-        _ptr(codes), n, _ptr(left), _ptr(right), _ptr(parent), _ptr(first),
-        _ptr(last), _stream(dev)), "radix")
+    lib = _build.load()
+    with _build.on_device(codes):
+        err = lib.tpurt_radix(
+            _ptr(codes), n, _ptr(left), _ptr(right), _ptr(parent), _ptr(first),
+            _ptr(last), _stream(dev))
+    _raise_on(err, "radix")
     LAUNCHES["radix"] += 1
     return left, right, parent, first, last

@@ -33,6 +33,7 @@ import numpy as np
 import pytest
 import torch
 
+from tests.closest_bin_loop import closest_bin_kernel_loop
 from tests.oracle.test_pallas_oracle import _random_rays, _random_scene
 from tests.test_torch_traverse8 import _bunny_rays, _mt_numpy_det, _trays
 from tpurt.accel import traverse_ref as jref
@@ -247,7 +248,10 @@ def _scalar_walk_counts(packed, o, d, kind, tmax, k=4, band=BAND):
     float32: slab-test the node against the bound at the start of the visit,
     enter a passing internal node at node + 1, test a passing leaf's 8 slots,
     otherwise follow the escape; the any-hit walk stops after a blocking
-    leaf.  Returns what walk_counts reports."""
+    leaf.  closest_bin walks near-first (closest_bin_walk), rendered in
+    tests/closest_bin_loop.py.  Returns what walk_counts reports."""
+    if kind == "closest":
+        return closest_bin_kernel_loop(packed, o, d)[1]
     f32 = np.float32
     nf, ni = packed.node_f32.numpy(), packed.node_i32.numpy()
     rows = packed.tri_rows.numpy()[:, :72].reshape(-1, 8, 9)
