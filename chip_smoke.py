@@ -19,8 +19,9 @@ Phases, one line each (any failure exits non-zero and prints no result):
   parity   closest8 and occluded8 against their plain-torch twins on the
            card, on every ray of the Morton-ordered 1920x1088 frame and its
            shadow rays, for the scene's camera and for an overview of the
-           courtyard; the twins' full-frame milliseconds and their walk
-           counts, from which the kernels' bounds are computed ([bound]).
+           courtyard (any differing blocked flag is printed and fails the
+           script at its end); the twins' full-frame milliseconds and their
+           walk counts, from which the kernels' bounds are computed ([bound]).
   subset_timing
            kernel and twin milliseconds on 65,536 of the frame's rays.
   scene_band
@@ -41,15 +42,15 @@ Phases, one line each (any failure exits non-zero and prints no result):
   profile  torch.profiler over 5 hard frames: each kernel's and the torch
            glue's share of device time, the device's idle share; closest8 on
            row-major against Morton-ordered rays.
-  closest_ab
-           the closest-hit kernels (closest8 on both views' frames; later
-           closest_bin on the 1M main view, the overview's first rays and
-           the bunny) and, as controls, the any-hit kernels (occluded8 on the
-           main view's shadow rays, occluded_bin on the bunny's) against each
-           other tree's (--parent): ids or flags equal, t, u, v
-           and shading lanes bitwise, then in turns other, new, new, other
-           the call's ms (CUDA events) and the kernel's device ms (bare
-           launches); without other trees, this build's alone.
+  walk_ab  the walk kernels against each other tree's (--parent): closest8
+           and occluded8 on both views' frames and shadow rays; later
+           closest_bin and occluded_bin on the 1M main view, the overview's
+           first rays and the bunny.  Ids or flags equal (a differing flag
+           fails the script at its end, a differing closest_bin id unless
+           ROADMAP P6 explains it), t, u, v and shading lanes bitwise, then
+           in turns other, new, new, other the call's ms (CUDA events) and
+           the kernel's device ms (bare launches); without other trees, this
+           build's alone.
   fit      InverseRenderer.fit: 3 Adam steps of verts and albedo on the 1M
            scene at 1920x1088 (soft, k_layers 4, k_occ 8, 8 ray chunks)
            toward the albedo x 0.8 render; step seconds, fwd+bwd rays/s,
@@ -89,13 +90,14 @@ knear_bin over the packed threaded tree):
            bunny), knear_bin on the bunny as
            the soft render calls it (k = 4 on the primary rays, k = 8 on the
            layer-0 shadow candidates, t_max = 2 x the segment); mismatch
-           fraction, max |t, u, v - twin's|, kernel and twin ms (knear_bin
-           also its device ms).
+           fraction (a differing blocked flag fails the script at its end),
+           max |t, u, v - twin's|, kernel and twin ms (knear_bin also its
+           device ms).
   bound_bin
            each kernel's least time on the card from its twin's walk counts
-           (the bunny frame, the 1M main view); closest_bin's from its
-           near-first walk and from the parent's escape walk, the smaller
-           its bound.
+           (the bunny frame, the 1M main view); closest_bin's and
+           occluded_bin's from their near-first walks and from the parent's
+           escape walks, the smaller their bound.
   render_bin
            render(method="binary") of the bunny's 512x512 hard frame, with
            the launch counts of that run, against the wide8 image; the
@@ -169,7 +171,7 @@ from tpurt_torch.accel import lbvh as lbvh_mod  # noqa: E402
 from tpurt_torch.accel import morton as morton_mod  # noqa: E402
 from tpurt_torch.accel.lbvh import BVH, build_lbvh  # noqa: E402
 from tpurt_torch.accel.packet import max_cut_leaves, pack_bvh  # noqa: E402
-from tpurt_torch.accel.traverse_ref import closest_walk, safe_inv  # noqa: E402
+from tpurt_torch.accel.traverse_ref import closest_walk, occluded_walk, safe_inv  # noqa: E402
 from tpurt_torch.api.config import FitConfig, RenderConfig  # noqa: E402
 from tpurt_torch.api.inverse import InverseRenderer  # noqa: E402
 from tpurt_torch.api.renderer import Renderer  # noqa: E402
@@ -204,9 +206,9 @@ KERNEL_SRC = "src/tpurt_torch/kernels/csrc/traverse8.cu"
 BIN_SRC = "src/tpurt_torch/kernels/csrc/traverse.cu"
 TREEBUILD_SRC = "src/tpurt_torch/kernels/csrc/treebuild.cu"
 # The 1M scene's own camera faces a clutter box ~0.15 units away (every ray
-# hits it and every shadow ray is blocked), so the parity check also runs on
-# a view over the courtyard, which exercises deep walks, misses and lit
-# points.  It is parity coverage only: no timing is taken on it.
+# hits it and every shadow ray is blocked), so parity, [timing] and
+# [walk_ab] also run on a view over the courtyard, which exercises deep
+# walks, misses and lit points.
 OVERVIEW_EYE, OVERVIEW_TARGET = (0.0, 22.0, 26.0), (0.0, 1.5, 0.0)
 REPLACES = {"closest8": "src/tpurt/kernels/traverse8.py:425",
             "occluded8": "src/tpurt/kernels/traverse8.py:653",
@@ -258,8 +260,11 @@ SLAB_OPS, MT_OPS = 25, 47
 # Bytes a walk reads once per distinct node and leaf row, and slab tests per
 # node visit: a BVH8 node record and triangle row; a binary node (node_f32
 # and node_i32 rows) and leaf (72 floats of its row and its 8 ids).
-WIDE = dict(node_bytes=256, row_bytes=512, slabs=8)
-BIN = dict(node_bytes=48, row_bytes=320, slabs=1)
+WIDE = dict(node_bytes=256, row_bytes=512, slabs=8, row_tests=8)
+BIN = dict(node_bytes=48, row_bytes=320, slabs=1, row_tests=8)
+# The any-hit twins count half rows (4 tests each) as rows: their kernels
+# end a walk at the first half row that blocks.
+WIDE_HALF, BIN_HALF = dict(WIDE, row_tests=4), dict(BIN, row_tests=4)
 # The build kernels' configuration: the 5M sponza at 3840x2160 (tpurt's
 # get_scene("sponza5m"), BASELINE config 5's scene on one chip).
 NUM_TRIS_5M, WIDTH_5M, HEIGHT_5M = 5_000_000, 3840, 2160
@@ -281,7 +286,7 @@ KERNEL_NAMES = ("closest8_kernel", "occluded8_kernel", "knear8_kernel",
                 "morton_kernel", "radix_kernel")
 WALK_KERNELS = ("closest8", "occluded8", "knear8", "closest_bin", "occluded_bin", "knear_bin")
 # The redesigned kernels, which [build] fails on if ptxas reports a spill.
-NO_SPILL = ("knear8", "knear_bin", "closest8", "closest_bin")
+NO_SPILL = ("knear8", "knear_bin", "closest8", "closest_bin", "occluded8", "occluded_bin")
 # Each kernel engine's hard-frame kernels (closest hit, any hit) and its
 # closest-hit call as render_rays makes it.
 HARD_KERNELS = {
@@ -408,9 +413,10 @@ def parity(view: str, tracer: Tracer, frame: Rays, count: bool = False) -> dict:
     frame and on the shadow rays built from its hits as _shade_layer builds
     them.  The twins run in chunks of the frame (their row gathers are
     (rays, 8 * max_rows, 128) f32); their loop is timed as plain_ms.  Fails
-    on more than MAX_MISMATCH_FRAC of ids or blocked flags differing, or on
-    any value of an agreeing ray off by more than MAX_ABS_ERR.  count: run
-    the twins once more, untimed, counting their walks for the bounds."""
+    on more than MAX_MISMATCH_FRAC of ids differing, on any value of an
+    agreeing ray off by more than MAX_ABS_ERR, and on any differing blocked
+    flag (strict_flags).  count: run the twins once more, untimed, counting
+    their walks for the bounds."""
     wide, n = tracer.wide, frame.o.shape[0]
     hk, shk = k8.traverse_wide8(frame, wide, shade_out=True)
 
@@ -445,8 +451,7 @@ def parity(view: str, tracer: Tracer, frame: Rays, count: bool = False) -> dict:
           closest8_plain_ms=f"{plain_c:.1f}", occluded8_plain_ms=f"{plain_o:.1f}")
     if id_bad > MAX_MISMATCH_FRAC * n:
         fail(f"closest8 ({view}): {id_bad} id mismatches against its twin")
-    if blk_bad > MAX_MISMATCH_FRAC * n_sh:
-        fail(f"occluded8 ({view}): {blk_bad} blocked-flag mismatches against its twin")
+    strict_flags("parity", view, "occluded8", wide, sh_rays, bk, br)
     for k, v in errs.items():
         if not v <= MAX_ABS_ERR:
             fail(f"closest8 ({view}): max |{k} - twin's| = {v!r} > {MAX_ABS_ERR}")
@@ -455,19 +460,36 @@ def parity(view: str, tracer: Tracer, frame: Rays, count: bool = False) -> dict:
                err={"closest8": max(errs.values()), "occluded8": float(blk_bad > 0)})
     if count:
         out["bound"] = {"closest8": bound(counted(closest_twin, n), n, 24, 52),
-                        "occluded8": bound(counted(occluded_twin, n_sh), n_sh, 28, 1)}
+                        "occluded8": bound(counted(occluded_twin, n_sh), n_sh, 28, 1,
+                                           WIDE_HALF)}
         for name, b in out["bound"].items():
             phase("bound", view=view, kernel=name, **b)
     return out
 
 
+def strict_flags(name: str, view: str, kernel: str, tree, rays: Rays, got: torch.Tensor,
+                 ref: torch.Tensor) -> None:
+    """An any-hit kernel's flags against its twin's: the flag does not
+    depend on the visit order, so every ray must agree.  Each differing ray
+    is printed (differing_rays) and fails the script at its end; more than
+    MAX_MISMATCH_FRAC of them fails it now."""
+    bad = int((got != ref).sum())
+    if not bad:
+        return
+    differing_rays(view, kernel, tree, "twin", rays, (got,), (ref,), phase_name=name)
+    FAILURES.append(f"{kernel} ({view}): {bad} blocked flags differ from the twin's")
+    if bad > MAX_MISMATCH_FRAC * got.numel():
+        fail(FAILURES[-1])
+
+
 def both_bounds(name: str, view: str, kernel: str, walks: dict, n_rays: int, in_bytes: int,
-                out_bytes: int, layout: dict = WIDE) -> dict:
+                out_bytes: int) -> dict:
     """A kernel's bound from each walk's counts where its visit order changed
-    (walks: {"near_first": counts, "escape": counts}, closest_bin's order and
-    the parent commit's), each printed; returns the smaller, the least work
-    the function needs, with both beside it."""
-    each = {walk: bound(c, n_rays, in_bytes, out_bytes, layout) for walk, c in walks.items()}
+    (walks: {"near_first": (counts, layout), "escape": (counts, layout)}, the
+    binary kernels' order and the parent commit's), each printed; returns
+    the smaller, the least work the function needs, with both beside it."""
+    each = {walk: bound(c, n_rays, in_bytes, out_bytes, layout)
+            for walk, (c, layout) in walks.items()}
     for walk, b in each.items():
         phase(name, view=view, kernel=kernel, walk=walk, **b)
     least = min(each.values(), key=lambda b: b["bound_ms"])
@@ -580,12 +602,13 @@ def bound(counts: dict, n_rays: int, in_bytes: int, out_bytes: int,
     run's data: the larger of its bytes over PEAK_BYTES_S (each ray's inputs
     read and outputs written once, each distinct node and leaf row the walks
     touch read once) and its operations over PEAK_F32_FLOPS (layout's slab
-    tests per node visit, 8 Möller–Trumbore tests per leaf row), from the
+    tests per node visit and Möller–Trumbore tests per counted row), from the
     twin's walk counts (the twins walk in the kernels' order)."""
     nbytes = (n_rays * (in_bytes + out_bytes)
               + layout["node_bytes"] * counts["distinct_nodes"]
               + layout["row_bytes"] * counts["distinct_rows"])
-    ops = layout["slabs"] * SLAB_OPS * counts["visits"] + 8 * MT_OPS * counts["rows"]
+    ops = (layout["slabs"] * SLAB_OPS * counts["visits"]
+           + layout["row_tests"] * MT_OPS * counts["rows"])
     t_bytes, t_ops = nbytes / PEAK_BYTES_S * 1e3, ops / PEAK_F32_FLOPS * 1e3
     return dict(counts, bytes=nbytes, ops=ops, bound_ms=max(t_bytes, t_ops),
                 bound_by="bytes" if t_bytes >= t_ops else "operations")
@@ -754,29 +777,30 @@ def tree_csrc(name: str, root: str) -> str:
 def bind_tree(root: str, path: str) -> ctypes.CDLL:
     """The kernel library at `path`, built from the source tree at `root`,
     with its walk entry points bound for bare launches by the tree's own
-    interface: the k-nearest ones and closest8 with a ray counter before the
-    stream where its source takes one (persistent warps), none where it does
-    not (one thread a ray, as in earlier commits)."""
+    interface: each with a ray counter before the stream where its source
+    takes one (persistent warps), none where it does not (one thread a ray,
+    as in earlier commits or variants)."""
     csrc = tree_csrc("tree", root)
     lib = ctypes.CDLL(path)
     lib.counter = {}
-    for fn, src in (("tpurt_knear8", "traverse8.cu"), ("tpurt_knear_bin", "traverse.cu"),
-                    ("tpurt_closest8", "traverse8.cu")):
+    for kernel in WALK_KERNELS:
+        src = "traverse.cu" if kernel.endswith("_bin") else "traverse8.cu"
         with open(os.path.join(csrc, src)) as f:
             text = f.read()
+        fn = f"tpurt_{kernel}"
         lib.counter[fn] = "int* next" in text[text.index(f"int {fn}("):].split("{", 1)[0]
     ptr, i32, f32 = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-    lib.tpurt_knear8.argtypes = ([ptr] * 5 + [i32, i32, f32, i32, f32, f32, ptr]
-                                 + [ptr] * (1 + lib.counter["tpurt_knear8"]))
-    lib.tpurt_knear_bin.argtypes = ([ptr] * 7 + [i32, f32, i32, f32, f32, ptr]
-                                    + [ptr] * (1 + lib.counter["tpurt_knear_bin"]))
-    lib.tpurt_closest8.argtypes = ([ptr] * 4 + [i32, i32, f32]
-                                   + [ptr] * (8 + lib.counter["tpurt_closest8"]))
-    lib.tpurt_occluded8.argtypes = [ptr] * 5 + [i32, i32, f32, ptr, ptr]
-    lib.tpurt_closest_bin.argtypes = [ptr] * 6 + [i32, f32] + [ptr] * 5
-    lib.tpurt_occluded_bin.argtypes = [ptr] * 7 + [i32, f32, ptr, ptr]
-    for fn in ("knear8", "knear_bin", "closest8", "occluded8", "closest_bin", "occluded_bin"):
-        getattr(lib, f"tpurt_{fn}").restype = i32
+    # each entry point's arguments up to its outputs, the outputs' count
+    head = {"knear8": ([ptr] * 5 + [i32, i32, f32, i32, f32, f32], 1),
+            "knear_bin": ([ptr] * 7 + [i32, f32, i32, f32, f32], 1),
+            "closest8": ([ptr] * 4 + [i32, i32, f32], 7),
+            "occluded8": ([ptr] * 5 + [i32, i32, f32], 1),
+            "closest_bin": ([ptr] * 6 + [i32, f32], 4),
+            "occluded_bin": ([ptr] * 7 + [i32, f32], 1)}
+    for kernel, (args, outs) in head.items():
+        fn = getattr(lib, f"tpurt_{kernel}")
+        fn.argtypes = args + [ptr] * (outs + lib.counter[f"tpurt_{kernel}"] + 1)
+        fn.restype = i32
     return lib
 
 
@@ -948,7 +972,7 @@ def knear_ab(kernel: str, tree, runs: dict, libs: dict, cells: dict) -> dict:
 
 
 # ---------------------------------------------------------------------------
-# The closest-hit kernels against other trees' ([closest_ab])
+# The walk kernels against other trees' ([walk_ab])
 # ---------------------------------------------------------------------------
 def wrapper_call(kernel: str, tree, rays: Rays, t_max=None):
     """fn() calling this checkout's wrapper of `kernel` as the hard render
@@ -960,14 +984,14 @@ def wrapper_call(kernel: str, tree, rays: Rays, t_max=None):
 
 
 @torch.no_grad()
-def closest_ab(libs: dict, cells: dict) -> dict:
-    """The closest-hit kernels (and the any-hit kernels as controls) of this
-    checkout ("new") against other trees' (libs: {"new": lib, name: lib,
-    ...}: the parent commit's, variants) on each cell (name -> (kernel,
-    tree, rays, t_max)): every tree's ids or flags equal to this build's,
-    and where ids agree t, u, v and shading lanes bitwise; a tree that
-    differs fails the script at its end, after the differing rays are
-    printed (differing_rays), unless each differing id is explained there.
+def walk_ab(libs: dict, cells: dict) -> dict:
+    """The walk kernels (closest hit and any hit) of this checkout ("new")
+    against other trees' (libs: {"new": lib, name: lib, ...}: the parent
+    commit's, variants) on each cell (name -> (kernel, tree, rays, t_max)):
+    every tree's ids or flags equal to this build's, and where ids agree
+    t, u, v and shading lanes bitwise; a tree that differs fails the script
+    at its end, after the differing rays are printed (differing_rays),
+    unless each differing id is explained there (a flag never is).
     Then in turns other, new, new, other for each other tree, the call's ms
     by CUDA events (this build through its wrapper, the others with their
     outputs made a call, as a wrapper makes them) and the kernel's device ms
@@ -1002,7 +1026,7 @@ def closest_ab(libs: dict, cells: dict) -> dict:
         mean = lambda ts, name: float(np.mean([t for s, t in ts if s == name]))  # noqa: E731
         out[cell] = {name: dict(ms=mean(turns, name), device_ms=mean(dev_turns, name))
                      for name in libs}
-        phase("closest_ab", kernel=kernel, cell=cell, rays=rays.o.reshape(-1, 3).shape[0],
+        phase("walk_ab", kernel=kernel, cell=cell, rays=rays.o.reshape(-1, 3).shape[0],
               mismatches=json.dumps(bad), max_abs_err=json.dumps(err),
               **{f"{name}_ms": f"{v['ms']:.4f}" for name, v in out[cell].items()},
               **{f"{name}_device_ms": f"{v['device_ms']:.4f}" for name, v in out[cell].items()},
@@ -1016,13 +1040,16 @@ def closest_ab(libs: dict, cells: dict) -> dict:
 
 # Failures that stop the script at its end, after every measurement.
 FAILURES = []
+# Differing rays printed a cell at most (all are counted).
+PRINTED_RAYS = 64
 
 
 def differing_rays(cell: str, kernel: str, tree, name: str, rays: Rays, ref: tuple,
-                   res: tuple) -> int:
-    """The rays on which tree `name`'s ids differ from this build's, each
-    printed as the bits of its floats (float.hex) with both kernels' id and
-    t.  Only a closest_bin ray can be explained (ROADMAP P6): its visit
+                   res: tuple, phase_name: str = "walk_ab") -> int:
+    """The rays on which tree `name`'s ids or flags differ from this
+    build's, the first PRINTED_RAYS each printed under phase_name as the
+    bits of its floats (float.hex) with both kernels' id (or flag) and t.
+    Only a closest_bin ray can be explained (ROADMAP P6): its visit
     order changed, and tpurt's smooth inverse det / (det^2 + 1e-12) shrinks
     t where |det| is near 1e-6, so a hit can lie before its own triangle's
     box along the ray, and whether a walk takes it then depends on the
@@ -1030,7 +1057,9 @@ def differing_rays(cell: str, kernel: str, tree, name: str, rays: Rays, ref: tup
     own walk's id (the near-first twin this build's, the escape twin the
     parent commit's), and the better of the two hits lies outside its
     triangle's box (outside_box).  Any other differing ray, closest8's
-    included, is not.  Returns the number of differing rays not explained."""
+    included, is not, nor any any-hit flag: the any-hit walks' window never
+    shrinks, so their flags do not depend on the order.  Returns the number
+    of differing rays not explained."""
     o, d = rays.o.reshape(-1, 3), rays.d.reshape(-1, 3)
     idx = torch.nonzero(res[0] != ref[0])[:, 0]
     twins = None
@@ -1047,7 +1076,9 @@ def differing_rays(cell: str, kernel: str, tree, name: str, rays: Rays, ref: tup
                                       *min((float(ref[1][i]), ids[0]), (float(res[1][i]), ids[1])))
         explained = twin_ids == ids and bool(outside)
         unexplained += not explained
-        phase("closest_ab", cell=cell, tree=name, differing_ray=i,
+        if j >= PRINTED_RAYS:
+            continue
+        phase(phase_name, cell=cell, tree=name, differing_ray=i,
               o=json.dumps([float(x).hex() for x in o[i].tolist()]),
               d=json.dumps([float(x).hex() for x in d[i].tolist()]),
               new_id=ids[0], other_id=ids[1],
@@ -1096,10 +1127,12 @@ def bin_parity(view: str, tracer: Tracer, frame: Rays, count: bool = False,
     Morton-ordered frame and on the shadow rays built from its hits as
     _shade_layer builds them (surface from the table); the twins in
     PARITY_CHUNK chunks, timed as plain_ms.  Fails on more than
-    MAX_MISMATCH_FRAC of ids or blocked flags differing, or on any t, u, v of
-    an agreeing ray off by more than MAX_ABS_ERR.  count: the twins' walk
-    counts and the kernels' bounds ([bound_bin]).  of_rays: the size of the
-    frame that `frame` is the first part of, printed beside it."""
+    MAX_MISMATCH_FRAC of ids differing, on any t, u, v of an agreeing ray
+    off by more than MAX_ABS_ERR, and on any differing blocked flag
+    (strict_flags).  count: the twins' walk counts and the kernels' bounds
+    ([bound_bin]), each from the near-first and the escape walk.  of_rays:
+    the size of the frame that `frame` is the first part of, printed beside
+    it."""
     packed, n = tracer.packed, frame.o.shape[0]
     hk = kb.traverse_packed(frame, packed)
 
@@ -1136,8 +1169,7 @@ def bin_parity(view: str, tracer: Tracer, frame: Rays, count: bool = False,
           occluded_bin_ms=f"{ms['occluded_bin']:.4f}", occluded_bin_plain_ms=f"{plain_o:.1f}")
     if id_bad > MAX_MISMATCH_FRAC * n:
         fail(f"closest_bin ({view}): {id_bad} id mismatches against its twin")
-    if blk_bad > MAX_MISMATCH_FRAC * n_sh:
-        fail(f"occluded_bin ({view}): {blk_bad} blocked-flag mismatches against its twin")
+    strict_flags("bin_parity", view, "occluded_bin", packed, sh_rays, bk, br)
     for k, v in errs.items():
         if not v <= MAX_ABS_ERR:
             fail(f"closest_bin ({view}): max |{k} - twin's| = {v!r} > {MAX_ABS_ERR}")
@@ -1146,16 +1178,21 @@ def bin_parity(view: str, tracer: Tracer, frame: Rays, count: bool = False,
                err={"closest_bin": max(errs.values()), "occluded_bin": float(blk_bad > 0)},
                mismatch={"closest_bin": id_bad / n, "occluded_bin": blk_bad / n_sh})
     if count:
-        def escape_twin(lo: int, hi: int, stats=None):
+        def escape_closest(lo: int, hi: int, stats=None):
             closest_walk(rays_slice(frame, slice(lo, hi)), kb.PackedLayout(packed),
                          stats=stats)
 
+        def escape_occluded(lo: int, hi: int, stats=None):
+            occluded_walk(rays_slice(sh_rays, slice(lo, hi)), kb.PackedLayout(packed),
+                          t_sh[lo:hi], stats=stats)
+
         out["bound"] = {
             "closest_bin": both_bounds("bound_bin", view, "closest_bin", {
-                "near_first": counted(closest_twin, n), "escape": counted(escape_twin, n)},
-                n, 24, 16, BIN),
-            "occluded_bin": bound(counted(occluded_twin, n_sh), n_sh, 28, 1, BIN)}
-        phase("bound_bin", view=view, kernel="occluded_bin", **out["bound"]["occluded_bin"])
+                "near_first": (counted(closest_twin, n), BIN),
+                "escape": (counted(escape_closest, n), BIN)}, n, 24, 16),
+            "occluded_bin": both_bounds("bound_bin", view, "occluded_bin", {
+                "near_first": (counted(occluded_twin, n_sh), BIN_HALF),
+                "escape": (counted(escape_occluded, n_sh), BIN)}, n_sh, 28, 1)}
     return out
 
 
@@ -1753,7 +1790,7 @@ def main() -> None:
     ap.add_argument("--parent", action="append", default=[], metavar="[NAME=]DIR",
                     help="a checkout of the parent commit (or, named, of a variant of "
                          "the kernels): time its k-nearest kernels against these in "
-                         "turns ([knear_ab], [closest_ab]); repeatable")
+                         "turns ([knear_ab], [walk_ab]); repeatable")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         fail("torch.cuda.is_available() is False: this script needs an NVIDIA GPU")
@@ -1842,10 +1879,11 @@ def main() -> None:
     frame_ms = frame_timing("main", tracer, frame, main_par)
     over_ms = frame_timing("overview", tracer, overview, over_par)
     profile_frame(tracer, cam, frame)
-    ab = closest_ab(walk_libs, cells={
+    ab = walk_ab(walk_libs, cells={
         "closest8_main": ("closest8", wide, frame, None),
         "closest8_overview": ("closest8", wide, overview, None),
-        "occluded8_main": ("occluded8", wide, main_par["sh_rays"], main_par["t_sh"])})
+        "occluded8_main": ("occluded8", wide, main_par["sh_rays"], main_par["t_sh"]),
+        "occluded8_overview": ("occluded8", wide, over_par["sh_rays"], over_par["t_sh"])})
     del tracer, wide, main_par["sh_rays"], over_par["sh_rays"]
 
     # -- the binary kernels on the same 1M frame (hard only) --------------
@@ -1857,10 +1895,14 @@ def main() -> None:
                           of_rays=overview.o.shape[0])
     bin_main["frame_ms"] = bin_timing("sponza1m_main", s_tracer, frame, bin_main,
                                       beside=frame_ms)
-    ab.update(closest_ab(walk_libs, cells={
+    ab.update(walk_ab(walk_libs, cells={
         "closest_bin_main": ("closest_bin", s_tracer.packed, frame, None),
         "closest_bin_overview": ("closest_bin", s_tracer.packed,
-                                 rays_slice(overview, slice(0, BIN_OVERVIEW_RAYS)), None)}))
+                                 rays_slice(overview, slice(0, BIN_OVERVIEW_RAYS)), None),
+        "occluded_bin_main": ("occluded_bin", s_tracer.packed, bin_main["sh_rays"],
+                              bin_main["t_sh"]),
+        "occluded_bin_overview": ("occluded_bin", s_tracer.packed, bin_over["sh_rays"],
+                                  bin_over["t_sh"])}))
     del s_tracer, bin_main["sh_rays"], bin_over["sh_rays"], overview
 
     # -- the main path, fit: InverseRenderer.fit through knear8 ------------
@@ -1893,7 +1935,7 @@ def main() -> None:
     b_soft = bin_tracer("bunny", bscene, band=BAND)
     bframe = morton_rays(bcam)
     bin_b = bin_parity("bunny", b_tracer, bframe, count=True)
-    ab.update(closest_ab(walk_libs, cells={
+    ab.update(walk_ab(walk_libs, cells={
         "closest_bin_bunny": ("closest_bin", b_tracer.packed, bframe, None),
         "occluded_bin_bunny": ("occluded_bin", b_tracer.packed, bin_b["sh_rays"],
                                bin_b["t_sh"])}))
@@ -1929,9 +1971,9 @@ def main() -> None:
 
     # closest8 and occluded8: the main view's frame; ms by CUDA events
     # around the wrapper, device_ms the kernel's own from bare launches
-    # ([closest_ab]); closest8 also on the overview; parent: with
-    # --parent, each other tree's ms and device ms in turns on the same
-    # cells ([closest_ab]; null without)
+    # ([walk_ab]); the same on the overview; parent: with --parent, each
+    # other tree's ms and device ms in turns on the same cells ([walk_ab];
+    # null without)
     def ab_of(prefix: str):
         if len(walk_libs) == 1:
             return None
@@ -1940,11 +1982,10 @@ def main() -> None:
     kernels = [entry(name, launches[name], max(main_par["err"][name], over_par["err"][name]),
                      frame_ms[name], main_par["plain_ms"][name], main_par["bound"][name],
                      device_ms=round(ab[f"{name}_main"]["new"]["device_ms"], 4),
-                     **({} if name == "occluded8" else dict(
-                         overview_ms=round(over_ms[name], 4),
-                         overview_device_ms=round(ab["closest8_overview"]["new"]["device_ms"], 4),
-                         overview_plain_ms=round(over_par["plain_ms"][name], 4),
-                         overview_bound_ms=round(over_par["bound"][name]["bound_ms"], 6))),
+                     overview_ms=round(over_ms[name], 4),
+                     overview_device_ms=round(ab[f"{name}_overview"]["new"]["device_ms"], 4),
+                     overview_plain_ms=round(over_par["plain_ms"][name], 4),
+                     overview_bound_ms=round(over_par["bound"][name]["bound_ms"], 6),
                      parent=ab_of(name))
                for name in ("closest8", "occluded8")]
     # knear8: the layers call (k = 4) on the main view's Morton-ordered
@@ -1977,34 +2018,32 @@ def main() -> None:
         occluders_bound_ms=round(kn_main["bound"]["occluders"]["bound_ms"], 6), **fit_keys,
         parent=ab8))
     # the binary kernels: the bunny frame (their configuration) first, the
-    # 1M main view beside it; max_abs_err is the largest |t, u, v - twin's|
-    # (closest_bin) or the mismatch fraction (occluded_bin, knear_bin) over
-    # every view
-    # closest_bin: its bound the smaller of the near-first and escape walks'
-    # (both beside it); device_ms from [closest_ab]; parent as closest8's
+    # 1M main view and the overview's first rays beside it; max_abs_err is
+    # the largest |t, u, v - twin's| (closest_bin) or the mismatch fraction
+    # (occluded_bin, knear_bin) over every view; the bound the smaller of the
+    # near-first and escape walks' (both beside it); device_ms from
+    # [walk_ab]; parent as closest8's
     for name in ("closest_bin", "occluded_bin"):
-        extra = dict(parent=ab_of(name)) if name == "occluded_bin" else dict(
-            near_first_bound_ms=round(bin_b["bound"][name]["near_first_bound_ms"], 6),
-            escape_bound_ms=round(bin_b["bound"][name]["escape_bound_ms"], 6),
-            sponza1m_near_first_bound_ms=round(
-                bin_main["bound"][name]["near_first_bound_ms"], 6),
-            sponza1m_escape_bound_ms=round(bin_main["bound"][name]["escape_bound_ms"], 6),
-            sponza1m_device_ms=round(ab["closest_bin_main"]["new"]["device_ms"], 4),
-            overview_rays=BIN_OVERVIEW_RAYS,
-            overview_ms=round(bin_over["ms"][name], 4),
-            overview_device_ms=round(ab["closest_bin_overview"]["new"]["device_ms"], 4),
-            parent=ab_of(name))
         kernels.append(entry(
             name, bin_launches[name],
             max(bin_b["err"][name], bin_main["err"][name], bin_over["err"][name]),
             bin_b["ms"][name], bin_b["plain_ms"][name], bin_b["bound"][name], source=BIN_SRC,
             mismatch_frac=max(p["mismatch"][name] for p in (bin_b, bin_main, bin_over)),
             device_ms=round(ab[f"{name}_bunny"]["new"]["device_ms"], 4),
+            near_first_bound_ms=round(bin_b["bound"][name]["near_first_bound_ms"], 6),
+            escape_bound_ms=round(bin_b["bound"][name]["escape_bound_ms"], 6),
             sponza1m_ms=round(bin_main["ms"][name], 4),
+            sponza1m_device_ms=round(ab[f"{name}_main"]["new"]["device_ms"], 4),
             sponza1m_plain_ms=round(bin_main["plain_ms"][name], 4),
             sponza1m_bound_ms=round(bin_main["bound"][name]["bound_ms"], 6),
             sponza1m_bound_by=bin_main["bound"][name]["bound_by"],
-            sponza1m_wide8_ms=round(frame_ms[name.replace("_bin", "8")], 4), **extra))
+            sponza1m_near_first_bound_ms=round(
+                bin_main["bound"][name]["near_first_bound_ms"], 6),
+            sponza1m_escape_bound_ms=round(bin_main["bound"][name]["escape_bound_ms"], 6),
+            sponza1m_wide8_ms=round(frame_ms[name.replace("_bin", "8")], 4),
+            overview_rays=BIN_OVERVIEW_RAYS, overview_ms=round(bin_over["ms"][name], 4),
+            overview_device_ms=round(ab[f"{name}_overview"]["new"]["device_ms"], 4),
+            parent=ab_of(name)))
     kn_err = max(kn_b["mismatch_frac"].values())
     kernels.append(entry(
         "knear_bin", fit_b["launches"]["knear_bin"], kn_err, kn_b["ms"]["layers"],

@@ -16,11 +16,12 @@ walk's.
 
 The walk reads the tree through a layout: ``FlatLayout`` (the LBVH's flat
 arrays and Morton-sorted corners, this module's functions) or the packed
-rows of kernels/traverse.py (the twins of occluded_bin and knear_bin;
-closest_bin's walks near-first, kernels/traverse.py closest_near_walk).
-Given a ``stats`` dict, a walk also counts itself (node visits, leaf
-visits, distinct nodes and leaves; kernels/traverse8.walk_counts reads
-them), adding to what the dict holds.
+rows of kernels/traverse.py: there knear_walk is knear_bin's twin, and
+closest_walk and occluded_walk are the escape-order oracles of
+closest_bin's and occluded_bin's near-first twins (kernels/traverse.py
+near_walk).  Given a ``stats`` dict, a walk also counts itself (node
+visits, leaf visits, distinct nodes and leaves;
+kernels/traverse8.walk_counts reads them), adding to what the dict holds.
 
 tpurt's soft_occlusion_ref (called by no tpurt path) is not ported yet.
 """
@@ -136,6 +137,13 @@ def _walk(o, d, layout, t_min: float, act, upper, on_leaf, done=None,
         act = act[keep]
 
 
+def blocks(t, u, v, det, tid, t_min: float, t_max) -> torch.Tensor:
+    """tpurt's any-hit test of candidates (t, u, v, det) with ids tid (an
+    id < 0 marks an empty slot) against the window (t_min, t_max)."""
+    return ((tid >= 0) & (det.abs() > DET_EPS) & (u >= 0.0) & (v >= 0.0)
+            & (u + v <= 1.0) & (t > t_min) & (t < t_max))
+
+
 def _tmax_flat(rays: Rays, t_max) -> torch.Tensor:
     """t_max (scalar or per-ray) as a flat contiguous f32 tensor."""
     if isinstance(t_max, torch.Tensor) and t_max.device != rays.o.device:
@@ -207,11 +215,9 @@ def occluded_walk(rays: Rays, layout, t_max, t_min: float = DEFAULT_T_MIN,
     blocked = torch.zeros(o.shape[0], dtype=torch.bool, device=o.device)
 
     def on_leaf(sel, node):
-        tri, _, valid = layout.leaf(node)
+        tri, tid, valid = layout.leaf(node)
         t, u, v, det = mt9(o[sel], d[sel], tri)
-        ok = (valid & (det.abs() > DET_EPS) & (u >= 0.0) & (v >= 0.0)
-              & (u + v <= 1.0) & (t > t_min) & (t < tmax[sel, None]))
-        blocked[sel] |= ok.any(dim=1)
+        blocked[sel] |= (valid & blocks(t, u, v, det, tid, t_min, tmax[sel, None])).any(dim=1)
 
     _walk(o, d, layout, t_min, torch.nonzero(tmax > t_min)[:, 0], lambda a: tmax[a],
           on_leaf, done=lambda a: blocked[a], stats=stats)

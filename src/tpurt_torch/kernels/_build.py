@@ -120,7 +120,7 @@ def load() -> ctypes.CDLL:
         lib.tpurt_closest8.restype = ctypes.c_int
         lib.tpurt_occluded8.argtypes = [
             _P, _P, _P, _P, _P, ctypes.c_int, ctypes.c_int, ctypes.c_float,
-            _P, _P]
+            _P, _P, _P]
         lib.tpurt_occluded8.restype = ctypes.c_int
         lib.tpurt_knear8.argtypes = [
             _P, _P, _P, _P, _P, ctypes.c_int, ctypes.c_int, ctypes.c_float,

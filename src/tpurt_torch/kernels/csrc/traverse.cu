@@ -9,18 +9,18 @@
 // What they compute is tpurt's; how is not.  The TPU kernels walk a
 // (sub, 128) ray packet with one scalar node cursor, descending where any ray
 // of the packet wants to, with the nodes lane-packed into VMEM and one-hot
-// lane extracts to read them.  Here one thread walks one ray.  occluded_bin
-// and knear_bin walk its stackless escape chain: a node whose box passes is
-// entered at index + 1 (a leaf's 8 triangle slots are tested), any other is
-// skipped through its escape link, and -1 ends the walk.  closest_bin walks
-// near-first with a short stack (closest_bin_walk, below): the layout holds
-// both children of internal node n, n + 1 and escape[n + 1].  A node visit
-// reads its 32-byte node_f32 row as two float4 and its 16-byte node_i32 row
-// as one int4; a leaf visit reads the 72 floats of its triangle row and its
-// 8 ids.  The selections (lexicographic (t, id) closest hit, any hit in
-// (t_min, t_max), the k nearest band hits by (t, id)) do not depend on visit
-// order, so per-ray walks give the packet walks' hits wherever a ray's own
-// slab test is conservative.
+// lane extracts to read them.  Here one thread walks one ray.  knear_bin
+// walks its stackless escape chain: a node whose box passes is entered at
+// index + 1 (a leaf's 8 triangle slots are tested), any other is skipped
+// through its escape link, and -1 ends the walk.  closest_bin and
+// occluded_bin walk near-first with a short stack (bin_descend, below): the
+// layout holds both children of internal node n, n + 1 and escape[n + 1].
+// A node visit reads its 32-byte node_f32 row as two float4 and its 16-byte
+// node_i32 row as one int4; a leaf visit reads the 72 floats of its triangle
+// row and its 8 ids.  The selections (lexicographic (t, id) closest hit, any
+// hit in (t_min, t_max), the k nearest band hits by (t, id)) do not depend
+// on visit order, so per-ray walks give the packet walks' hits wherever a
+// ray's own slab test is conservative.
 //
 // The arithmetic copies tpurt's op for op: the binary slab as (lo - o) * inv
 // (not the wide walks' lo*inv - o*inv) with tpurt's max/min nesting and
@@ -28,15 +28,22 @@
 // inverse in _mt_scalar_tri's order (walk_common.cuh).  Built with
 // -fmad=false, the kernels agree with their plain-torch twins bit for bit.
 //
-// What bounds occluded_bin on this card is what bounds the BVH8 walks
-// (traverse8.cu): every visit is a dependent load (the next node's index
-// comes out of the previous visit), and the 32 rays of a warp take different
-// paths, so the warp runs the union of their visits.  A binary walk makes
-// several times as many visits as a BVH8 walk, each with one slab test
-// instead of eight.  Its simple design keeps every array in global memory,
-// read through L1/L2 (the node rows of a 1M-triangle scene are 21 MB and fit
-// the 50 MB L2), relies on Morton-ordered rays so that a warp's rays walk
-// similar chains, and needs no stack and no shared memory.
+// What bounded occluded_bin was latency: on the escape chain every visit is
+// one dependent load (the next node's index comes out of the previous
+// record), ~47 of them a bunny shadow ray, and the 32 rays of a warp run the
+// union of their chains.  Its design walks as closest_bin does, with the
+// fixed bound t_max: at an internal node whose box passed, both children are
+// slab-tested with their loads issued together (bin_descend), the nearer
+// passing one is entered and the other pushed.  The set of boxes tested is
+// the escape chain's (each child of a passing internal node once), so the
+// flag is too; only the order and the overlap of the loads change.  With it,
+// the levers of the other walks: min.NaN/max.NaN slab tests, descents
+// repeating until a lane holds a leaf (while-while), and leaves read as two
+// half rows of 16-byte loads whose 4 tests fold into one flag, the walk
+// ending after the first half row that blocks.  What bounds it now is what
+// bounds the other walks: issued instructions and divergence.  It keeps one
+// thread a ray in one pass: persistent warps gained nothing on the 1M main
+// view (PERF.md's levers table).
 //
 // What bounded closest_bin was the length of its walks: the escape chain's
 // order is fixed, left subtree first, and a node is culled only once the
@@ -69,21 +76,9 @@
 namespace {
 
 // tpurt kernels/traverse.py _slab for one ray: a = (lo.x, lo.y, lo.z, hi.x),
-// b = (hi.y, hi.z, 0, 0), the node's node_f32 row.
-__device__ __forceinline__ bool slab_bin(const float4& a, const float4& b,
-                                         const Ray& r, float t_min,
-                                         float t_upper) {
-  float tx0 = (a.x - r.ox) * r.ix, tx1 = (a.w - r.ox) * r.ix;
-  float ty0 = (a.y - r.oy) * r.iy, ty1 = (b.x - r.oy) * r.iy;
-  float tz0 = (a.z - r.oz) * r.iz, tz1 = (b.y - r.oz) * r.iz;
-  float t_near = jmax(jmax(jmin(tx0, tx1), jmin(ty0, ty1)),
-                      jmax(jmin(tz0, tz1), t_min));
-  float t_far = jmin(jmin(jmax(tx0, tx1), jmax(ty0, ty1)),
-                     jmin(jmax(tz0, tz1), t_upper));
-  return t_near <= t_far;
-}
-
-// slab_bin with nmin/nmax: the same decision in fewer instructions.
+// b = (hi.y, hi.z, 0, 0), the node's node_f32 row; its NaN-propagating
+// min/max as nmin/nmax, the same decision as jmin/jmax in fewer
+// instructions.
 __device__ __forceinline__ bool slab_bin_n(const float4& a, const float4& b,
                                            const Ray& r, float t_min,
                                            float t_upper) {
@@ -97,56 +92,8 @@ __device__ __forceinline__ bool slab_bin_n(const float4& a, const float4& b,
   return t_near <= t_far;
 }
 
-// The shared escape walk: slab-test the current node against
-// [t_min, vis.upper()]; enter a passing internal node at node + 1, hand a
-// passing leaf's row and ids to vis.leaf(), and otherwise follow the escape
-// link (node_i32 = (escape, leaf_row, 0, is_leaf)).  vis.done() ends the
-// walk after a leaf (any-hit).
-template <class Visitor>
-__device__ __forceinline__ void walk_bin(const float4* __restrict__ nf,
-                                         const int4* __restrict__ ni,
-                                         const float* __restrict__ rows,
-                                         const int* __restrict__ ids,
-                                         const Ray& r, float t_min,
-                                         Visitor& vis) {
-  int node = 0;
-  while (node >= 0) {
-    const float4 a = __ldg(nf + 2 * node), b = __ldg(nf + 2 * node + 1);
-    const int4 rec = __ldg(ni + node);
-    const bool boxed = slab_bin(a, b, r, t_min, vis.upper());
-    const bool leaf = rec.w > 0;
-    if (boxed && leaf) {
-      vis.leaf(rows + (size_t)rec.y * 128, ids + (size_t)rec.y * 8);
-      if (vis.done()) return;
-    }
-    node = (boxed && !leaf) ? node + 1 : rec.x;
-  }
-}
-
-// Any hit in (t_min, t_max); the walk stops after the first blocking leaf.
-struct Occluded {
-  const Ray& r;
-  float t_min, tmax;
-  bool blocked = false;
-
-  __device__ Occluded(const Ray& ray, float tmin, float tm)
-      : r(ray), t_min(tmin), tmax(tm) {}
-  __device__ __forceinline__ bool done() const { return blocked; }
-  __device__ __forceinline__ float upper() const { return tmax; }
-  __device__ __forceinline__ void leaf(const float* tr, const int* ids) {
-#pragma unroll
-    for (int j = 0; j < 8; ++j) {
-      float t, u, v, det;
-      mt(tr + 9 * j, r, t, u, v, det);
-      blocked |= (fabsf(det) > kDetEps) && (u >= 0.0f) && (v >= 0.0f) &&
-                 (u + v <= 1.0f) && (t > t_min) && (t < tmax) &&
-                 (__ldg(ids + j) >= 0);
-    }
-  }
-};
-
 // One ray's k-nearest walk down the escape chain.  Per ray it visits and
-// tests leaves in walk_bin's order, the twin's: a node is slab-tested
+// tests leaves in the twin's order (accel/traverse_ref.py knear_walk): a node is slab-tested
 // against the bound at the start of its visit, a passing leaf's 8 slots are
 // tested before the next visit.  How a warp runs it differs: visits repeat
 // (while-while) until this lane's node is a passing leaf or its chain ends,
@@ -194,11 +141,11 @@ __device__ __forceinline__ void knear_bin_walk(const float4* __restrict__ nf,
 }
 
 // ---------------------------------------------------------------------------
-// closest_bin: the closest hit, on a near-first walk with a short stack
+// The near-first walk with a short stack (closest_bin, occluded_bin)
 // ---------------------------------------------------------------------------
 
 // Entries of the near-first walk's stack: one a level at most, so a tree as
-// deep as this fits (kernels/traverse.py's BIN_STACK; its wrapper refuses a
+// deep as this fits (kernels/traverse.py's BIN_STACK; its wrappers refuse a
 // deeper tree).  An LBVH over 30-bit Morton codes is at most 63 levels deep.
 constexpr int kBinStack = 64;
 // A walk position: an internal node (>= 0) whose box passed, a passing leaf
@@ -216,6 +163,76 @@ __device__ __forceinline__ bool slab_bin_near(const float4& a, const float4& b, 
       nmin(nmin(nmax(tx0, tx1), nmax(ty0, ty1)), nmin(nmax(tz0, tz1), t_upper));
   return t_near <= t_far;
 }
+
+// The near-first walk's stack of (position, t_near) pairs, with tpurt's
+// clamp at the last entry.  A pop drops entries whose box lies beyond the
+// walk's bound (t_near > t_b): for closest_bin the best hit, against which
+// the slab test that passed when the entry was pushed would fail now; for
+// occluded_bin t_max, which drops nothing (every entry passed against it).
+struct BinStack {
+  int pos[kBinStack];
+  float t_near[kBinStack];
+  int sp = 0;
+
+  __device__ __forceinline__ void push(int p, float tn) {
+    const int s = min(sp, kBinStack - 1);
+    pos[s] = p;
+    t_near[s] = tn;
+    ++sp;
+  }
+  __device__ __forceinline__ int pop(float t_b) {
+    while (sp > 0) {
+      --sp;
+      const int s = min(sp, kBinStack - 1);
+      if (!(t_near[s] > t_b)) return pos[s];
+    }
+    return kWalkEnd;
+  }
+};
+
+// The walk's first position: the root's box tested against [t_min, t_b],
+// the root (0, or ~leaf_row for a one-leaf tree) if it passes.
+__device__ __forceinline__ int bin_root(const float4* __restrict__ nf,
+                                        const int4* __restrict__ ni, const Ray& r,
+                                        float t_min, float t_b) {
+  const float4 a = __ldg(nf), c = __ldg(nf + 1);
+  const int4 rec = __ldg(ni);
+  float tn;
+  if (!slab_bin_near(a, c, r, t_min, t_b, tn)) return kWalkEnd;
+  return rec.w > 0 ? ~rec.y : 0;
+}
+
+// From internal node n (its box passed): slab-test both children, n + 1 and
+// escape[n + 1], against [t_min, t_b], their loads issued together; go to
+// the nearer passing child (the smaller t_near, the left on a tie) and push
+// the other one, or go to the only passing child, or pop.  Returns the next
+// position.
+__device__ __forceinline__ int bin_descend(const float4* __restrict__ nf,
+                                           const int4* __restrict__ ni, int n, const Ray& r,
+                                           float t_min, float t_b, BinStack& st) {
+  const int left = n + 1;
+  const int4 li = __ldg(ni + left);
+  const float4 la = __ldg(nf + 2 * left), lb = __ldg(nf + 2 * left + 1);
+  const int right = li.x;
+  const int4 ri = __ldg(ni + right);
+  const float4 ra = __ldg(nf + 2 * right), rb = __ldg(nf + 2 * right + 1);
+  float tl, trn;
+  const bool pl = slab_bin_near(la, lb, r, t_min, t_b, tl);
+  const bool pr = slab_bin_near(ra, rb, r, t_min, t_b, trn);
+  const int cl = li.w > 0 ? ~li.y : left, cr = ri.w > 0 ? ~ri.y : right;
+  if (pl && pr) {
+    const bool left_first = tl <= trn;
+    st.push(left_first ? cr : cl, left_first ? trn : tl);
+    return left_first ? cl : cr;
+  }
+  if (pl) return cl;
+  if (pr) return cr;
+  return st.pop(t_b);
+}
+
+// ---------------------------------------------------------------------------
+// closest_bin: the closest hit
+// ---------------------------------------------------------------------------
 
 // The best hit so far by (t, id).
 struct BestBin {
@@ -248,82 +265,22 @@ __device__ __forceinline__ void closest_bin_leaf(const float* __restrict__ tr,
   }
 }
 
-// The near-first walk's stack of (position, t_near) pairs, with tpurt's
-// clamp at the last entry.  A pop drops entries whose box lies beyond the
-// best hit (t_near > t_b): the slab test against [t_min, t_b] that passed
-// when the entry was pushed would fail now.
-struct BinStack {
-  int pos[kBinStack];
-  float t_near[kBinStack];
-  int sp = 0;
-
-  __device__ __forceinline__ void push(int p, float tn) {
-    const int s = min(sp, kBinStack - 1);
-    pos[s] = p;
-    t_near[s] = tn;
-    ++sp;
-  }
-  __device__ __forceinline__ int pop(float t_b) {
-    while (sp > 0) {
-      --sp;
-      const int s = min(sp, kBinStack - 1);
-      if (!(t_near[s] > t_b)) return pos[s];
-    }
-    return kWalkEnd;
-  }
-};
-
-// From internal node n (its box passed): slab-test both children, n + 1 and
-// escape[n + 1], against [t_min, t_b]; go to the nearer passing child (the
-// smaller t_near, the left on a tie) and push the other one, or go to the
-// only passing child, or pop.  Returns the next position.
-__device__ __forceinline__ int closest_bin_descend(const float4* __restrict__ nf,
-                                                   const int4* __restrict__ ni, int n,
-                                                   const Ray& r, float t_min, float t_b,
-                                                   BinStack& st) {
-  const int left = n + 1;
-  const int4 li = __ldg(ni + left);
-  const float4 la = __ldg(nf + 2 * left), lb = __ldg(nf + 2 * left + 1);
-  const int right = li.x;
-  const int4 ri = __ldg(ni + right);
-  const float4 ra = __ldg(nf + 2 * right), rb = __ldg(nf + 2 * right + 1);
-  float tl, trn;
-  const bool pl = slab_bin_near(la, lb, r, t_min, t_b, tl);
-  const bool pr = slab_bin_near(ra, rb, r, t_min, t_b, trn);
-  const int cl = li.w > 0 ? ~li.y : left, cr = ri.w > 0 ? ~ri.y : right;
-  if (pl && pr) {
-    const bool left_first = tl <= trn;
-    st.push(left_first ? cr : cl, left_first ? trn : tl);
-    return left_first ? cl : cr;
-  }
-  if (pl) return cl;
-  if (pr) return cr;
-  return st.pop(t_b);
-}
-
 // One ray's closest-hit walk, near-first: the root's box is tested, then
-// each internal node's two children (closest_bin_descend); a passing leaf is
-// tested when the walk reaches it, then the stack is popped.  The best hit
-// tightens as early as the near geometry allows, and every pop culls
-// against it.  How a warp runs it: descents repeat (while-while) until this
-// lane holds a leaf or its walk ends, so lanes meet at the leaf tests.
-// The twin (kernels/traverse.py closest_near_walk) walks in the same order.
+// each internal node's two children (bin_descend); a passing leaf is tested
+// when the walk reaches it, then the stack is popped.  The best hit tightens
+// as early as the near geometry allows, and every pop culls against it.
+// How a warp runs it: descents repeat (while-while) until this lane holds a
+// leaf or its walk ends, so lanes meet at the leaf tests.  The twin
+// (kernels/traverse.py closest_near_walk) walks in the same order.
 __device__ __forceinline__ void closest_bin_walk(const float4* __restrict__ nf,
                                                  const int4* __restrict__ ni,
                                                  const float* __restrict__ rows,
                                                  const int* __restrict__ ids, const Ray& r,
                                                  float t_min, BestBin& b) {
   BinStack st;
-  int pos;
-  {
-    const float4 a = __ldg(nf), c = __ldg(nf + 1);
-    const int4 rec = __ldg(ni);
-    float tn;
-    if (!slab_bin_near(a, c, r, t_min, b.t, tn)) return;
-    pos = rec.w > 0 ? ~rec.y : 0;
-  }
+  int pos = bin_root(nf, ni, r, t_min, b.t);
   while (pos != kWalkEnd) {
-    while (pos >= 0) pos = closest_bin_descend(nf, ni, pos, r, t_min, b.t, st);
+    while (pos >= 0) pos = bin_descend(nf, ni, pos, r, t_min, b.t, st);
     if (pos == kWalkEnd) break;
     const int leaf_row = ~pos;
     closest_bin_leaf(rows + (size_t)leaf_row * 128,
@@ -350,6 +307,55 @@ closest_bin_kernel(const float4* __restrict__ nf, const int4* __restrict__ ni,
   id_out[i] = b.id;
 }
 
+// ---------------------------------------------------------------------------
+// occluded_bin: any hit
+// ---------------------------------------------------------------------------
+
+// A leaf's 8 any-hit tests as two half rows of 9 16-byte loads and one int4
+// of ids each; true once a half row blocks, the second half then left
+// unread.
+__device__ __forceinline__ bool occluded_bin_leaf(const float* __restrict__ tr,
+                                                  const int4* __restrict__ ip, const Ray& r,
+                                                  float t_min, float tmax) {
+#pragma unroll 1
+  for (int h = 0; h < 2; ++h) {
+    float f[36];
+    load_half(tr, h, f);
+    const int4 ia = __ldg(ip + h);
+    const int tid[4] = {ia.x, ia.y, ia.z, ia.w};
+    if (occluded_half(f, tid, r, t_min, tmax)) return true;
+  }
+  return false;
+}
+
+// One ray's any-hit walk: true once a triangle lies at t_min < t < tmax.
+// closest_bin_walk's order with the fixed bound tmax: the root's box, then
+// each internal node's two children (bin_descend), descents repeating until
+// this lane holds a leaf or its walk ends (while-while); a passing leaf is
+// tested when reached, and the walk ends at its first half row that blocks.
+// The window never shrinks, so the boxes tested are the escape chain's and
+// the flag is its flag.  The twin (kernels/traverse.py occluded_packed_ref)
+// walks in the same order.
+__device__ __forceinline__ bool occluded_bin_walk(const float4* __restrict__ nf,
+                                                  const int4* __restrict__ ni,
+                                                  const float* __restrict__ rows,
+                                                  const int* __restrict__ ids, const Ray& r,
+                                                  float t_min, float tmax) {
+  BinStack st;
+  int pos = bin_root(nf, ni, r, t_min, tmax);
+  while (pos != kWalkEnd) {
+    while (pos >= 0) pos = bin_descend(nf, ni, pos, r, t_min, tmax, st);
+    if (pos == kWalkEnd) break;
+    const int leaf_row = ~pos;
+    if (occluded_bin_leaf(rows + (size_t)leaf_row * 128,
+                          reinterpret_cast<const int4*>(ids + (size_t)leaf_row * 8), r,
+                          t_min, tmax))
+      return true;
+    pos = st.pop(tmax);
+  }
+  return false;
+}
+
 __global__ void __launch_bounds__(kBlock)
 occluded_bin_kernel(const float4* __restrict__ nf, const int4* __restrict__ ni,
                     const float* __restrict__ rows, const int* __restrict__ ids,
@@ -364,9 +370,7 @@ occluded_bin_kernel(const float4* __restrict__ nf, const int4* __restrict__ ni,
   // ray) can never block: the ray starts dead.
   if (tmax > t_min) {
     const Ray r = load_ray(o, d, i);
-    Occluded vis(r, t_min, tmax);
-    walk_bin(nf, ni, rows, ids, r, t_min, vis);
-    blocked = vis.blocked;
+    blocked = occluded_bin_walk(nf, ni, rows, ids, r, t_min, tmax);
   }
   blk_out[i] = blocked ? 1 : 0;
 }
@@ -397,8 +401,8 @@ extern "C" {
 // Every entry point launches on `stream`, never synchronises, and returns
 // cudaGetLastError() of the launch (0 on success).  node_f32 is (M, 8) f32,
 // node_i32 (M, 4) i32, rows (L, 128) f32 and ids (L, 8) i32, all contiguous
-// (the wrapper checks; the allocator's alignment makes the vector loads
-// legal).
+// (the wrapper checks, and that each starts on a 16-byte boundary for the
+// vector loads).
 int tpurt_closest_bin(const float* node_f32, const int* node_i32,
                       const float* rows, const int* ids, const float* o,
                       const float* d, int n, float t_min, float* t, float* u,

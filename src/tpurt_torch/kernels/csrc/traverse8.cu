@@ -12,10 +12,10 @@
 // visit order, so a per-ray walk gives the packet walk's hits wherever the
 // ray's own box tests are conservative (see tpurt_torch/kernels/traverse8.py
 // for the one exception, inherited from tpurt's _safe_inv).  Each kernel
-// has a walk of its own: occluded8 the shared stack walk (walk<Visitor>),
-// knear8 knear8_walk and closest8 closest8_walk.  All three push a visit's
-// passing children in entry order, and each visits, pushes, pops and tests
-// rows per ray in the order of its plain-torch twin (_Walk).
+// has a walk of its own: occluded8_walk, knear8_walk and closest8_walk.  All
+// three push a visit's passing children in entry order, and each visits,
+// pushes, pops and tests rows per ray in the order of its plain-torch twin
+// (_Walk).
 //
 // The arithmetic copies tpurt's op for op: the slab as lo*inv - o*inv,
 // _safe_inv, Möller–Trumbore with the smooth inverse det/(det*det + 1e-12)
@@ -23,15 +23,24 @@
 // library is built with -fmad=false so nvcc contracts nothing into FMAs; the
 // plain-torch twins then agree with these kernels bit for bit.
 //
-// What bounds occluded8 on this card: every visit is a dependent 256-byte
-// load of a node record (the next node's address comes out of the previous
-// visit), followed by up to 8 dependent 512-byte triangle-row loads; and the
-// 32 rays of a warp take different paths, so the warp runs the union of
-// their visits (divergence).  Its simple design keeps the node and triangle
-// rows in global memory, read through L1/L2 (at 1M triangles the node rows
-// are 14 MB and fit the 50 MB L2; the 99 MB of triangle rows do not), relies
-// on Morton-ordered rays so neighbouring threads walk similar paths, and
-// keeps the stack in thread-local memory.
+// What bounds occluded8 is what bounds the other two walks: issued
+// instructions and divergence, not bytes.  Its shadow rays touch few
+// distinct nodes and rows (on the 1M sponza's overview ~10K nodes and ~17K
+// rows, which stay in L1/L2), but each makes ~9 visits of 8 slab tests and
+// tests ~1.5 rows, and the rays of a warp end their walks at very different
+// times: on the overview a third of them stop at their first blocker and
+// the rest walk until the stack is empty.  Its design takes the levers the
+// other walks measured: min.NaN/max.NaN slab tests and node records as
+// 16-byte loads (visit_mask_v); visits repeating until a lane's visit passed
+// a leaf (while-while) and one flat loop over the rows of a visit's passing
+// leaves, so lanes meet at the row tests; each row read as two half rows of
+// 16-byte loads whose 4 tests fold into one flag, the walk ending after the
+// first half row that blocks; and persistent warps, so the long walks of a
+// launch do not leave SMs idle while its last blocks finish.  Two levers
+// lost and were left out: pushing the nearest child last (near-first by
+// slab entry distance) made the walks slower on both 1M views, and lanes
+// taking a new ray while their warp walks on (lane refill) cost more than
+// the idle lanes it fills (PERF.md's levers table).
 //
 // What bounds closest8 is what bounded knear8 (below): issued instructions
 // and divergence.  On the 1M sponza's main view a ray makes ~36 visits of 8
@@ -82,20 +91,9 @@ __device__ __forceinline__ int decode_lane(float f) {
   return (__float_as_int(f) & 0x3FFFFFFF) - kLaneOff;
 }
 
-// tpurt _slab8 for one box (lox, loy, loz, hix, hiy, hiz).
-__device__ __forceinline__ bool slab(const float* b, const Ray& r, float t_min,
-                                     float t_upper) {
-  float tx0 = b[0] * r.ix - r.oix, tx1 = b[3] * r.ix - r.oix;
-  float ty0 = b[1] * r.iy - r.oiy, ty1 = b[4] * r.iy - r.oiy;
-  float tz0 = b[2] * r.iz - r.oiz, tz1 = b[5] * r.iz - r.oiz;
-  float t_near = jmax(jmax(jmin(tx0, tx1), jmin(ty0, ty1)),
-                      jmax(jmin(tz0, tz1), t_min));
-  float t_far = jmin(jmin(jmax(tx0, tx1), jmax(ty0, ty1)),
-                     jmin(jmax(tz0, tz1), t_upper));
-  return t_near <= t_far;
-}
-
-// slab with nmin/nmax: the same decision in 25 instructions, not about 80.
+// tpurt _slab8 for one box (lox, loy, loz, hix, hiy, hiz), its NaN-propagating
+// min/max as nmin/nmax: the same decision as jmin/jmax in 25 instructions,
+// not about 80.
 __device__ __forceinline__ bool slab_n(const float* b, const Ray& r,
                                        float t_min, float t_upper) {
   float tx0 = b[0] * r.ix - r.oix, tx1 = b[3] * r.ix - r.oix;
@@ -106,21 +104,6 @@ __device__ __forceinline__ bool slab_n(const float* b, const Ray& r,
   float t_far = nmin(nmin(nmax(tx0, tx1), nmax(ty0, ty1)),
                      nmin(nmax(tz0, tz1), t_upper));
   return t_near <= t_far;
-}
-
-// Slab-test the 8 children of node `cur` against [t_min, t_upper]; bit c of
-// the result is child c.  Fills the decoded metas.
-__device__ __forceinline__ unsigned visit_mask(const float* wrow, int cur,
-                                               const Ray& r, float t_min,
-                                               float t_upper, int meta[kEntries]) {
-  const float* node = wrow + (size_t)cur * 64;  // row cur/2, lanes 64*(cur%2)
-  unsigned mask = 0;
-#pragma unroll
-  for (int c = 0; c < kEntries; ++c) {
-    meta[c] = decode_lane(node[48 + c]);
-    if (slab(node + 6 * c, r, t_min, t_upper)) mask |= 1u << c;
-  }
-  return mask;
 }
 
 // tpurt _stack_push / _stack_pop, clamps included.
@@ -135,67 +118,15 @@ __device__ __forceinline__ int pop(const int* stack, int& sp) {
   return top;
 }
 
-// The shared stack walk: pops nodes in tpurt's order, slab-tests each
-// node's 8 children against [t_min, vis.upper()] (the bound at the start of
-// the visit, as in tpurt), pushes passing internal children in entry order
-// and hands every row of every passing fat leaf to vis.row().  vis.done()
-// ends the walk early (any-hit).
-template <class Visitor>
-__device__ __forceinline__ void walk(const float* __restrict__ wrow,
-                                     const float* __restrict__ rows,
-                                     const Ray& r, int max_rows, float t_min,
-                                     Visitor& vis) {
-  int stack[kStackV];
-  int sp = 0;
-  int cur = 0;
-  while (cur >= 0 && !vis.done()) {
-    int meta[kEntries];
-    unsigned mask = visit_mask(wrow, cur, r, t_min, vis.upper(), meta);
-    for (int c = 0; c < kEntries && !vis.done(); ++c) {
-      if (!((mask >> c) & 1u)) continue;
-      int m = meta[c];
-      if (m >= 0) {
-        push(stack, sp, m);
-        continue;
-      }
-      int nm = ~m;
-      int row0 = nm >> 3, n_rows = (nm & 7) + 1;
-      for (int rr = 0; rr < max_rows && rr < n_rows && !vis.done(); ++rr)
-        vis.row(rows + (size_t)(row0 + rr) * 128);
-    }
-    cur = pop(stack, sp);
-  }
-}
-
-// Any hit in (t_min, t_max).
-struct Occluded {
-  const Ray& r;
-  float t_min, tmax;
-  bool blocked = false;
-
-  __device__ Occluded(const Ray& ray, float tmin, float tm)
-      : r(ray), t_min(tmin), tmax(tm) {}
-  __device__ __forceinline__ bool done() const { return blocked; }
-  __device__ __forceinline__ float upper() const { return tmax; }
-  __device__ __forceinline__ void row(const float* tr) {
-#pragma unroll
-    for (int j = 0; j < 8; ++j) {
-      float t, u, v, det;
-      mt(tr + 9 * j, r, t, u, v, det);
-      blocked |= (fabsf(det) > kDetEps) && (u >= 0.0f) && (v >= 0.0f) &&
-                 (u + v <= 1.0f) && (t > t_min) && (t < tmax) &&
-                 (decode_lane(tr[72 + j]) >= 0);
-    }
-  }
-};
-
 // ---------------------------------------------------------------------------
 // knear8: the k nearest band hits, on a walk of its own
 // ---------------------------------------------------------------------------
 
-// visit_mask with the node record's 56 used lanes (8 boxes, 8 metas) read as
-// 14 16-byte loads through the read-only path, all issued before the first
-// slab test.  Node records are 256 bytes, 16-byte aligned.
+// Slab-test the 8 children of node `cur` against [t_min, t_upper]; bit c of
+// the result is child c.  Fills the decoded metas.  The node record's 56
+// used lanes (8 boxes, 8 metas) are read as 14 16-byte loads through the
+// read-only path, all issued before the first slab test.  Node records are
+// 256 bytes, 16-byte aligned.
 __device__ __forceinline__ unsigned visit_mask_v(const float* wrow, int cur,
                                                  const Ray& r, float t_min,
                                                  float t_upper,
@@ -217,10 +148,10 @@ __device__ __forceinline__ unsigned visit_mask_v(const float* wrow, int cur,
 }
 
 // One ray's k-nearest walk.  Per ray it visits, pushes, pops and tests rows
-// in walk<Visitor>'s order, the twin's: a visit slab-tests the 8 children
-// against the bound at its start, pushes the passing internal ones in entry
-// order, and the passing leaves' rows are tested, child by child and row by
-// row, before the next node is visited.  How a warp runs it differs: node
+// in the twin's order: a visit slab-tests the 8 children against the bound
+// at its start, pushes the passing internal ones in entry order, and the
+// passing leaves' rows are tested, child by child and row by row, before the
+// next node is visited.  How a warp runs it differs: node
 // visits repeat (while-while) until this lane's visit passed a leaf, so lanes
 // meet at the row tests; the rows of all passing leaves form one flat loop,
 // one row a trip, so a warp makes as many trips as its busiest lane has rows
@@ -283,26 +214,6 @@ __device__ __forceinline__ void knear8_walk(const float* __restrict__ wrow,
   }
 }
 
-__global__ void __launch_bounds__(kBlock)
-occluded8_kernel(const float* __restrict__ wrow, const float* __restrict__ rows,
-                 const float* __restrict__ o, const float* __restrict__ d,
-                 const float* __restrict__ tm, int n, int max_rows, float t_min,
-                 unsigned char* __restrict__ blk_out) {
-  int i = blockIdx.x * blockDim.x + threadIdx.x;
-  if (i >= n) return;
-  const float tmax = tm[i];
-  bool blocked = false;
-  // An empty window (t_max <= t_min, e.g. the t_max = 0 of a missed primary
-  // ray) can never block: the ray starts dead.
-  if (tmax > t_min) {
-    const Ray r = load_ray(o, d, i);
-    Occluded vis(r, t_min, tmax);
-    walk(wrow, rows, r, max_rows, t_min, vis);
-    blocked = vis.blocked;
-  }
-  blk_out[i] = blocked ? 1 : 0;
-}
-
 // Persistent warps: each warp takes the next 32 rays from a global counter
 // (zeroed by the wrapper for every launch) until none are left, so the
 // long walks of a launch no longer leave an SM idle while its last blocks
@@ -355,6 +266,105 @@ knear8_kernel(const float* __restrict__ wrow, const float* __restrict__ rows,
       knear8_walk<KM>(wrow, rows, r, max_rows, t_min, tmax, neg_band, band_hi, L);
     }
     L.store(ids_out, (size_t)i);
+  }
+}
+
+// ---------------------------------------------------------------------------
+// occluded8: any hit, on a walk of its own
+// ---------------------------------------------------------------------------
+
+// Row ri's 8 any-hit tests as two half rows of 9 16-byte loads and one of
+// ids each (load_half); true once a half row blocks, the second half then
+// left unread.
+__device__ __forceinline__ bool occluded8_row(const float* __restrict__ rows, int ri,
+                                              const Ray& r, float t_min, float tmax) {
+  const float* tr = rows + (size_t)ri * 128;
+#pragma unroll 1
+  for (int h = 0; h < 2; ++h) {
+    float f[36];
+    load_half(tr, h, f);
+    const float4 ia = __ldg(reinterpret_cast<const float4*>(tr + 72) + h);
+    const int tid[4] = {decode_lane(ia.x), decode_lane(ia.y), decode_lane(ia.z),
+                        decode_lane(ia.w)};
+    if (occluded_half(f, tid, r, t_min, tmax)) return true;
+  }
+  return false;
+}
+
+// One ray's any-hit walk: true once a triangle lies at t_min < t < tmax.  A
+// visit slab-tests the 8 children against the fixed window (visit_mask_v),
+// pushes the passing internal ones in entry order and pops the next node;
+// the passing leaves' rows are then tested child by child, row by row and
+// half row by half row, and the walk ends at the first half row that
+// blocks: the twin's order (occluded_wide8_ref).  The window never shrinks,
+// so which leaves a ray tests does not depend on the order; pushing before
+// the rows are tested changes only the stack of a walk that is over.  How a
+// warp runs it: visits repeat (while-while) until this lane's visit passed
+// a leaf, so lanes meet at the row tests, and the rows of all passing
+// leaves form one flat loop, one row a trip.
+__device__ __forceinline__ bool occluded8_walk(const float* __restrict__ wrow,
+                                               const float* __restrict__ rows, const Ray& r,
+                                               int max_rows, float t_min, float tmax) {
+  int stack[kStackV];
+  int sp = 0;
+  int cur = 0;
+  while (cur >= 0) {
+    int meta[kEntries];
+    unsigned leaves = 0;
+    while (cur >= 0 && leaves == 0) {
+      const unsigned mask = visit_mask_v(wrow, cur, r, t_min, tmax, meta);
+#pragma unroll
+      for (int c = 0; c < kEntries; ++c) {
+        if (!((mask >> c) & 1u)) continue;
+        if (meta[c] >= 0) push(stack, sp, meta[c]);
+        else leaves |= 1u << c;
+      }
+      cur = pop(stack, sp);
+    }
+    int row = 0, left = 0;
+#pragma unroll 1
+    for (;;) {
+      while (left == 0 && leaves != 0) {
+        const int c = __ffs(leaves) - 1;
+        leaves &= leaves - 1;
+        int m = meta[0];
+#pragma unroll
+        for (int q = 1; q < kEntries; ++q)
+          if (q == c) m = meta[q];
+        const int nm = ~m;
+        row = nm >> 3;
+        left = max(0, min((nm & 7) + 1, max_rows));
+      }
+      if (left == 0) break;
+      if (occluded8_row(rows, row, r, t_min, tmax)) return true;
+      ++row;
+      --left;
+    }
+  }
+  return false;
+}
+
+// Persistent warps, as closest8: each warp takes 32 rays at a time until
+// none are left.
+__global__ void __launch_bounds__(kBlock)
+occluded8_kernel(const float* __restrict__ wrow, const float* __restrict__ rows,
+                 const float* __restrict__ o, const float* __restrict__ d,
+                 const float* __restrict__ tm, int n, int max_rows, float t_min,
+                 unsigned char* __restrict__ blk_out, int* __restrict__ next) {
+  for (;;) {
+    const int base = next_batch(next);
+    if (base >= n) return;
+    const int i = base + (threadIdx.x & 31);
+    if (i >= n) continue;
+    const float tmax = tm[i];
+    bool blocked = false;
+    // An empty window (t_max <= t_min, e.g. the t_max = 0 of a missed
+    // primary ray) can never block: the ray starts dead.
+    if (tmax > t_min) {
+      const Ray r = load_ray(o, d, i);
+      blocked = occluded8_walk(wrow, rows, r, max_rows, t_min, tmax);
+    }
+    blk_out[i] = blocked ? 1 : 0;
   }
 }
 
@@ -528,13 +538,14 @@ int tpurt_closest8(const float* wrow, const float* rows, const float* o,
   return (int)cudaGetLastError();
 }
 
+// next: as for closest8.  wrow and rows must be 16-byte aligned (the
+// wrapper checks).
 int tpurt_occluded8(const float* wrow, const float* rows, const float* o,
                     const float* d, const float* tm, int n, int max_rows,
-                    float t_min, unsigned char* blocked, cudaStream_t stream) {
+                    float t_min, unsigned char* blocked, int* next, cudaStream_t stream) {
   if (n <= 0) return 0;
-  int grid = (n + kBlock - 1) / kBlock;
-  occluded8_kernel<<<grid, kBlock, 0, stream>>>(wrow, rows, o, d, tm, n,
-                                                max_rows, t_min, blocked);
+  launch_persistent(occluded8_kernel, n, stream, wrow, rows, o, d, tm, n, max_rows,
+                    t_min, blocked, next);
   return (int)cudaGetLastError();
 }
 

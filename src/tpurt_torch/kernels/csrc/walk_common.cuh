@@ -1,8 +1,8 @@
 // Device helpers shared by the BVH walks (traverse8.cu, traverse.cu): the
 // ray record, tpurt's _safe_inv, NaN-propagating min/max and Möller–Trumbore
 // in tpurt's op order; for the two k-nearest kernels, the sorted k-list and
-// the half-row test.  Everything here has internal linkage, so each source
-// that includes it gets its own copy.
+// their half-row test; for the two any-hit kernels, theirs.  Everything here
+// has internal linkage, so each source that includes it gets its own copy.
 
 #pragma once
 
@@ -207,6 +207,27 @@ __device__ __forceinline__ void knear_half(const float (&f)[36], const int (&tid
       if (q == j) { tc = t[q]; ic = tid[q]; }
     L.insert(tc, ic);
   }
+}
+
+// ---------------------------------------------------------------------------
+// The any-hit kernels' shared part (occluded8, occluded_bin)
+// ---------------------------------------------------------------------------
+
+// Whether a half row blocks: any of its 4 triangles (the half's (v0, e1,
+// e2) from load_half, ids tid) lies at t_min < t < tmax, tpurt's any-hit
+// test.  The 4 tests run unrolled and fold into one flag, so a walk can end
+// after the first half row that blocks.
+__device__ __forceinline__ bool occluded_half(const float (&f)[36], const int (&tid)[4],
+                                              const Ray& r, float t_min, float tmax) {
+  bool blocked = false;
+#pragma unroll
+  for (int j = 0; j < 4; ++j) {
+    float t, u, v, det;
+    mt(f + 9 * j, r, t, u, v, det);
+    blocked |= (fabsf(det) > kDetEps) && (u >= 0.0f) && (v >= 0.0f) && (u + v <= 1.0f) &&
+               (t > t_min) && (t < tmax) && (tid[j] >= 0);
+  }
+  return blocked;
 }
 
 }  // namespace

@@ -12,19 +12,20 @@ mechanisms, and any packed tree that fits the card's memory is walked.
 
 Semantics are tpurt's (accel/traverse_ref.py lists them).  tpurt walks
 (sub, 128) ray packets with one cursor, descending where any ray of the
-packet wants to; the kernels and twins walk each ray on its own escape
-chain.  The selections do not depend on visit order, so per-ray walks give
-tpurt's hits wherever a ray's own slab test is conservative; the exceptions
-are inherited (ROADMAP queue 3): P1, a direction component in [-1e-30, 0)
-fails every slab test, and P3, band hits outside the band-inflated box.
+packet wants to; the kernels and twins walk each ray on its own.  The
+selections do not depend on visit order, so per-ray walks give tpurt's hits
+wherever a ray's own slab test is conservative; the exceptions are
+inherited (ROADMAP queue 3): P1, a direction component in [-1e-30, 0) fails
+every slab test, P3, band hits outside the band-inflated box, and P6, the
+closest hit's order dependence under the smooth inverse.
 
 The twins read the packed rows in the kernels' visit order and leaf-slot
 order, so the two agree bit for bit when the kernels are built without FMA
-contraction.  occluded_bin's and knear_bin's are accel/traverse_ref.py's
-lockstep escape walks; closest_bin's is closest_near_walk below, the
-kernel's near-first walk with its short stack (BIN_STACK entries, one a
-level: a deeper tree raises).  Given a ``stats`` dict, a twin counts its
-walk (traverse8.walk_counts reads it).
+contraction.  knear_bin's is accel/traverse_ref.py's lockstep escape walk;
+closest_bin's and occluded_bin's is near_walk below, the kernels' near-first
+walk with its short stack (BIN_STACK entries, one a level: a deeper tree
+raises).  Given a ``stats`` dict, a twin counts its walk
+(traverse8.walk_counts reads it).
 """
 
 from __future__ import annotations
@@ -36,7 +37,7 @@ import torch
 from tpurt_torch.accel.intersect import DEFAULT_T_MIN
 from tpurt_torch.accel.packet import LEAF_CAP, PackedBVH, tree_depth
 from tpurt_torch.accel.traverse_ref import (
-    Best, _slab, _tmax_flat, knear_walk, occluded_walk, safe_inv)
+    Best, _slab, _tmax_flat, blocks, knear_walk, mt9, safe_inv)
 from tpurt_torch.core.geometry import Hit, Rays, T_MAX
 from tpurt_torch.kernels import _build
 from tpurt_torch.kernels._build import ptr as _ptr, stream as _stream
@@ -46,8 +47,8 @@ from tpurt_torch.kernels._build import ptr as _ptr, stream as _stream
 LAUNCHES = {"closest_bin": 0, "occluded_bin": 0, "knear_bin": 0}
 # Largest k of the k-nearest kernel (its longest compile-time list).
 KMAX = 16
-# Entries of closest_bin's stack (csrc/traverse.cu kBinStack): one a level,
-# so a tree up to this deep fits.
+# Entries of the near-first walks' stack (csrc/traverse.cu kBinStack): one a
+# level, so a tree up to this deep fits.
 BIN_STACK = 64
 # A walk position that ends the walk (kWalkEnd).
 _END = -(2**31)
@@ -76,39 +77,45 @@ class PackedLayout:
 
 
 def _check_depth(packed: PackedBVH) -> None:
-    """Raise when the tree is deeper than closest_bin's stack: a push past
-    its end would drop a subtree silently.  depth -1 means the layout was
-    packed elsewhere: compute it."""
+    """Raise when the tree is deeper than the near-first walks' stack
+    (closest_bin's and occluded_bin's): a push past its end would drop a
+    subtree silently.  depth -1 means the layout was packed elsewhere:
+    compute it."""
     depth = packed.depth if packed.depth >= 0 else tree_depth(packed.node_i32)
     if depth > BIN_STACK:
         raise RuntimeError(
-            f"the packed BVH is {depth} levels deep, more than closest_bin's "
-            f"stack holds ({BIN_STACK})")
+            f"the packed BVH is {depth} levels deep, more than the near-first "
+            f"walks' stack holds ({BIN_STACK})")
 
 
 # ---------------------------------------------------------------------------
 # Plain-torch twins
 # ---------------------------------------------------------------------------
-def closest_near_walk(rays: Rays, packed: PackedBVH, t_min: float = DEFAULT_T_MIN,
-                      stats: dict | None = None) -> Hit:
-    """closest_bin's walk in lockstep: the root's box is tested; from an
-    internal node n whose box passed, both children (n + 1 and
-    escape[n + 1]) are tested against [t_min, t_b], the walk goes on into
+def near_walk(o, d, packed: PackedBVH, t_min: float, bound: torch.Tensor, act: torch.Tensor,
+              on_leaf, stats: dict | None = None) -> None:
+    """closest_bin's and occluded_bin's near-first walk in lockstep, over
+    rays `act` (indices into the flat o, d): the root's box is tested; from
+    an internal node n whose box passed, both children (n + 1 and
+    escape[n + 1]) are tested against [t_min, bound], the walk goes on into
     the nearer passing one (the smaller t_near, the left on a tie) and
     pushes the other with its t_near, or goes on into the only passing one,
     or pops; a passing leaf is tested when reached, then the stack is
-    popped.  A pop drops entries with t_near > t_b.  Positions are node
+    popped.  A pop drops entries with t_near > bound.  Positions are node
     indices for internal nodes and ~leaf_row for leaves; the stack holds
-    BIN_STACK entries, clamped at the last as in the kernel.  stats counts
-    slab tests as visits (the root's and two a descent) and leaves tested
-    as rows, as the kernel's bound reads them."""
+    BIN_STACK entries, clamped at the last as in the kernels.
+
+    bound: every ray's cull bound (N,), read at each test and pop: the best
+    hit's t, which on_leaf tightens, or a fixed t_max.  on_leaf(sel, tri,
+    tid): rays `sel` test their leaves' (A, 8, 9) triangles with ids (A, 8)
+    and return the (A,) mask of rays whose walk ends there (or None) and
+    the rows to count.  stats counts slab tests as visits (the root's and
+    two a descent) and what on_leaf returns as rows, as the kernels' bounds
+    read them."""
     _check_depth(packed)
     lay = PackedLayout(packed)
-    o, d = rays.o.reshape(-1, 3), rays.d.reshape(-1, 3)
     n, dev = o.shape[0], o.device
     inv = safe_inv(d)
     tmin = torch.tensor(t_min, dtype=torch.float32, device=dev)
-    best = Best(n, dev)
     stack = torch.zeros((n, BIN_STACK), dtype=torch.int64, device=dev)
     stack_t = torch.zeros((n, BIN_STACK), dtype=torch.float32, device=dev)
     sp = torch.zeros(n, dtype=torch.int64, device=dev)
@@ -132,22 +139,22 @@ def closest_near_walk(rays: Rays, packed: PackedBVH, t_min: float = DEFAULT_T_MI
             sel = sel[sp[sel] > 0]
             sp[sel] -= 1
             top = torch.clamp_max(sp[sel], BIN_STACK - 1)
-            keep = ~(stack_t[sel, top] > best.t[sel])
+            keep = ~(stack_t[sel, top] > bound[sel])
             pos[sel[keep]] = stack[sel, top][keep]
             sel = sel[~keep]
 
-    root = torch.zeros(n, dtype=torch.int64, device=dev)
-    ok, _ = _slab(o, inv, lay.box[root], tmin, best.t)
+    root = torch.zeros_like(act)
+    ok, _ = _slab(o[act], inv[act], lay.box[root], tmin, bound[act])
     tested(root)
-    pos[ok] = position(root[ok])
-    act = torch.nonzero(ok)[:, 0]
+    pos[act[ok]] = position(root[ok])
+    act = act[ok]
     while act.numel():
         p = pos[act]
         inner, leaf = act[p >= 0], act[p < 0]
         if inner.numel():
             left = pos[inner] + 1
             right = lay.escape[left]
-            up = best.t[inner]
+            up = bound[inner]
             pl, tl = _slab(o[inner], inv[inner], lay.box[left], tmin, up)
             pr, tr = _slab(o[inner], inv[inner], lay.box[right], tmin, up)
             tested(torch.cat([left, right]))
@@ -165,13 +172,31 @@ def closest_near_walk(rays: Rays, packed: PackedBVH, t_min: float = DEFAULT_T_MI
             dead = inner
         if leaf.numel():
             rows = ~pos[leaf]
+            ended, counted = on_leaf(leaf, lay.rows[rows], lay.ids[rows])
             if stats is not None:
-                stats["rows"] += leaf.numel()
+                stats["rows"] += counted
                 stats["seen_rows"][rows] = True
-            tid = lay.ids[rows]
-            best.take(o, d, leaf, lay.rows[rows], tid, tid >= 0, t_min)
+            if ended is not None:
+                pos[leaf[ended]] = _END
+                leaf = leaf[~ended]
         pop(torch.cat([dead, leaf]))
         act = act[pos[act] != _END]
+
+
+def closest_near_walk(rays: Rays, packed: PackedBVH, t_min: float = DEFAULT_T_MIN,
+                      stats: dict | None = None) -> Hit:
+    """closest_bin's walk (near_walk, its bound the best hit, every ray
+    walking): a passing leaf's 8 slots are tested and the best hit by
+    (t, id) kept; stats counts leaves as rows."""
+    o, d = rays.o.reshape(-1, 3), rays.d.reshape(-1, 3)
+    n, dev = o.shape[0], o.device
+    best = Best(n, dev)
+
+    def on_leaf(sel, tri, tid):
+        best.take(o, d, sel, tri, tid, tid >= 0, t_min)
+        return None, sel.numel()
+
+    near_walk(o, d, packed, t_min, best.t, torch.arange(n, device=dev), on_leaf, stats)
     return best.hit(rays.shape)
 
 
@@ -185,8 +210,25 @@ def traverse_packed_ref(rays: Rays, packed: PackedBVH, t_min: float = DEFAULT_T_
 def occluded_packed_ref(rays: Rays, packed: PackedBVH, t_max,
                         t_min: float = DEFAULT_T_MIN,
                         stats: dict | None = None) -> torch.Tensor:
-    """Plain-torch twin of occluded_bin; same returns as occluded_packed."""
-    return occluded_walk(rays, PackedLayout(packed), t_max, t_min, stats)
+    """Plain-torch twin of occluded_bin; same returns as occluded_packed.
+    near_walk with the fixed bound t_max over the rays with t_max > t_min
+    (the others start dead): a leaf is tested as two half rows, and the
+    walk ends at the first half row that blocks.  stats counts half rows as
+    rows, as the kernel tests them: one where the first half blocks, else
+    two."""
+    o, d = rays.o.reshape(-1, 3), rays.d.reshape(-1, 3)
+    tmax = _tmax_flat(rays, t_max)
+    blocked = torch.zeros(o.shape[0], dtype=torch.bool, device=o.device)
+
+    def on_leaf(sel, tri, tid):
+        t, u, v, det = mt9(o[sel], d[sel], tri)
+        half = blocks(t, u, v, det, tid, t_min, tmax[sel, None]).unflatten(1, (2, 4)).any(-1)
+        hit = half.any(dim=1)
+        blocked[sel[hit]] = True
+        return hit, 2 * sel.numel() - half[:, 0].sum()
+
+    near_walk(o, d, packed, t_min, tmax, torch.nonzero(tmax > t_min)[:, 0], on_leaf, stats)
+    return blocked.reshape(rays.shape)
 
 
 def k_nearest_ids_packed_ref(rays: Rays, packed: PackedBVH, k: int, band: float,
@@ -271,6 +313,7 @@ def occluded_packed(rays: Rays, packed: PackedBVH, t_max,
     if o.device.type == "cpu":
         return occluded_packed_ref(rays, packed, t_max, t_min)
     tmax = _tmax_flat(rays, t_max)
+    _check_depth(packed)
     lib = _build.load()
     n = o.shape[0]
     blk = torch.empty(n, dtype=torch.uint8, device=o.device)

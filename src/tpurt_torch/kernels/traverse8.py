@@ -36,7 +36,7 @@ import torch
 from tpurt_torch.accel.bvh8 import ENTRIES, WideBVH, decode_lane_i32, stack_bound
 from tpurt_torch.accel.intersect import DEFAULT_T_MIN, DET_EPS
 from tpurt_torch.accel.traverse_ref import BIG_ID as _BIG_ID
-from tpurt_torch.accel.traverse_ref import _tmax_flat, mt9
+from tpurt_torch.accel.traverse_ref import _tmax_flat, blocks, mt9
 from tpurt_torch.accel.traverse_ref import safe_inv as _safe_inv
 from tpurt_torch.core.geometry import Hit, Rays, T_MAX
 from tpurt_torch.kernels import _build
@@ -153,11 +153,12 @@ class _Walk:
         return (self.wide.tri_rows[ridx], slot.flatten(1),
                 hit & (meta >= 0), meta)
 
-    def count_rows(self, tested):
+    def count_rows(self, tested, n_tested=None):
         """Count the last visit's leaf rows that the kernel tests, a mask
-        over its slots (A, 8*max_rows)."""
+        over its slots (A, 8*max_rows); n_tested: what it counts instead of
+        their number (occluded8's half rows)."""
         if self.stats is not None:
-            self.stats["rows"] += tested.sum()
+            self.stats["rows"] += tested.sum() if n_tested is None else n_tested
             self.stats["seen_rows"][self.ridx[tested]] = True
 
     def push_pop(self, act, push, meta):
@@ -239,8 +240,9 @@ def occluded_wide8_ref(rays: Rays, wide: WideBVH, t_max,
                        stats: dict | None = None) -> torch.Tensor:
     """Plain-torch twin of the any-hit kernel: True where a triangle lies at
     t_min < t < t_max.  Rays with t_max <= t_min start dead.  stats: a dict
-    that accumulates the walk's counts; a blocked ray's last visit counts
-    its rows up to the first blocking one, where the kernel stops."""
+    that accumulates the walk's counts, half rows as rows (the kernel tests
+    a row as two half rows); a blocked ray's last visit counts its half rows
+    up to the first blocking one, where the kernel stops."""
     o, d = rays.o.reshape(-1, 3), rays.d.reshape(-1, 3)
     tmax = _tmax_flat(rays, t_max)
     w = _Walk(o, d, wide, t_min, stats)
@@ -250,12 +252,11 @@ def occluded_wide8_ref(rays: Rays, wide: WideBVH, t_max,
         trow, slot, push, meta = w.visit(act, tmax[act])
         t, u, v, det = _mt_rows(o[act], d[act], trow)
         tid = _row_ids(trow)
-        ok = (slot[..., None] & (det.abs() > DET_EPS) & (u >= 0.0) & (v >= 0.0)
-              & (u + v <= 1.0) & (t > t_min) & (t < tmax[act, None, None])
-              & (tid >= 0))
-        row_hit = ok.any(dim=-1)                     # (A, 8*max_rows)
-        w.count_rows(slot & (row_hit.cumsum(dim=1) - row_hit.long() == 0))
-        hit = row_hit.any(dim=1)
+        ok = slot[..., None] & blocks(t, u, v, det, tid, t_min, tmax[act, None, None])
+        half = ok.unflatten(-1, (2, 4)).any(-1).flatten(1)   # (A, 16*max_rows)
+        tested = slot.repeat_interleave(2, dim=1) & (half.cumsum(dim=1) - half.long() == 0)
+        w.count_rows(tested.unflatten(1, (-1, 2)).any(-1), tested.sum())
+        hit = half.any(dim=1)
         blocked[act[hit]] = True
         act = w.push_pop(act, push, meta)
         act = act[~blocked[act]]
@@ -391,13 +392,16 @@ def occluded_wide8(rays: Rays, wide: WideBVH, t_max,
         return occluded_wide8_ref(rays, wide, t_max, t_min)
     tmax = _tmax_flat(rays, t_max)
     _check_stack(wide)
+    _build.check_aligned(wide.wrow.data_ptr(), wide.tri_rows.data_ptr())
     lib = _build.load()
     n = o.shape[0]
     blk = torch.empty(n, dtype=torch.uint8, device=o.device)
+    # the persistent warps' ray counter, fresh for every launch
+    nxt = torch.zeros(1, dtype=torch.int32, device=o.device)
     with _build.on_device(o):
         err = lib.tpurt_occluded8(
             _ptr(wide.wrow), _ptr(wide.tri_rows), _ptr(o), _ptr(d), _ptr(tmax), n,
-            wide.max_rows, ctypes.c_float(t_min), _ptr(blk), _stream(o.device))
+            wide.max_rows, ctypes.c_float(t_min), _ptr(blk), _ptr(nxt), _stream(o.device))
     if err:
         raise RuntimeError(f"occluded8 kernel launch failed: {_build.error_string(err)}")
     LAUNCHES["occluded8"] += 1

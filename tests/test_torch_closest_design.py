@@ -6,7 +6,7 @@ The CUDA kernels cannot run here, so their loops are rendered one ray at a
 time in numpy float32, statement for statement: closest8's entry-order
 pushes, its flat loop over a visit's rows, its half-row tests and the
 shading lanes read once for the winner after the walk; closest_bin's
-near-first walk (tests/closest_bin_loop.py: both children tested, the
+near-first walk (tests/walk_loops.py: both children tested, the
 nearer entered, the farther pushed with its t_near, pops culled against the
 best hit) with its while-while descents and half-row leaves.  Each
 rendering must return the twin's (t, u, v, id) and shading lanes bit for
@@ -16,10 +16,11 @@ with their special groups, and a small sponza view; the trees are the
 port's own builds.
 
 Also here: closest_bin's near-first twin against the parent's escape walk
-(the same outputs on every ray), its stack-depth check on a deep chain,
-the one way its ids can differ from the parent's (ROADMAP P6) and the rule
-by which chip_smoke.py's [closest_ab] lets such a ray pass, and the rule
-that every kernel launch is made on its tensors' card (P5).
+(the same outputs on every ray), the near-first walks' stack-depth check
+on a deep chain (closest_bin's and occluded_bin's), the one way closest_bin's
+ids can differ from the parent's (ROADMAP P6) and the rule by which
+chip_smoke.py's [walk_ab] lets such a ray pass, and the rule that every
+kernel launch is made on its tensors' card (P5).
 """
 
 import ast
@@ -31,13 +32,13 @@ import pytest
 import torch
 
 import chip_smoke
-from tests.closest_bin_loop import END, T_MIN, Best, closest_bin_kernel_loop
+from tests.walk_loops import END, T_MIN, Best, closest_bin_kernel_loop
 from tests.test_torch_knear_design import KernelStack, _cuda_const
 from tests.test_torch_traverse8 import _bunny_rays, _trays
 from tpurt_torch.accel.bvh8 import build_wide, decode_lane_i32
 from tpurt_torch.accel.lbvh import build_lbvh
 from tpurt_torch.accel.packet import LEAF_CAP, PackedBVH, max_cut_leaves, pack_bvh, tree_depth
-from tpurt_torch.accel.traverse_ref import closest_walk, safe_inv
+from tpurt_torch.accel.traverse_ref import closest_walk, occluded_walk, safe_inv
 from tpurt_torch.core.geometry import Rays, Triangles
 from tpurt_torch.kernels import _build
 from tpurt_torch.kernels import traverse as kb
@@ -238,23 +239,32 @@ def _chain(depth: int) -> tuple[PackedBVH, Rays]:
     return packed, rays
 
 
+@pytest.mark.parametrize("kernel", ["closest_bin", "occluded_bin"])
 @pytest.mark.parametrize("depth", [1, 30, BIN_STACK, BIN_STACK + 1, 90])
-def test_closest_bin_refuses_a_tree_deeper_than_its_stack(depth):
-    """tree_depth counts the levels of a deep chain; closest_bin's wrapper
-    walks it up to BIN_STACK levels (the hit of the escape walk) and raises
-    beyond, before any walk: nothing is dropped silently."""
+def test_closest_bin_refuses_a_tree_deeper_than_its_stack(depth, kernel):
+    """tree_depth counts the levels of a deep chain; the near-first walks'
+    wrappers (closest_bin's and occluded_bin's) walk it up to BIN_STACK
+    levels (the escape walk's hit, or flag) and raise beyond, before any
+    walk: nothing is dropped silently."""
     packed, rays = _chain(depth)
     assert tree_depth(packed.node_i32) == depth
+    if kernel == "closest_bin":
+        run, escape = kb.traverse_packed, closest_walk
+    else:  # the triangle lies at t = 1.4, inside the window (t_min, 2)
+        run = lambda r, p: kb.occluded_packed(r, p, 2.0)  # noqa: E731
+        escape = lambda r, lay: occluded_walk(r, lay, 2.0)  # noqa: E731
     if depth > BIN_STACK:
         with pytest.raises(RuntimeError, match="levels deep"):
-            kb.traverse_packed(rays, packed)
+            run(rays, packed)
         with pytest.raises(RuntimeError, match="levels deep"):
-            kb.traverse_packed(rays, dataclasses.replace(packed, depth=depth))
+            run(rays, dataclasses.replace(packed, depth=depth))
         return
-    hit = kb.traverse_packed(rays, packed)
-    ref = closest_walk(rays, kb.PackedLayout(packed))
-    assert hit.tri.tolist() == ref.tri.tolist() == [7]
-    assert torch.equal(hit.t, ref.t) and float(hit.t[0]) == pytest.approx(1.4)
+    got, ref = run(rays, packed), escape(rays, kb.PackedLayout(packed))
+    if kernel == "occluded_bin":
+        assert got.tolist() == ref.tolist() == [True]
+        return
+    assert got.tri.tolist() == ref.tri.tolist() == [7]
+    assert torch.equal(got.t, ref.t) and float(got.t[0]) == pytest.approx(1.4)
 
 
 def _two_leaves() -> tuple[PackedBVH, Rays]:
@@ -364,13 +374,20 @@ def _launches_outside_on_device(path: pathlib.Path) -> list:
             and id(n) not in inside]
 
 
+ENTRY_POINTS = {"traverse8.py": {"tpurt_closest8", "tpurt_occluded8", "tpurt_knear8"},
+                "traverse.py": {"tpurt_closest_bin", "tpurt_occluded_bin", "tpurt_knear_bin"},
+                "treebuild.py": {"tpurt_morton", "tpurt_radix"}}
+
+
 @pytest.mark.parametrize("module", ["traverse8.py", "traverse.py", "treebuild.py"])
 def test_every_kernel_launch_is_made_on_its_tensors_card(module):
+    """Every wrapper of the module launches its entry point, and inside
+    _build.on_device."""
     path = KERNELS / module
-    launches = [n for n in ast.walk(ast.parse(path.read_text()))
+    launches = {n.attr for n in ast.walk(ast.parse(path.read_text()))
                 if isinstance(n, ast.Attribute) and n.attr.startswith("tpurt_")
-                and n.attr != "tpurt_error_string"]
-    assert launches, f"{module} launches no kernel"
+                and n.attr != "tpurt_error_string"}
+    assert launches == ENTRY_POINTS[module]
     assert _launches_outside_on_device(path) == []
 
 

@@ -202,11 +202,12 @@ def test_occluded_matches_interpret_kernel(bunny):
 
 
 def _scalar_walk_counts(wide, o, d, kind, tmax, k=4, band=0.08):
-    """The kernels' loop (traverse8.cu, walk<Visitor>) one ray at a time in
-    numpy float32: a visit slab-tests its 8 children against the bound at its
-    start, then takes the passing children in entry order, pushing internal
-    ones and testing each row of a leaf in turn; the any-hit walk stops after
-    the row that blocks.  Returns what walk_counts reports."""
+    """The kernels' loop (traverse8.cu) one ray at a time in numpy float32:
+    a visit slab-tests its 8 children against the bound at its start, then
+    takes the passing children in entry order, pushing internal ones and
+    testing each row of a leaf in turn; occluded8 tests a row as two half
+    rows, counted as rows, and its walk stops after the half row that
+    blocks.  Returns what walk_counts reports."""
     f32 = np.float32
     nodes = wide.wrow.reshape(-1, 64)
     box = nodes[:, :48].numpy().reshape(-1, 8, 6)
@@ -240,15 +241,19 @@ def _scalar_walk_counts(wide, o, d, kind, tmax, k=4, band=0.08):
                     stack.append(m)
                     continue
                 for r in range(~m >> 3, (~m >> 3) + min(wide.max_rows, (~m & 7) + 1)):
-                    rows += 1
                     seen_r.add(r)
                     t, u, v, det = _mt_numpy_det(o[i][None], d[i][None],
                                                  trows[r, :72].reshape(8, 9))
                     ok = ((np.abs(det) > f32(1e-12)) & (u >= lo) & (v >= lo)
                           & (u + v <= hi) & (t > t_min) & (t < tm) & (tids[r] >= 0))
-                    blocked = kind == "occluded" and bool(ok.any())
-                    if blocked:
-                        break
+                    if kind == "occluded":  # half rows, up to the first that blocks
+                        half = ok.reshape(2, 4).any(axis=1)
+                        rows += 1 if half[0] else 2
+                        blocked = bool(half.any())
+                        if blocked:
+                            break
+                        continue
+                    rows += 1
                     best = sorted(set(best) | {(float(a), int(b))
                                                for a, b in zip(t[ok], tids[r][ok])})[:keep]
                 if blocked:

@@ -33,7 +33,7 @@ import numpy as np
 import pytest
 import torch
 
-from tests.closest_bin_loop import closest_bin_kernel_loop
+from tests.walk_loops import closest_bin_kernel_loop, occluded_bin_kernel_loop
 from tests.oracle.test_pallas_oracle import _random_rays, _random_scene
 from tests.test_torch_traverse8 import _bunny_rays, _mt_numpy_det, _trays
 from tpurt.accel import traverse_ref as jref
@@ -244,34 +244,36 @@ def test_knear_matches_interpret_kernel(pallas, k, band):
 # Walk counts, wrappers and the build
 # ---------------------------------------------------------------------------
 def _scalar_walk_counts(packed, o, d, kind, tmax, k=4, band=BAND):
-    """The kernels' loop (traverse.cu, walk_bin) one ray at a time in numpy
-    float32: slab-test the node against the bound at the start of the visit,
-    enter a passing internal node at node + 1, test a passing leaf's 8 slots,
-    otherwise follow the escape; the any-hit walk stops after a blocking
-    leaf.  closest_bin walks near-first (closest_bin_walk), rendered in
-    tests/closest_bin_loop.py.  Returns what walk_counts reports."""
+    """The kernels' loop one ray at a time in numpy float32.  knear_bin's
+    (traverse.cu knear_bin_walk) here: slab-test the node against the bound
+    at the start of the visit, enter a passing internal node at node + 1,
+    test a passing leaf's 8 slots, otherwise follow the escape.  closest_bin
+    and occluded_bin walk near-first (closest_bin_walk, occluded_bin_walk),
+    rendered in tests/walk_loops.py; occluded_bin counts half rows as rows.
+    Returns what walk_counts reports."""
     if kind == "closest":
         return closest_bin_kernel_loop(packed, o, d)[1]
+    if kind == "occluded":
+        return occluded_bin_kernel_loop(packed, o, d, tmax)[1]
     f32 = np.float32
     nf, ni = packed.node_f32.numpy(), packed.node_i32.numpy()
     rows = packed.tri_rows.numpy()[:, :72].reshape(-1, 8, 9)
     ids = packed.tri_ids.numpy()
     inv_all = tref.safe_inv(torch.from_numpy(d)).numpy()
     t_min = f32(DEFAULT_T_MIN)
-    lo, hi = (f32(-band), f32(1.0 + band)) if kind == "knear" else (f32(0), f32(1))
-    keep = k if kind == "knear" else 1
+    lo, hi = f32(-band), f32(1.0 + band)
     visits = n_rows = 0
     seen_n, seen_r = set(), set()
     for i in range(o.shape[0]):
-        tm = f32(T_MAX) if kind == "closest" else tmax[i]
+        tm = tmax[i]
         if not tm > t_min:
             continue  # an empty window starts dead
         best, node = [], 0
         while node >= 0:
             visits += 1
             seen_n.add(node)
-            kth = f32(best[-1][0]) if len(best) == keep else f32(T_MAX)
-            upper = tm if kind == "occluded" else np.minimum(kth, tm)
+            kth = f32(best[-1][0]) if len(best) == k else f32(T_MAX)
+            upper = np.minimum(kth, tm)
             with np.errstate(over="ignore", invalid="ignore"):
                 t0 = (nf[node, 0:3] - o[i]) * inv_all[i]
                 t1 = (nf[node, 3:6] - o[i]) * inv_all[i]
@@ -286,9 +288,7 @@ def _scalar_walk_counts(packed, o, d, kind, tmax, k=4, band=BAND):
                 t, u, v, det = _mt_numpy_det(o[i][None], d[i][None], rows[r])
                 ok = ((np.abs(det) > f32(1e-12)) & (u >= lo) & (v >= lo) & (u + v <= hi)
                       & (t > t_min) & (t < tm) & (ids[r] >= 0))
-                if kind == "occluded" and ok.any():
-                    break
-                best = sorted(set(best) | {(float(a), int(b)) for a, b in zip(t[ok], ids[r][ok])})[:keep]
+                best = sorted(set(best) | {(float(a), int(b)) for a, b in zip(t[ok], ids[r][ok])})[:k]
             node = node + 1 if boxed and not leaf else ni[node, 0]
     return dict(visits=visits, rows=n_rows, distinct_nodes=len(seen_n),
                 distinct_rows=len(seen_r))
