@@ -2,7 +2,7 @@
 step of the 1M-triangle sponza scene through the hand-written BVH8 CUDA
 kernels, and of the 70K-triangle bunny at 512x512 through the binary-BVH
 kernels; the LBVH build through the Morton and radix-tree kernels at 1M and
-5M triangles, and the port's Renderer and CLI.
+5M triangles, the port's Renderer, area lights (hard and soft) and CLI.
 
     python3 chip_smoke.py [--parent DIR] [--parent NAME=DIR ...]
 
@@ -10,7 +10,7 @@ Phases, one line each (any failure exits non-zero and prints no result):
   device   torch.cuda must be available; the card's name and power limit.
   build    nvcc builds the CUDA kernels from src/tpurt_torch/kernels/csrc,
            one process per source; each kernel's registers and spills (the
-           k-nearest and closest-hit kernels must not spill).  With
+           walk kernels and radix must not spill).  With
            --parent, the kernels of each other source tree (a checkout of
            the parent commit, or of a variant of these kernels) are built
            alongside.
@@ -119,20 +119,46 @@ The LBVH build (morton and radix; every make_tracer above ran them):
            each kernel against its twin on the card, bitwise: N = 2 (distinct
            and equal codes), 2^20 equal codes, and the centroids of the bunny,
            the 1M and the 5M sponza (radix on their sorted codes); kernel and
-           twin ms (the kernel's from a profile, the wrapper call's and the
-           twin's by CUDA events), the bound from this input (radix: the
-           work of Karras's search for its tree), the phase's launches.
+           twin ms (morton's from a profile, radix's from bare launches, the
+           wrapper call's and the twin's by CUDA events), the bound from this
+           input (radix: the work of Karras's search for its tree), the
+           phase's launches.
   build_stages
            a warm build_lbvh at 1M and 5M: seconds, launches, peak memory
            above what was allocated before it; each of its lbvh.* stage
            spans in a profile of 3 warm builds (its kernels' device ms, its
-           device-side span, its host ms; the hand-written kernel alone); the same build through the
-           twins on the card, every BVH field bitwise equal; at 5M the wide
-           collapse and pack seconds.
+           device-side span, its host ms, the kernels in the span; the
+           hand-written kernel alone); with --parent, the lbvh.radix span
+           of the same builds through the parent's radix stage; the same
+           build through the twins on the card, every BVH field bitwise
+           equal; at 5M the wide collapse and pack seconds.
   renderer the main path as a user calls it: Renderer(scene, RenderConfig(
            "wide8")) on the 1M scene builds and renders the frame; its
            launch counts, its image against [render]'s.
+  area     area lights: 64 seeded triangles of the 1M sponza and of the
+           bunny made emitters (Le 8).  The hard frame through
+           Renderer(light_samples=4).render (a generator seeded light_seed):
+           wide8 on the 1M main view and the overview at 1920x1088
+           (8,355,840 area shadow rays through occluded8), binary on the
+           bunny (occluded_bin); launch counts, the image against the twin
+           route's (every kernel wrapper swapped for its twin, on the card,
+           the same seed), occluded8's flags on the area shadow rays against
+           the twin's on every ray; frame ms split into closest, occluded
+           and glue, area shadow rays a second; [area_profile]: the frame's
+           device-time shares, idle share and largest glue kernels.  The
+           soft render with its d/d(verts, albedo): binary on the bunny
+           (knear_bin), wide8 on one 261,120-ray chunk of the overview
+           (knear8), against the twin route's image and gradients.
   sponza5m the 5M scene's generation seconds and its phases' seconds.
+  build_ab morton and radix against each other tree's (--parent), radix on
+           the sorted codes of the 1M and 5M sponza and on 2^20 equal codes,
+           morton (the control) on the two scenes' centroids: every output
+           of each tree's stage bitwise equal to this build's (a tree that
+           differs fails the script at its end), then in turns other, new,
+           new, other the kernel's device ms from bare launches and the
+           stage's ms as each tree's wrapper makes it (the parent's: full,
+           arange and two cats before its kernel); without other trees,
+           this build's alone.
   cli      `python -m tpurt_torch.cli.main` as subprocesses in a temporary
            directory: build-bvh on the 5M sponza (its metric line), render of
            the 5M sponza at 3840x2160 (shape, finite, hit fraction) and of the
@@ -145,6 +171,7 @@ Then the kernels' JSON line and, last, {"ok": true, "device": {...}}.
 from __future__ import annotations
 
 import argparse
+import contextlib
 import ctypes
 import dataclasses
 import functools
@@ -182,6 +209,7 @@ from tpurt_torch.kernels import _build  # noqa: E402
 from tpurt_torch.kernels import traverse as kb  # noqa: E402
 from tpurt_torch.kernels import traverse8 as k8  # noqa: E402
 from tpurt_torch.kernels import treebuild as tb  # noqa: E402
+from tpurt_torch.render import pipeline as pipeline_mod  # noqa: E402
 from tpurt_torch.render.camera import gen_primary_rays, pixel_morton_perm  # noqa: E402
 from tpurt_torch.diff.fdcheck import check_grads_fd  # noqa: E402
 from tpurt_torch.render.pipeline import (  # noqa: E402
@@ -279,6 +307,11 @@ PEAK_INT32_OPS = 64 * 132 * 1.98e9
 # not over the kernel's fixed 62-step ladder.
 MORTON_OPS = 3 * 6 + 3 * 8 + 4
 RADIX_DELTA_OPS, RADIX_STEP_OPS = 10, 6
+# [area]: the generated scenes carry no emitters, so AREA_EMITTERS of their
+# triangles (a seeded choice) get radiance AREA_LE; AREA_SAMPLES emitter
+# samples a frame (8,355,840 area shadow rays at 1920x1088), drawn from a
+# generator seeded AREA_SEED (RenderConfig.light_seed).
+AREA_EMITTERS, AREA_LE, AREA_SAMPLES, AREA_SEED = 64, 8.0, 4, 11
 
 
 KERNEL_NAMES = ("closest8_kernel", "occluded8_kernel", "knear8_kernel",
@@ -286,7 +319,8 @@ KERNEL_NAMES = ("closest8_kernel", "occluded8_kernel", "knear8_kernel",
                 "morton_kernel", "radix_kernel")
 WALK_KERNELS = ("closest8", "occluded8", "knear8", "closest_bin", "occluded_bin", "knear_bin")
 # The redesigned kernels, which [build] fails on if ptxas reports a spill.
-NO_SPILL = ("knear8", "knear_bin", "closest8", "closest_bin", "occluded8", "occluded_bin")
+NO_SPILL = ("knear8", "knear_bin", "closest8", "closest_bin", "occluded8", "occluded_bin",
+            "radix")
 # Each kernel engine's hard-frame kernels (closest hit, any hit) and its
 # closest-hit call as render_rays makes it.
 HARD_KERNELS = {
@@ -801,6 +835,9 @@ def bind_tree(root: str, path: str) -> ctypes.CDLL:
         fn = getattr(lib, f"tpurt_{kernel}")
         fn.argtypes = args + [ptr] * (outs + lib.counter[f"tpurt_{kernel}"] + 1)
         fn.restype = i32
+    lib.tpurt_morton.argtypes = [ptr, ptr, ptr, f32, i32, ptr, ptr]
+    lib.tpurt_radix.argtypes = [ptr, i32] + [ptr] * 6
+    lib.tpurt_morton.restype = lib.tpurt_radix.restype = i32
     return lib
 
 
@@ -817,7 +854,7 @@ def parent_library(name: str, root: str, path: str) -> ctypes.CDLL:
     ptxas report."""
     lib = bind_tree(root, path)
     report = {k: v for k, v in ptxas_report(path[:-3] + ".log").items()
-              if k.startswith(WALK_KERNELS)}
+              if k.startswith(WALK_KERNELS + ("radix",))}
     phase("tree", tree=name, root=root, lib=os.path.relpath(path, HERE),
           counter=json.dumps(lib.counter), ptxas=json.dumps(report, separators=(",", ":")))
     return lib
@@ -1507,10 +1544,12 @@ def treebuild_parity(view: str, points: torch.Tensor | None = None,
                      codes: torch.Tensor | None = None) -> dict:
     """morton on `points` (normalised by their bounds, as the build does)
     and radix on their stably sorted codes, or on `codes`, against the
-    twins on the card, bitwise; the kernel's device ms (kernel_device_ms),
-    the wrapper call's ms and the twin's (CUDA events, warm), the bound from
-    this input, and the phase's launches (the timed calls included).  Fails
-    on any element that differs."""
+    twins on the card, bitwise; the kernel's device ms (morton's from a
+    profile, kernel_device_ms; radix's from bare launches, events_ms over
+    build_launch, as torch.profiler drops kernel events now and then), the
+    wrapper call's ms and the twin's (CUDA events, warm), the bound from
+    this input, and the phase's launches (the calls through the wrapper,
+    the timed ones included).  Fails on any element that differs."""
     out = {}
     tb.reset_launches()
     if points is not None:
@@ -1532,7 +1571,7 @@ def treebuild_parity(view: str, points: torch.Tensor | None = None,
     out["radix"] = dict(
         n=n, mismatches=sum(int((a != b).sum()) for a, b in zip(got, ref)),
         max_abs_err=max(max_abs(a, b) for a, b in zip(got, ref)),
-        ms=kernel_device_ms(lambda: tb.radix_tree(codes), "radix_kernel"),
+        ms=events_ms(build_launch(this_library(), "radix", codes)[0]),
         call_ms=cuda_ms(lambda: tb.radix_tree(codes)),
         plain_ms=cuda_ms(lambda: tb.radix_tree_ref(codes), iters=3, warmup=1),
         loads=loads, evals=evals, **radix_bound(n, loads, evals))
@@ -1546,6 +1585,187 @@ def treebuild_parity(view: str, points: torch.Tensor | None = None,
               launches=r["launches"])
         if r["mismatches"]:
             fail(f"{name} ({view}): {r['mismatches']} elements differ from its twin")
+    return out
+
+
+# ---------------------------------------------------------------------------
+# The build kernels against other trees' ([build_ab])
+# ---------------------------------------------------------------------------
+RADIX_OUTPUTS = ("left", "right", "parent", "first", "last")
+
+
+def differing_elements(got, ref) -> dict:
+    """Per output (RADIX_OUTPUTS, or "codes" for one tensor), the number of
+    elements whose bits differ; an output of another dtype or shape differs
+    in all of its elements."""
+    if isinstance(got, torch.Tensor):
+        got, ref, names = (got,), (ref,), ("codes",)
+    else:
+        names = RADIX_OUTPUTS
+    out = {}
+    for name, a, b in zip(names, got, ref):
+        if a.dtype != b.dtype or a.shape != b.shape:
+            out[name] = max(a.numel(), b.numel())
+        elif a.dtype == torch.float32:
+            out[name] = int((a.view(torch.int32) != b.view(torch.int32)).sum())
+        else:
+            out[name] = int((a != b).sum())
+    return out
+
+
+def prefilled_radix_outputs(n: int, dev) -> tuple:
+    """The radix outputs as the wrapper made them before the kernel wrote
+    the whole stage: left and right empty, parent -1, the leaves' halves of
+    first and last their own index (the internal halves empty)."""
+    i32 = dict(dtype=torch.int32, device=dev)
+    leaves = torch.arange(n, **i32)
+    return (torch.empty(n - 1, **i32), torch.empty(n - 1, **i32),
+            torch.full((2 * n - 1,), -1, **i32),
+            torch.cat([torch.empty(n - 1, **i32), leaves]),
+            torch.cat([torch.empty(n - 1, **i32), leaves]))
+
+
+def radix_launch(lib: ctypes.CDLL, codes: torch.Tensor, outs: tuple) -> None:
+    """Enqueue lib's radix kernel on sorted codes into outs (left, right,
+    parent, first, last) on the current stream."""
+    err = lib.tpurt_radix(ctypes.c_void_p(codes.data_ptr()), codes.shape[0],
+                          *(ctypes.c_void_p(x.data_ptr()) for x in outs),
+                          ctypes.c_void_p(torch.cuda.current_stream().cuda_stream))
+    if err:
+        fail(f"radix failed to launch: {err}")
+
+
+def radix_writes_all(lib: ctypes.CDLL, codes: torch.Tensor) -> bool:
+    """Whether lib's radix kernel writes the leaves' first and last and the
+    root's parent itself (this tree's kernel) or leaves them to its wrapper
+    (earlier commits): one launch into outputs filled with a sentinel.
+    Fails if it writes some of them and not the others."""
+    n = codes.shape[0]
+    outs = tuple(torch.full((m,), -7, dtype=torch.int32, device=codes.device)
+                 for m in (n - 1, n - 1, 2 * n - 1, 2 * n - 1, 2 * n - 1))
+    radix_launch(lib, codes, outs)
+    leaves = torch.arange(n, dtype=torch.int32, device=codes.device)
+    done = [bool(torch.equal(outs[3][n - 1:], leaves)),
+            bool(torch.equal(outs[4][n - 1:], leaves)), int(outs[2][0]) == -1]
+    if any(done) != all(done):
+        fail(f"a radix kernel wrote only some of the leaves' halves and the root: {done}")
+    return all(done)
+
+
+def radix_stage(lib: ctypes.CDLL, codes: torch.Tensor, writes_all: bool = True) -> tuple:
+    """lib's radix kernel on sorted codes, its outputs made as that tree's
+    wrapper makes them (writes_all False: a kernel that leaves the leaves'
+    halves and the root to its wrapper, prefilled_radix_outputs)."""
+    n, dev = codes.shape[0], codes.device
+    i32 = dict(dtype=torch.int32, device=dev)
+    outs = (prefilled_radix_outputs(n, dev) if not writes_all else
+            (torch.empty(n - 1, **i32), torch.empty(n - 1, **i32),
+             *(torch.empty(2 * n - 1, **i32) for _ in range(3))))
+    radix_launch(lib, codes, outs)
+    return outs
+
+
+def build_launch(lib: ctypes.CDLL, kernel: str, inputs, writes_all: bool = True):
+    """(launch, stage): lib's morton kernel on inputs (points, lo, inv) or
+    radix kernel on sorted codes.  launch() enqueues the kernel alone on
+    outputs made once (bare launches); stage() makes the outputs as that
+    tree's wrapper makes them (writes_all False: a radix kernel that leaves
+    the leaves' halves and the root to its wrapper, which fills them with
+    full, arange and cat first), launches, and returns the outputs."""
+    if kernel == "morton":
+        points, lo, inv = inputs
+        once = torch.empty(points.shape[0], dtype=torch.int64, device=points.device)
+        stream = ctypes.c_void_p(torch.cuda.current_stream().cuda_stream)
+
+        def run(codes: torch.Tensor) -> torch.Tensor:
+            err = lib.tpurt_morton(*(ctypes.c_void_p(x.data_ptr()) for x in (points, lo, inv)),
+                                   ctypes.c_float(tb.MORTON_CLAMP_HI), points.shape[0],
+                                   ctypes.c_void_p(codes.data_ptr()), stream)
+            if err:
+                fail(f"morton failed to launch: {err}")
+            return codes
+
+        def launch() -> None:
+            run(once)
+
+        def stage() -> torch.Tensor:
+            return run(torch.empty_like(once))
+    else:
+        once = radix_stage(lib, inputs, writes_all)
+
+        def launch() -> None:
+            radix_launch(lib, inputs, once)
+
+        def stage() -> tuple:
+            return radix_stage(lib, inputs, writes_all)
+
+    launch.keep = (inputs, once)
+    return launch, stage
+
+
+def events_ms(fn, passes: int = 20) -> float:
+    """The ms of one fn() among `passes` back to back after a warm one, by
+    CUDA events around them all."""
+    fn()
+    start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+    torch.cuda.synchronize()
+    start.record()
+    for _ in range(passes):
+        fn()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / passes
+
+
+def build_inputs(view: str, points: torch.Tensor) -> dict:
+    """[build_ab]'s cells of one scene: morton on its centroids (normalised
+    by their bounds, as the build does) and radix on their stably sorted
+    codes."""
+    lo = points.amin(dim=0)
+    inv = tb.inv_extent(lo, points.amax(dim=0))
+    codes = torch.sort(tb.morton_codes_ref(points, lo, inv), stable=True).values
+    return {f"radix_{view}": ("radix", codes), f"morton_{view}": ("morton", (points, lo, inv))}
+
+
+@torch.no_grad()
+def build_ab(libs: dict, cells: dict) -> dict:
+    """The build kernels of this checkout ("new") against other trees'
+    (libs: {"new": lib, name: lib, ...}) on each cell (name -> (kernel,
+    inputs): "radix" on sorted codes, "morton" on (points, lo, inv)): every
+    tree's outputs from its stage bitwise equal to this build's (a tree
+    that differs fails the script at its end), then in turns other, new,
+    new, other for each other tree the kernel's device ms from bare
+    launches (events_ms over launch()) and the stage's ms as that tree's
+    wrapper makes it (events_ms over stage(): output allocation, the
+    wrapper's fills, the launch)."""
+    out = {}
+    for cell, (kernel, inputs) in cells.items():
+        codes = inputs if kernel == "radix" else None
+        writes = {name: radix_writes_all(lib, codes) if codes is not None else True
+                  for name, lib in libs.items()}
+        if not writes["new"]:
+            fail("this checkout's radix kernel leaves the leaves and the root unwritten")
+        fns = {name: build_launch(lib, kernel, inputs, writes[name])
+               for name, lib in libs.items()}
+        ref = fns["new"][1]()
+        bad = {name: differing_elements(f[1](), ref) for name, f in fns.items() if name != "new"}
+        del ref
+        order = [name for other in libs if other != "new"
+                 for name in (other, "new", "new", other)] or ["new"]
+        dev_turns = [(name, events_ms(fns[name][0])) for name in order]
+        stage_turns = [(name, events_ms(fns[name][1])) for name in order]
+        mean = lambda ts, name: float(np.mean([t for s, t in ts if s == name]))  # noqa: E731
+        out[cell] = {name: dict(device_ms=mean(dev_turns, name),
+                                stage_ms=mean(stage_turns, name)) for name in libs}
+        n = (inputs if codes is not None else inputs[0]).shape[0]
+        phase("build_ab", kernel=kernel, cell=cell, n=n,
+              writes_leaves=json.dumps(writes), mismatches=json.dumps(bad),
+              device_turns=json.dumps([[s, round(t, 5)] for s, t in dev_turns]),
+              stage_turns=json.dumps([[s, round(t, 5)] for s, t in stage_turns]),
+              **{f"{name}_device_ms": f"{v['device_ms']:.5f}" for name, v in out[cell].items()},
+              **{f"{name}_stage_ms": f"{v['stage_ms']:.5f}" for name, v in out[cell].items()})
+        if any(sum(v.values()) for v in bad.values()):
+            FAILURES.append(f"{kernel} ({cell}): outputs differ from another tree's: {bad}")
     return out
 
 
@@ -1592,7 +1812,7 @@ def kernel_device_ms(fn, kernel: str, calls: int = 30) -> float:
          f"(the last: {len(durs)})")
 
 
-def stage_times(tris) -> dict:
+def stage_times(tris, radix=None) -> dict:
     """build_lbvh's stages from a torch.profiler trace of STAGE_BUILDS + 1
     warm builds, a synchronize after each; the first build is dropped (the
     profiler misses events of the first calls after it starts).  Per stage, one reading a
@@ -1601,14 +1821,21 @@ def stage_times(tris) -> dict:
     stage's, the hand-written ones, launched through ctypes, included),
     that span from its first kernel's start to its last one's end (span: it
     also counts the device idle between them), and the span's host time
-    (host, under the profiler)."""
+    (host, under the profiler), and the device kernels in the span
+    (launches).  radix: a function that takes build_lbvh's radix_tree's
+    place for these builds (another tree's radix stage)."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        for _ in range(STAGE_BUILDS + 1):
-            build_lbvh(tris)
-            torch.cuda.synchronize()
+    saved = lbvh_mod.radix_tree
+    lbvh_mod.radix_tree = radix or saved
+    try:
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            for _ in range(STAGE_BUILDS + 1):
+                build_lbvh(tris)
+                torch.cuda.synchronize()
+    finally:
+        lbvh_mod.radix_tree = saved
     events = prof.events()
     kernels = device_kernels(prof)
 
@@ -1636,6 +1863,9 @@ def stage_times(tris) -> dict:
                                 sum(e - s for s, e, _ in kernels if d[0] <= s < d[1]) / 1e3
                                 for d in dev],
                        span=[None if d is None else (d[1] - d[0]) / 1e3 for d in dev],
+                       launches=[None if d is None else
+                                 sum(1 for s, _, _ in kernels if d[0] <= s < d[1])
+                                 for d in dev],
                        host=[(b - a) / 1e3 for a, b in host])
         if st in ("morton", "radix"):  # the hand-written kernel alone
             out[st]["named"] = [(e - s) / 1e3 for s, e, name in kernels
@@ -1654,12 +1884,15 @@ def twin_route_build(tris) -> BVH:
         morton_mod.morton_codes, lbvh_mod.radix_tree = saved
 
 
-def build_stages(view: str, scene, wide8: bool = False) -> dict:
+def build_stages(view: str, scene, wide8: bool = False, parent=None) -> dict:
     """A warm build_lbvh: host seconds after a synchronize, its launches, its
     peak memory above what was allocated before it; its stages from a
     profile (stage_times); the same build through the twins on the card
     (warm host seconds), every BVH field bitwise equal to the kernel
-    route's.  wide8: also the wide collapse and pack seconds of that tree."""
+    route's.  wide8: also the wide collapse and pack seconds of that tree.
+    parent: another tree's kernel library, whose radix stage (radix_stage,
+    its outputs made as its wrapper made them) is profiled in the same
+    builds' place: the lbvh.radix span before and after this change."""
     tris = scene.tris
     build_lbvh(tris)  # warm
     torch.cuda.synchronize()
@@ -1695,7 +1928,16 @@ def build_stages(view: str, scene, wide8: bool = False) -> dict:
     for k in BUILD_STAGES:
         phase("build_stages", view=view, stage=k, kernels_ms=readings(st[k]["kernels"]),
               span_ms=readings(st[k]["span"]), host_ms=readings(st[k]["host"]),
+              launches=json.dumps(st[k]["launches"]),
               **({"kernel_by_name_ms": readings(st[k]["named"])} if "named" in st[k] else {}))
+    if parent is not None:
+        writes = radix_writes_all(parent, bvh.codes)
+        pst = stage_times(tris, radix=lambda codes: radix_stage(parent, codes, writes))
+        phase("build_stages", view=view, stage="radix", route="parent",
+              kernels_ms=readings(pst["radix"]["kernels"]),
+              span_ms=readings(pst["radix"]["span"]), host_ms=readings(pst["radix"]["host"]),
+              launches=json.dumps(pst["radix"]["launches"]),
+              kernel_by_name_ms=readings(pst["radix"]["named"]))
     if not all(same.values()):
         fail(f"build_stages ({view}): BVH fields differ: {[f for f, v in same.items() if not v]}")
     if launches != {"morton": 1, "radix": 1}:
@@ -1726,6 +1968,278 @@ def renderer_phase(scene, cam: Camera, ref: torch.Tensor) -> dict:
         if launches[name] <= 0:
             fail(f"Renderer(method='wide8') never launched {name}")
     return launches
+
+
+# ---------------------------------------------------------------------------
+# Area lights ([area]): the hard and soft paths with emitter samples
+# ---------------------------------------------------------------------------
+# The pipeline's kernel wrappers and their twins, swapped by twin_route.
+TWINS = {"traverse_wide8": k8.traverse_wide8_ref, "occluded_wide8": k8.occluded_wide8_ref,
+         "k_nearest_wide8": k8.k_nearest_wide8_ref, "traverse_packed": kb.traverse_packed_ref,
+         "occluded_packed": kb.occluded_packed_ref,
+         "k_nearest_ids_packed": kb.k_nearest_ids_packed_ref}
+# Each engine's any-hit and k-nearest wrapper names in the pipeline.
+ANY_HIT = {"wide8": "occluded_wide8", "binary": "occluded_packed"}
+
+
+def cat_outputs(parts: list):
+    """Concatenate the chunks' outputs of a walk: tensors, Hit records and
+    tuples of them."""
+    first = parts[0]
+    if isinstance(first, torch.Tensor):
+        return torch.cat(parts)
+    if isinstance(first, Hit):
+        return Hit(**{f.name: torch.cat([getattr(p, f.name) for p in parts])
+                      for f in dataclasses.fields(Hit)})
+    return type(first)(cat_outputs(list(xs)) for xs in zip(*parts))
+
+
+def chunked_twin(fn, record: list | None = None):
+    """fn (a twin, taking rays first) over PARITY_CHUNK-ray chunks: every
+    per-ray tensor argument is cut with the rays, the outputs concatenated.
+    record: a list to which each call appends (rays, its arguments, the
+    output)."""
+    def run(rays: Rays, *args, **kw):
+        flat = Rays(o=rays.o.reshape(-1, 3), d=rays.d.reshape(-1, 3))
+        n = flat.o.shape[0]
+
+        def cut(x, lo, hi):
+            per_ray = isinstance(x, torch.Tensor) and x.ndim > 0 and x.shape[0] == n
+            return x[lo:hi] if per_ray else x
+
+        parts = [fn(rays_slice(flat, slice(lo, min(lo + PARITY_CHUNK, n))),
+                    *(cut(a, lo, lo + PARITY_CHUNK) for a in args),
+                    **{k: cut(v, lo, lo + PARITY_CHUNK) for k, v in kw.items()})
+                 for lo in range(0, n, PARITY_CHUNK)]
+        out = cat_outputs(parts)
+        if record is not None:
+            record.append((flat, args, kw, out))
+        return out
+
+    return run
+
+
+@contextlib.contextmanager
+def twin_route(record: dict | None = None):
+    """The render pipeline with every kernel wrapper swapped for its twin
+    (run over chunks, chunked_twin) for the duration: the twin route on the
+    card.  record: name -> list of each call's (rays, args, kwargs, out)."""
+    saved = {name: getattr(pipeline_mod, name) for name in TWINS}
+    try:
+        for name, twin in TWINS.items():
+            rec = None if record is None else record.setdefault(name, [])
+            setattr(pipeline_mod, name, chunked_twin(twin, rec))
+        yield
+    finally:
+        for name, fn in saved.items():
+            setattr(pipeline_mod, name, fn)
+
+
+def with_emitters(scene, n: int = AREA_EMITTERS, le: float = AREA_LE, seed: int = AREA_SEED):
+    """The scene with n of its triangles, drawn by a seeded numpy choice,
+    made emitters of radiance le (the generated scenes carry none)."""
+    ids = np.random.default_rng(seed).choice(scene.num_tris, n, replace=False)
+    emission = scene.tris.emission.clone()
+    emission[torch.as_tensor(ids, device=emission.device)] = le
+    return dataclasses.replace(scene, tris=dataclasses.replace(scene.tris, emission=emission))
+
+
+def seeded(dev) -> torch.Generator:
+    g = torch.Generator(device=dev)
+    g.manual_seed(AREA_SEED)
+    return g
+
+
+def image_diff(a: torch.Tensor, b: torch.Tensor) -> dict:
+    """Bitwise equality, the largest |a - b| and the fraction of pixels off
+    by more than the engines' image atol."""
+    return dict(bitwise=bitwise_equal(a, b), max_abs=repr(max_abs(a, b)),
+                off_frac=float(((a - b).abs().amax(dim=-1) > IMAGE_ATOL).float().mean()))
+
+
+@torch.no_grad()
+def area_profile(view: str, tracer: Tracer, frame: Rays, frames: int = 3) -> None:
+    """Where the hard area-light frame's device time goes (torch.profiler
+    over `frames` render_rays calls with AREA_SAMPLES samples): the
+    engine's two kernels' shares, the glue's, the idle share of the device
+    window, and the glue kernels that take the most device time."""
+    from torch.profiler import ProfilerActivity, profile
+
+    names, _ = HARD_KERNELS[tracer.method]
+    g = seeded(frame.o.device)
+    render_rays(tracer, frame, light_samples=AREA_SAMPLES, generator=g)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(frames):
+            render_rays(tracer, frame, light_samples=AREA_SAMPLES, generator=g)
+        torch.cuda.synchronize()
+    events, busy, window, total = device_spans(prof)
+    if not events:
+        phase("area_profile", view=view, device_time="not measured (no device event)")
+        return
+    by_name = {}
+    for e in events:
+        by_name[e.name] = by_name.get(e.name, 0.0) + e.time_range.end - e.time_range.start
+    share = {k: sum(v for name, v in by_name.items() if f"{k}_kernel" in name) for k in names}
+    glue = sorted(((v, name) for name, v in by_name.items()
+                   if not any(f"{k}_kernel" in name for k in names)), reverse=True)
+    phase("area_profile", view=view, frames=frames,
+          device_window_ms=f"{window / 1e3 / frames:.4f}",
+          device_busy_ms=f"{busy / 1e3 / frames:.4f}", idle_share=f"{1 - busy / window:.4f}",
+          **{f"{k}_share": f"{v / total:.4f}" for k, v in share.items()},
+          glue_share=f"{(total - sum(share.values())) / total:.4f}",
+          device_kernels=len(events) // frames,
+          top_glue=json.dumps([[name[:60], round(v / 1e3 / frames, 4)] for v, name in glue[:6]]))
+
+
+@torch.no_grad()
+def area_hard(view: str, r: Renderer, cam: Camera) -> dict:
+    """The hard area-light frame as a user renders it: r.render(cam) (the
+    renderer's light_samples, a generator seeded its light_seed) through
+    the engine's closest-hit and any-hit kernels, with that run's launch
+    counts; the same render through the twins on the card, whose image it
+    must match (off by more than IMAGE_ATOL on at most MAX_MISMATCH_FRAC of
+    pixels) and whose any-hit calls are recorded: the kernel's flags on the
+    recorded area shadow rays must equal the twin's on every ray
+    (strict_flags).  Then the frame's time (render_rays on the Morton
+    frame, CUDA events) split into closest hit, any hit (point-light and
+    area shadow rays) and glue; the any-hit kernel's device ms on the area
+    rays by bare launches; area shadow rays a second; where its device time
+    goes (area_profile)."""
+    method, tracer = r.config.method, r.tracer
+    s = r.config.light_samples
+    names, closest = HARD_KERNELS[method]
+    tree = tracer.wide if method == "wide8" else tracer.packed
+    reset_launches()
+    img, s_render = sync_time(lambda: r.render(cam))
+    launches = launch_counts()
+    record = {}
+    with twin_route(record):
+        twin_img, s_twin = sync_time(lambda: r.render(cam))
+    diff = image_diff(img, twin_img)
+    calls = record[ANY_HIT[method]]
+    (al_rays, (_, t_al), _, twin_flags), (pt_rays, (_, t_pt), _, _) = calls[-1], calls[0]
+    n_area = al_rays.o.shape[0]
+    any_hit = getattr(pipeline_mod, ANY_HIT[method])
+    flags = any_hit(al_rays, tree, t_al)
+    strict_flags("area", view, names[1], tree, al_rays, flags, twin_flags)
+    frame = morton_rays(cam)
+    n = frame.o.shape[0]
+    g = seeded(frame.o.device)
+    ms = {"frame": cuda_ms(lambda: render_rays(tracer, frame, light_samples=s, generator=g)),
+          "closest": cuda_ms(lambda: closest(frame, tracer)),
+          "occluded_point": cuda_ms(lambda: any_hit(pt_rays, tree, t_pt)),
+          "occluded_area": cuda_ms(lambda: any_hit(al_rays, tree, t_al))}
+    ms["occluded"] = ms["occluded_point"] + ms["occluded_area"]
+    ms["glue"] = ms["frame"] - ms["closest"] - ms["occluded"]
+    ms["area_device"] = launch_ms(this_library(), names[1], tree, [(al_rays, None, t_al)])
+    area_profile(view, tracer, frame)
+    finite = bool(torch.isfinite(img).all())
+    phase("area", view=view, method=method, path="hard", rays=n, light_samples=s,
+          area_shadow_rays=n_area, shape=tuple(img.shape), finite=finite,
+          render_s=f"{s_render:.3f}", twin_render_s=f"{s_twin:.3f}",
+          launches=json.dumps(launches), blocked_frac=f"{float(flags.float().mean()):.4f}",
+          flag_mismatches=int((flags != twin_flags).sum()),
+          vs_twin_bitwise=diff["bitwise"], vs_twin_max_abs=diff["max_abs"],
+          vs_twin_off_frac=diff["off_frac"],
+          **{f"{k}_ms": f"{v:.4f}" for k, v in ms.items()},
+          area_rays_per_s=f"{n_area / (ms['frame'] * 1e-3):.1f}",
+          area_kernel_rays_per_s=f"{n_area / (ms['area_device'] * 1e-3):.1f}",
+          mean=f"{float(img.mean()):.5f}")
+    if tuple(img.shape) != (cam.height, cam.width, 3) or not finite:
+        fail(f"area ({view}): the image is not a finite (H, W, 3) array")
+    any_hit_calls = 1 + (tracer.scene.lights.pos.shape[0] > 0)  # point lights, samples
+    if n_area != s * n or launches[names[0]] != 1 or launches[names[1]] != any_hit_calls:
+        fail(f"area ({view}): {n_area} area shadow rays, launches {launches}")
+    if diff["off_frac"] > MAX_MISMATCH_FRAC:
+        fail(f"area ({view}): the image differs from the twin route's on "
+             f"{diff['off_frac']} of pixels")
+    return dict(ms=ms, launches=launches, n_area=n_area)
+
+
+def area_soft(view: str, tracer: Tracer, rays: Rays) -> dict:
+    """The soft area-light render of `rays` as render_rays(soft=True) makes
+    it (SOFT, AREA_SAMPLES samples from a generator seeded AREA_SEED: the
+    candidate occluders toward each sample from layer 0 through the
+    tracer's k-nearest kernel), and d/d(verts, albedo) of sum(w * color)
+    (w seeded); its launch counts; the same through the twins on the card.
+    The image must match the twin route's (off by more than IMAGE_ATOL on
+    at most MAX_MISMATCH_FRAC of rays), the gradients to GRAD_DEVICE_RTOL
+    of the largest (the backward's index_add_ adds in another order each
+    run).  The forward's ms (CUDA events)."""
+    scene, dev = tracer.scene, rays.o.device
+    n = rays.o.shape[0]
+    w = torch.rand((n, 3), generator=seeded(dev), device=dev)
+
+    def run():
+        verts = scene.tris.verts.detach().clone().requires_grad_(True)
+        albedo = scene.tris.albedo.detach().clone().requires_grad_(True)
+        tris = dataclasses.replace(scene.tris, verts=verts, albedo=albedo)
+        sc = dataclasses.replace(scene, tris=tris)
+        tr = dataclasses.replace(tracer, scene=sc, table=tri_table(tris))
+        color = render_rays(tr, rays, light_samples=AREA_SAMPLES, generator=seeded(dev), **SOFT)
+        grads = torch.autograd.grad(torch.sum(w * color), (verts, albedo))
+        return color.detach(), grads
+
+    reset_launches()
+    (img, grads), s_kernel = sync_time(run)
+    launches = launch_counts()
+    with twin_route():
+        (t_img, t_grads), s_twin = sync_time(run)
+    diff = image_diff(img, t_img)
+    grad_err = [max_abs(a, b) / max(float(b.abs().max()), 1e-30) for a, b in zip(grads, t_grads)]
+    g = seeded(dev)
+    with torch.no_grad():
+        ms = cuda_ms(lambda: render_rays(tracer, rays, light_samples=AREA_SAMPLES, generator=g,
+                                         **SOFT), iters=3, warmup=1)
+    knear = knear_kernel(tracer.wide if tracer.method == "wide8" else tracer.packed)
+    finite = bool(torch.isfinite(img).all()) and all(bool(torch.isfinite(x).all()) for x in grads)
+    phase("area", view=view, method=tracer.method, path="soft", rays=n,
+          light_samples=AREA_SAMPLES, launches=json.dumps(launches), finite=finite,
+          seconds=f"{s_kernel:.3f}", twin_seconds=f"{s_twin:.3f}",
+          vs_twin_bitwise=diff["bitwise"], vs_twin_max_abs=diff["max_abs"],
+          vs_twin_off_frac=diff["off_frac"], grad_rel_err_verts=repr(grad_err[0]),
+          grad_rel_err_albedo=repr(grad_err[1]),
+          grad_norms=json.dumps([float(x.norm()) for x in grads]), forward_ms=f"{ms:.4f}")
+    # the layers' call, the point lights' occluders, the samples' occluders
+    if not finite or launches[knear] != 2 + (scene.lights.pos.shape[0] > 0):
+        fail(f"area ({view}, soft): finite {finite}, launches {launches}")
+    if diff["off_frac"] > MAX_MISMATCH_FRAC or max(grad_err) > GRAD_DEVICE_RTOL:
+        fail(f"area ({view}, soft): off the twin route's image on {diff['off_frac']} of rays, "
+             f"gradients by {grad_err}")
+    if not all(float(x.abs().max()) > 0 for x in grads):
+        fail(f"area ({view}, soft): a gradient is zero")
+    return dict(ms=ms, launches=launches)
+
+
+def area_phase(scene, cam: Camera, bscene, bcam: Camera) -> dict:
+    """[area]: the 1M sponza and the bunny with AREA_EMITTERS seeded
+    triangles made emitters.  The hard frame through Renderer(light_samples
+    AREA_SAMPLES): wide8 on the 1M main view and the overview (occluded8
+    on the S x R area shadow rays), binary on the bunny (occluded_bin);
+    the soft render and its gradients: binary on the bunny (knear_bin),
+    wide8 on one fit-sized chunk of the 1M overview's Morton rays
+    (knear8)."""
+    dev = cam.eye.device
+    cfg = dict(light_samples=AREA_SAMPLES, light_seed=AREA_SEED)
+    scene_e = with_emitters(scene)
+    over_cam = Camera.create(eye=OVERVIEW_EYE, target=OVERVIEW_TARGET, fov_y_deg=50.0,
+                             width=WIDTH, height=HEIGHT, device=dev)
+    r, s_init = sync_time(lambda: Renderer(scene_e, RenderConfig(method="wide8", **cfg)))
+    phase("area", tris=scene_e.num_tris, emitters=AREA_EMITTERS, le=AREA_LE,
+          light_samples=AREA_SAMPLES, seed=AREA_SEED, renderer_init_s=f"{s_init:.3f}")
+    out = {"main": area_hard("main", r, cam), "overview": area_hard("overview", r, over_cam)}
+    del r
+    bscene_e = with_emitters(bscene)
+    out["bunny"] = area_hard("bunny", Renderer(bscene_e, RenderConfig(method="binary", **cfg)),
+                             bcam)
+    out["bunny_soft"] = area_soft("bunny", make_tracer(bscene_e, "binary", band=BAND),
+                                  morton_rays(bcam))
+    chunk = (WIDTH * HEIGHT) // FIT_CHUNKS
+    out["overview_soft"] = area_soft("overview_chunk0", make_tracer(scene_e, "wide8", band=BAND),
+                                     rays_slice(morton_rays(over_cam), slice(0, chunk)))
+    return out
+
 
 
 def cli_phase(bscene, bcam: Camera) -> None:
@@ -2062,17 +2576,27 @@ def main() -> None:
                (1 << 20,), 12345, dtype=torch.int64, device=dev)),
            "bunny": treebuild_parity("bunny", points=bscene.tris.centroids()),
            "sponza1m": treebuild_parity("sponza1m", points=scene.tris.centroids())}
-    stages = {"sponza1m": build_stages("sponza1m", scene)}
+    parent_lib = others.get("parent")
+    stages = {"sponza1m": build_stages("sponza1m", scene, parent=parent_lib)}
     del stages["sponza1m"]["bvh"]
+    build_cells = build_inputs("sponza1m", scene.tris.centroids())
+    build_cells["radix_all_equal"] = ("radix", torch.full((1 << 20,), 12345, dtype=torch.int64,
+                                                          device=dev))
     # -- the main path as a user calls it: Renderer -> make_tracer -> build --
     main_launches = renderer_phase(scene, cam, img)
+    # -- area lights, hard and soft: the 1M sponza and the bunny -----------
+    area = area_phase(scene, cam, bscene, bcam)
     del scene, img, fit_b
     torch.cuda.empty_cache()
     t5 = time.perf_counter()
     (scene5, _), s_scene5 = sync_time(lambda: make_sponza_scene(
         num_tris=NUM_TRIS_5M, width=WIDTH_5M, height=HEIGHT_5M, device=dev))
     tbp["sponza5m"] = treebuild_parity("sponza5m", points=scene5.tris.centroids())
-    stages["sponza5m"] = build_stages("sponza5m", scene5, wide8=True)
+    stages["sponza5m"] = build_stages("sponza5m", scene5, wide8=True, parent=parent_lib)
+    build_cells.update(build_inputs("sponza5m", scene5.tris.centroids()))
+    # -- the build kernels against the other trees' ------------------------
+    ab_build = build_ab(walk_libs, build_cells)
+    del build_cells
     phase("sponza5m", tris=scene5.num_tris, scene_s=f"{s_scene5:.3f}",
           seconds=f"{time.perf_counter() - t5:.1f}")
     del scene5, stages["sponza5m"]["bvh"]
@@ -2081,9 +2605,10 @@ def main() -> None:
     cli_phase(bscene, bcam)
     phase("cli", seconds=f"{time.perf_counter() - t_cli:.1f}")
     # morton and radix: the 1M sponza's centroids and codes first, the 5M
-    # beside them; ms is the kernel's device time, call_ms the wrapper call's
-    # (its host launch included); launches from [renderer]; max_abs_err over
-    # every input
+    # beside them; ms is the kernel's device time (radix: bare launches),
+    # call_ms the wrapper call's (its host launch included); launches from
+    # [renderer]; max_abs_err over every input; build_ab: [build_ab]'s
+    # device and stage ms of each tree's kernel on each cell
     for name in ("morton", "radix"):
         one, five = tbp["sponza1m"][name], tbp["sponza5m"][name]
         kernels.append(entry(
@@ -2096,7 +2621,17 @@ def main() -> None:
             sponza5m_plain_ms=round(five["plain_ms"], 4),
             sponza5m_bound_ms=round(five["bound_ms"], 6), sponza5m_bound_by=five["bound_by"],
             build_stage_ms=round(stages["sponza1m"]["ms"][name], 4),
-            sponza5m_build_stage_ms=round(stages["sponza5m"]["ms"][name], 4)))
+            sponza5m_build_stage_ms=round(stages["sponza5m"]["ms"][name], 4),
+            build_ab={cell: {t: {k: round(x, 5) for k, x in v.items()} for t, v in r.items()}
+                      for cell, r in ab_build.items() if cell.startswith(name)}))
+    # the area-light path's launches of each walk kernel ([area]): closest8
+    # and occluded8 in the 1M main view's hard frame, knear8 in the
+    # overview chunk's soft render, the binary kernels in the bunny's
+    for k in kernels:
+        src = {"closest8": "main", "occluded8": "main", "knear8": "overview_soft",
+               "closest_bin": "bunny", "occluded_bin": "bunny", "knear_bin": "bunny_soft"}
+        if k["name"] in src:
+            k["area_launches"] = area[src[k["name"]]]["launches"][k["name"]]
     phase("done", seconds=f"{time.perf_counter() - t_start:.1f}")
     if FAILURES:
         fail("; ".join(FAILURES))

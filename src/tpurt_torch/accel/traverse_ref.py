@@ -23,7 +23,8 @@ near_walk).  Given a ``stats`` dict, a walk also counts itself (node
 visits, leaf visits, distinct nodes and leaves;
 kernels/traverse8.walk_counts reads them), adding to what the dict holds.
 
-tpurt's soft_occlusion_ref (called by no tpurt path) is not ported yet.
+soft_occlusion_ref is the soft shadow model's oracle over this walk
+(tpurt calls it only from its tests).
 """
 
 from __future__ import annotations
@@ -33,6 +34,7 @@ import torch
 from tpurt_torch.accel.intersect import DEFAULT_T_MIN, DET_EPS
 from tpurt_torch.accel.lbvh import BVH
 from tpurt_torch.core.geometry import Hit, KHits, Rays, T_MAX, Triangles
+from tpurt_torch.diff.softvis import soft_occlusion_from_ids
 
 # Empty k-list slot id during a walk (tpurt's big_id); emitted as -1.
 BIG_ID = 2**31 - 1
@@ -294,3 +296,21 @@ def occluder_ids_ref(rays: Rays, tris: Triangles, bvh: BVH, k: int, band: float,
     """The k nearest band occluders per flat ray in (t_min, t_max) ->
     (N, k) int32, -1 padded (tpurt's occluder_ids_ref)."""
     return knear_walk(rays, FlatLayout(tris, bvh), k, band, t_min, t_max)[3]
+
+
+def soft_occlusion_ref(rays: Rays, tris: Triangles, bvh: BVH, sharpness: float,
+                       band: float = 0.08, t_min: float = DEFAULT_T_MIN, t_max=T_MAX,
+                       k_occ: int = 16) -> torch.Tensor:
+    """Soft transmittance of each shadow segment, the product over extended
+    occluders of (1 - alpha) (diff/softvis.soft_occlusion_brute's model), in
+    two phases: the k_occ nearest band occluders in (t_min, 2 t_max) from
+    the walk, without gradient, then soft_occlusion_from_ids over them,
+    differentiable.  Equal to the brute product wherever a segment crosses
+    at most k_occ extended occluders.  The BVH's boxes carry the band."""
+    flat = Rays(o=rays.o.reshape(-1, 3), d=rays.d.reshape(-1, 3))
+    tmax = torch.as_tensor(t_max, dtype=torch.float32, device=flat.o.device)
+    tmax = tmax.expand(rays.shape).reshape(-1)
+    with torch.no_grad():
+        ids = occluder_ids_ref(flat, tris, bvh, k_occ, band, t_min, 2.0 * tmax)
+    return soft_occlusion_from_ids(flat, tris, ids, sharpness, band, t_min,
+                                   tmax).reshape(rays.shape)

@@ -1,8 +1,8 @@
 """Render and fit settings (counterpart of ``tpurt/api/config.py``'s
 RenderConfig and FitConfig).  Only the fields a ported path reads are here:
-tpurt's light_seed comes with the area lights that read it, FitConfig.seed
-has no reader in tpurt either, and DistConfig, the Config container, file
-loading and flat overrides wait for the slice whose code calls them."""
+FitConfig.seed has no reader in tpurt either, and DistConfig, the Config
+container, file loading and flat overrides wait for the slice whose code
+calls them."""
 
 from __future__ import annotations
 
@@ -28,8 +28,11 @@ class RenderConfig:
     band: float = 0.08
     # candidate occluders per (ray, light) in the soft shadow model
     k_occ: int = 8
-    # area lights (not ported; > 0 raises): samples per shading point
+    # area lights: Monte-Carlo samples per shading point on the scene's
+    # emissive triangles (0: point lights only); light_seed seeds the
+    # generator Renderer makes when none is passed
     light_samples: int = 0
+    light_seed: int = 0
 
     def tracer_kwargs(self) -> dict[str, Any]:
         return dict(method=self.method, leaf_size=self.leaf_size,

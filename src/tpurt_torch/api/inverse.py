@@ -13,6 +13,10 @@ stops at a detached copy of the table, the chunks' table gradients add up
 there, and one backward through the table brings them to the parameters.
 That is tpurt's per-chunk gradient sum with the memory of one chunk.
 
+The fit passes no generator, so it samples no emitters: a render config
+with ``light_samples > 0`` fits the point-lit image, as tpurt's fit, which
+passes no key, does.
+
 With ``FitConfig.ckpt_path`` set, a fit resumes from the latest checkpoint
 there (parameters and optimizer state) and saves one every ``ckpt_every``
 steps, as tpurt's does (api/checkpoint.py).
@@ -35,7 +39,7 @@ from tpurt_torch.api.config import FitConfig, RenderConfig
 from tpurt_torch.core.geometry import Camera, Rays
 from tpurt_torch.core.scene import Scene
 from tpurt_torch.render.camera import gen_primary_rays
-from tpurt_torch.render.pipeline import _require_ported, make_tracer, render_rays, tri_table
+from tpurt_torch.render.pipeline import make_tracer, render_rays, tri_table
 
 
 def make_optimizer(cfg: FitConfig, params: dict[str, torch.Tensor]):
@@ -81,7 +85,6 @@ class InverseRenderer:
             method="wide8", soft=True, k_layers=6, sharpness=40.0, band=0.15)
         if not self.render_cfg.soft:
             raise ValueError("inverse rendering requires RenderConfig(soft=True)")
-        _require_ported(self.render_cfg.light_samples)
         self.scene0 = scene
         self.cam = cam
         self.tracer0 = make_tracer(scene, **self.render_cfg.tracer_kwargs())

@@ -62,20 +62,35 @@ class Renderer:
     def _kwargs(self, overrides: dict[str, Any]) -> dict[str, Any]:
         return {**self.config.render_kwargs(), **overrides}
 
-    def render_rays(self, rays: Rays, **overrides: Any) -> torch.Tensor:
+    def _generator(self, device, light_samples: int) -> torch.Generator:
+        """The generator a render draws from when the caller passes none:
+        seeded light_seed when it samples emitters (tpurt's light_seed key),
+        else 0."""
+        g = torch.Generator(device=device)
+        g.manual_seed(self.config.light_seed if light_samples > 0 else 0)
+        return g
+
+    def render_rays(self, rays: Rays, generator: torch.Generator | None = None,
+                    **overrides: Any) -> torch.Tensor:
         """Radiance (R, 3) of a flat batch of rays, with the config's render
-        settings, any of them overridden by keyword."""
-        return render_rays(self._tracer, rays, **self._kwargs(overrides))
+        settings, any of them overridden by keyword.  light_samples > 0
+        draws the emitter points from `generator`, one seeded light_seed
+        when none is given."""
+        kw = self._kwargs(overrides)
+        if kw["light_samples"] > 0 and generator is None:
+            generator = self._generator(rays.o.device, kw["light_samples"])
+        return render_rays(self._tracer, rays, generator=generator, **kw)
 
     def render(self, cam: Camera, spp: int | None = None,
                generator: torch.Generator | None = None,
                **overrides: Any) -> torch.Tensor:
         """The (H, W, 3) linear-radiance image.  spp (default the config's)
-        > 1 averages that many jittered samples drawn from `generator`, a
-        generator on the camera's device seeded 0 when none is given."""
+        > 1 averages that many jittered samples and light_samples > 0 adds
+        sampled area light, both drawn from `generator`; when none is
+        given, from one on the camera's device seeded light_seed if the
+        render samples emitters, else 0."""
         spp = self.config.spp if spp is None else spp
-        if spp > 1 and generator is None:
-            generator = torch.Generator(device=cam.eye.device)
-            generator.manual_seed(0)
-        return render_image(self._tracer, cam, spp=spp, generator=generator,
-                            **self._kwargs(overrides))
+        kw = self._kwargs(overrides)
+        if generator is None and (spp > 1 or kw["light_samples"] > 0):
+            generator = self._generator(cam.eye.device, kw["light_samples"])
+        return render_image(self._tracer, cam, spp=spp, generator=generator, **kw)

@@ -10,8 +10,8 @@ Thin wrapper over the api/ layer, on the CUDA device.
 
 ``bench`` raises: the port's benchmark is ROADMAP.md item 8 (tpurt's
 ``bench.py`` imports JAX).  ``--shard`` raises: ``dist/`` is slice 5.
-``render`` has no ``--seed``: tpurt's seeds only its area-light sampler,
-which comes with area lights (ROADMAP.md item 17).
+``render --light-samples S --seed K`` adds area light from S points drawn
+on the emissive triangles by a generator seeded K.
 """
 
 from __future__ import annotations
@@ -75,7 +75,7 @@ def cmd_render(args) -> int:
     log = get_logger()
     scene, cam = _scene(args)
     cfg = RenderConfig(method=args.method, spp=args.spp,
-                       light_samples=args.light_samples)
+                       light_samples=args.light_samples, light_seed=args.seed)
     with trace_span("render", log=True):
         img = Renderer(scene, cfg).render(cam)
         if img.is_cuda:
@@ -203,7 +203,9 @@ def build_parser() -> argparse.ArgumentParser:
     sp.add_argument("-o", "--out", default="out.png")
     sp.add_argument("--spp", type=int, default=1)
     sp.add_argument("--light-samples", type=int, default=0,
-                    help="area-light samples per shading point (not ported: > 0 raises)")
+                    help="area-light samples per shading point")
+    sp.add_argument("--seed", type=int, default=0,
+                    help="seed of the area-light sampler (light_seed)")
     sp.add_argument("--shard", action="store_true",
                     help="shard rays over all devices (not ported: raises)")
     sp.set_defaults(fn=cmd_render)

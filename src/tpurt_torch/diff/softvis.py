@@ -24,6 +24,7 @@ from tpurt_torch.accel.intersect import DEFAULT_T_MIN, DET_EPS
 from tpurt_torch.core.geometry import KHits, Rays, T_MAX, Triangles
 from tpurt_torch.core.math import cross, dot
 from tpurt_torch.diff.gather_grad import gather_verts
+from tpurt_torch.diff.intersect_vjp import intersect_tuv
 
 # Grazing-incidence gate: coverage fades out for faces seen nearly edge-on
 # (|cos(ray, normal)| below ~1e-2), where the smooth pseudo-inverse drags
@@ -143,6 +144,48 @@ def shadow_t_ramp(t, t_max):
     up = torch.clamp((x - RAMP_NEAR0) / (RAMP_NEAR1 - RAMP_NEAR0), 0.0, 1.0)
     dn = torch.clamp((RAMP_FAR1 - x) / (RAMP_FAR1 - RAMP_FAR0), 0.0, 1.0)
     return _smoothstep01(up) * _smoothstep01(dn)
+
+
+def soft_occlusion_from_ids(rays: Rays, tris: Triangles, ids: torch.Tensor,
+                            sharpness: float, band: float = 0.08,
+                            t_min: float = DEFAULT_T_MIN, t_max=T_MAX) -> torch.Tensor:
+    """Differentiable transmittance of each shadow segment from a discrete
+    occluder-id list: ids (R, K) int32 candidates per flat ray (-1 padding,
+    from any engine, no gradient); (t, u, v) are recomputed from the
+    gathered vertices, so the gradient is the brute-force product's over
+    the same occluders.  t_max is a scalar or per ray; returns the rays'
+    shape."""
+    ids = ids.detach()
+    o = rays.o.reshape(-1, 1, 3)
+    d = rays.d.reshape(-1, 1, 3)
+    tm = torch.as_tensor(t_max, dtype=torch.float32, device=o.device)
+    tmax = tm.reshape(-1, 1) if tm.ndim > 0 else tm
+    f = tris.faces.long()[ids.clamp_min(0).long()]           # (R, K, 3)
+    v0, v1, v2 = (tris.verts[f[..., c]] for c in range(3))
+    e1, e2 = v1 - v0, v2 - v0
+    n = cross(e1, e2)
+    t, u, v = intersect_tuv(o, d, v0, v1, v2)
+    det = dot(e1, cross(d.expand_as(e2), e2))
+    cos_dn = det / torch.sqrt(torch.clamp_min(dot(d, d) * dot(n, n), 1e-30))
+    ok = ((ids >= 0) & (det.abs() > DET_EPS) & (u >= -band) & (v >= -band)
+          & (u + v <= 1.0 + band) & (t > t_min) & (t < 2.0 * tmax))
+    a = coverage(u, v, sharpness, ok, band) * shadow_t_ramp(t, tmax) * det_gate(cos_dn)
+    return transmittance(a).reshape(rays.shape)
+
+
+def soft_occlusion_brute(rays: Rays, tris: Triangles, sharpness: float,
+                         band: float = 0.08, t_min: float = DEFAULT_T_MIN,
+                         t_max=T_MAX) -> torch.Tensor:
+    """Soft visibility of each shadow segment: the product over every
+    extended occluder of (1 - alpha), testing all triangles (the oracle);
+    t_max a scalar or per ray (the distance to the light)."""
+    o = rays.o.reshape(-1, 1, 3)
+    d = rays.d.reshape(-1, 1, 3)
+    tm = torch.as_tensor(t_max, dtype=torch.float32, device=o.device)
+    tmax = tm.reshape(-1, 1).expand(o.shape[:2]) if tm.ndim > 0 else tm
+    t, u, v, ok, gate = _extended_tuv(o, d, tris, band, t_min, 2.0 * tmax)
+    a = coverage(u, v, sharpness, ok, band) * shadow_t_ramp(t, tmax) * gate
+    return transmittance(a).reshape(rays.shape)
 
 
 def dot3(a, b):

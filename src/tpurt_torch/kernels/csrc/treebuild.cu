@@ -29,29 +29,33 @@
 // points as plain f32 (three 4-byte loads a thread, neighbouring threads on
 // neighbouring points) and writes one int64 a thread.
 //
-// radix: one thread per internal node i < N - 1.  delta(i, j) is the common
-// prefix length of the sorted keys (code, index): clz(code_i ^ code_j), or
-// 32 + clz(i ^ j) for equal codes, and -1 for j out of range.  The direction
-// d = sign(delta(i, i + 1) - delta(i, i - 1)), then a 31-step power-of-two
-// search for the far end j of the node's range and a 31-step search for the
-// split gamma, exactly the twin's ladders (no early exit, so the same
-// candidates are tested).  Index arithmetic is 64-bit, as in the twin.  The
-// kernel writes left, right (leaf ids offset by N - 1), first = min(i, j),
-// last = max(i, j) of node i, and parent of both children; each child has
-// exactly one parent, so the parent writes never race.  The wrapper writes
-// the leaves' first/last and the root's parent -1 (the kernel allocates
-// nothing).  Bound: bytes.  The function needs Karras's search, an
-// exponential then a binary search for the range end and a binary search
-// for the split, about 2 log2(range) + 6 delta evaluations a node (a
-// handful for most nodes); its operations then weigh less than reading the
-// codes once and writing 24 bytes a node (32 MB at 1M nodes, about 0.01 ms
-// at 3.35 TB/s).  The simple design runs the twin's fixed ladders instead:
-// 62 steps a node, of which every in-range candidate loads a code; on the
-// 1M sponza that is 2.3 times the code loads and 6.7 times the delta
-// evaluations the function needs.  The codes (8 MB at
-// 1M as int64, 40 MB at 5M) stay in the 50 MB L2; each is read through
-// L1/L2 with no shared memory, and a thread's own code is loaded once.
-// Making either kernel fast is left to later work.
+// radix: Karras's search (2012, fig. 4), one thread per internal node, and
+// the whole stage in one launch.  delta(i, j) is the common prefix length of
+// the sorted keys (code, index): clz(code_i ^ code_j), or 32 + clz(i ^ j)
+// for equal codes, and -1 for j out of range.  The direction d = sign(
+// delta(i, i + 1) - delta(i, i - 1)); the far end of the node's range by an
+// exponential search (l_max = 2, 4, ... while the candidate stays inside)
+// and a binary search below l_max; the split over t = ceil(l/2), ceil(l/4),
+// ..., 1.  The predicates are monotone along the range, so this finds the
+// same l and split as the twin's fixed 31-step ladders, with 2 log2(range)
+// + 6 delta evaluations a node instead of 62 (most nodes' ranges are a few
+// keys).  Index arithmetic is 32-bit: the wrapper refuses N > 2^30, so
+// i < 2^30 and a candidate i +- m with m < 2^31 stays below 2^32 as an
+// unsigned value, where one below 0 wraps above N and both fail the single
+// range test (unsigned)j < n.  Thread t of a grid over N threads builds
+// internal node t (t < N - 1: left, right, first = min(i, j), last =
+// max(i, j), and the parent of both children; each child has exactly one
+// parent, so the parent writes never race), writes leaf t's first = last =
+// t, and thread 0 the root's parent -1: the wrapper allocates its outputs
+// with torch.empty and launches nothing else.  Bound: operations and
+// bytes, the work Karras's search needs (about 0.01 ms at 1M keys on the
+// H100, chip_smoke.py karras_work).  What the kernel loses to it is
+// divergence: a warp runs as long as its node of the longest range.  The
+// codes (8 MB at 1M as int64, 40 MB at 5M) stay in the 50 MB L2, read
+// through L1 with no shared memory, and a thread's own code is loaded once;
+// blocks of 128 threads.  Measured and left out (PERF.md): a shared-memory
+// tile of the block's codes, blocks of 256 and 512, and lane refill (one
+// search step a loop iteration over grid-strided nodes).
 
 #include <cuda_runtime.h>
 
@@ -59,7 +63,8 @@
 
 namespace {
 
-constexpr int kBuildBlock = 256;
+constexpr int kBuildBlock = 256;  // morton
+constexpr int kRadixBlock = 128;
 constexpr int kMortonBits = 10;
 
 // tpurt's _expand: insert two zero bits after each of the low 10 bits
@@ -93,53 +98,63 @@ morton_kernel(const float* __restrict__ points, const float* __restrict__ lo,
                        expand_bits(qz));
 }
 
-// delta(i, j) of the sorted keys; ci is code i.  i ^ j < 2^31, so its clz
-// as a 32-bit value is the twin's clz32 of the int64.
+// delta(i, j) of the sorted keys; ci is code i, j a candidate in uint32
+// arithmetic (below 0 it has wrapped above n).  i ^ j < 2^30.
 __device__ __forceinline__ int delta(const int64_t* __restrict__ codes,
-                                     int64_t n, int64_t i, uint32_t ci,
-                                     int64_t j) {
-  if (j < 0 || j >= n) return -1;
+                                     uint32_t n, uint32_t i, uint32_t ci,
+                                     uint32_t j) {
+  if (j >= n) return -1;
   uint32_t x = ci ^ (uint32_t)codes[j];
-  if (x == 0) return 32 + __clz((int)(uint32_t)(i ^ j));
+  if (x == 0) return 32 + __clz((int)(i ^ j));
   return __clz((int)x);
 }
 
-__global__ void __launch_bounds__(kBuildBlock)
-radix_kernel(const int64_t* __restrict__ codes, int64_t n,
-             int* __restrict__ left, int* __restrict__ right,
-             int* __restrict__ parent, int* __restrict__ first,
-             int* __restrict__ last) {
-  int64_t i = (int64_t)blockIdx.x * blockDim.x + threadIdx.x;
-  if (i >= n - 1) return;
+// i + m d in uint32 arithmetic (d is +1 or -1).
+__device__ __forceinline__ uint32_t step(uint32_t i, uint32_t m, int d) {
+  return d > 0 ? i + m : i - m;
+}
+
+__global__ void __launch_bounds__(kRadixBlock)
+radix_kernel(const int64_t* __restrict__ codes, int n, int* __restrict__ left,
+             int* __restrict__ right, int* __restrict__ parent,
+             int* __restrict__ first, int* __restrict__ last) {
+  int t = blockIdx.x * blockDim.x + threadIdx.x;
+  if (t >= n) return;
+  first[n - 1 + t] = t;  // leaf t
+  last[n - 1 + t] = t;
+  if (t == 0) parent[0] = -1;  // the root
+  if (t >= n - 1) return;
+  uint32_t un = (uint32_t)n, i = (uint32_t)t;
   uint32_t ci = (uint32_t)codes[i];
-  int64_t d = delta(codes, n, i, ci, i + 1) - delta(codes, n, i, ci, i - 1) >= 0
-                  ? 1 : -1;
-  int delta_min = delta(codes, n, i, ci, i - d);
-  // largest l >= 1 with delta(i, i + l d) > delta_min
-  int64_t l = 0;
-  for (int b = 0; b < 31; ++b) {
-    int64_t cand = l + ((int64_t)1 << (30 - b));
-    if (delta(codes, n, i, ci, i + cand * d) > delta_min) l = cand;
-  }
-  int64_t j = i + l * d;
-  int delta_node = delta(codes, n, i, ci, j);
-  // largest s in [0, l - 1] with delta(i, i + s d) > delta_node
-  int64_t s = 0;
-  for (int b = 0; b < 31; ++b) {
-    int64_t cand = s + ((int64_t)1 << (30 - b));
-    if (cand <= l - 1 && delta(codes, n, i, ci, i + cand * d) > delta_node)
-      s = cand;
-  }
-  int64_t gamma = i + s * d + (d < 0 ? d : 0);
-  int64_t lo = i < j ? i : j, hi = i < j ? j : i;
-  int64_t lc = lo == gamma ? n - 1 + gamma : gamma;
-  int64_t rc = hi == gamma + 1 ? n - 1 + gamma + 1 : gamma + 1;
-  left[i] = (int)lc;
-  right[i] = (int)rc;
-  first[i] = (int)lo;
-  last[i] = (int)hi;
-  parent[lc] = (int)i;
-  parent[rc] = (int)i;
+  int up = delta(codes, un, i, ci, i + 1), down = delta(codes, un, i, ci, i - 1);
+  int d = up - down >= 0 ? 1 : -1;
+  int delta_min = d > 0 ? down : up;
+  // the range end: l_max doubles while its candidate stays in the range,
+  // then the largest l < l_max with delta(i, i + l d) > delta_min
+  uint32_t lmax = 2;
+  while (delta(codes, un, i, ci, step(i, lmax, d)) > delta_min) lmax <<= 1;
+  uint32_t l = 0;
+  for (uint32_t h = lmax >> 1; h > 0; h >>= 1)
+    if (delta(codes, un, i, ci, step(i, l + h, d)) > delta_min) l += h;
+  uint32_t j = step(i, l, d);
+  int delta_node = delta(codes, un, i, ci, j);
+  // the split: the largest s in [0, l - 1] with delta(i, i + s d) >
+  // delta_node, over h = ceil(l/2), ceil(l/4), ..., 1
+  uint32_t s = 0, h = l;
+  do {
+    h = (h + 1) >> 1;
+    if (delta(codes, un, i, ci, step(i, s + h, d)) > delta_node) s += h;
+  } while (h > 1);
+  int gamma = (int)step(i, s, d) + (d < 0 ? -1 : 0);
+  int lo = (int)min(i, j), hi = (int)max(i, j);
+  int lc = lo == gamma ? n - 1 + gamma : gamma;
+  int rc = hi == gamma + 1 ? n + gamma : gamma + 1;
+  left[t] = lc;
+  right[t] = rc;
+  first[t] = lo;
+  last[t] = hi;
+  parent[lc] = t;
+  parent[rc] = t;
 }
 
 }  // namespace
@@ -158,14 +173,14 @@ int tpurt_morton(const float* points, const float* lo, const float* inv,
   return (int)cudaGetLastError();
 }
 
-// codes (n,) int64 holding sorted uint32; left, right (n - 1,) i32; parent,
-// first, last (2n - 1,) i32, of which the kernel writes the children's
-// parents and the internal nodes' first/last.
+// codes (n,) int64 holding sorted uint32, 2 <= n <= 2^30; left, right
+// (n - 1,) i32; parent, first, last (2n - 1,) i32, every element of which
+// the kernel writes.
 int tpurt_radix(const int64_t* codes, int n, int* left, int* right,
                 int* parent, int* first, int* last, cudaStream_t stream) {
   if (n <= 1) return 0;
-  int grid = (n - 1 + kBuildBlock - 1) / kBuildBlock;
-  radix_kernel<<<grid, kBuildBlock, 0, stream>>>(codes, n, left, right, parent,
+  int grid = (n + kRadixBlock - 1) / kRadixBlock;
+  radix_kernel<<<grid, kRadixBlock, 0, stream>>>(codes, n, left, right, parent,
                                                  first, last);
   return (int)cudaGetLastError();
 }

@@ -34,6 +34,9 @@ MORTON_BITS = 10  # per axis -> 30-bit codes
 # is handed this exact f32.
 MORTON_CLAMP_HI = float(np.float32(1.0 - 1e-7))
 _U32 = 0xFFFFFFFF
+# The radix kernel computes its indices in 32 bits: i + l_max and i - l_max
+# stay below 2^32 as unsigned values while N <= 2^30.
+MAX_RADIX_KEYS = 1 << 30
 
 # Kernel launches per wrapper since the last reset_launches(); only a real
 # CUDA launch counts.
@@ -188,25 +191,25 @@ def morton_codes(points: torch.Tensor, lo: torch.Tensor,
 
 
 def radix_tree(codes: torch.Tensor):
-    """Karras radix tree over sorted codes (N,) int64 holding uint32, N >= 2:
-    (left, right, parent, first, last) as int32, leaf ids offset by N-1 (see
-    radix_tree_ref)."""
+    """Karras radix tree over sorted codes (N,) int64 holding uint32,
+    2 <= N <= MAX_RADIX_KEYS: (left, right, parent, first, last) as int32,
+    leaf ids offset by N-1 (see radix_tree_ref).  On the card one launch
+    writes all five; the outputs are allocated uninitialised."""
     dev = codes.device
     n = codes.shape[0]
     if n < 2:
         raise ValueError(f"a radix tree needs at least 2 codes, got {n}")
+    if n > MAX_RADIX_KEYS:
+        raise ValueError(f"a radix tree takes at most 2^30 codes (32-bit index "
+                         f"arithmetic), got {n}")
     _check("codes", codes, torch.int64, (n,), dev)
     if dev.type == "cpu":
         return radix_tree_ref(codes)
     if dev.type != "cuda":
         raise ValueError(f"unsupported device {dev}")
     i32 = dict(dtype=torch.int32, device=dev)
-    left = torch.empty(n - 1, **i32)
-    right = torch.empty(n - 1, **i32)
-    parent = torch.full((2 * n - 1,), -1, **i32)
-    leaves = torch.arange(n, **i32)
-    first = torch.cat([torch.empty(n - 1, **i32), leaves])
-    last = torch.cat([torch.empty(n - 1, **i32), leaves])
+    left, right = (torch.empty(n - 1, **i32) for _ in range(2))
+    parent, first, last = (torch.empty(2 * n - 1, **i32) for _ in range(3))
     lib = _build.load()
     with _build.on_device(codes):
         err = lib.tpurt_radix(

@@ -22,7 +22,15 @@ Engines (``Tracer.method``):
   of tpurt's ``"pallas8"``: CUDA kernels on the GPU, their plain-torch twins
   on the CPU.
 
-Area-light sampling is not ported yet; asking for it raises.
+Area lights: with light_samples > 0 and a torch.Generator, each render
+draws light_samples points on the scene's emissive triangles
+(render/shade.sample_emitters) and adds their Monte-Carlo direct light.
+The hard render traces one shadow ray per (point, sample) through the
+engine's any-hit walk (occluded8, occluded_bin on the card); the soft
+render traces the candidate occluders toward the samples from layer 0
+through its k-nearest walk (knear8, knear_bin) and evaluates the soft
+transmittance of every layer, as for point lights.  Without a generator
+nothing is sampled, as tpurt samples nothing without a key.
 """
 
 from __future__ import annotations
@@ -52,18 +60,12 @@ from tpurt_torch.kernels.traverse import (
 from tpurt_torch.kernels.traverse8 import (
     k_nearest_wide8, occluded_wide8, traverse_wide8)
 from tpurt_torch.render.camera import gen_primary_rays, pixel_morton_perm
-from tpurt_torch.render.shade import face_forward, light_dirs, shade_lambert
+from tpurt_torch.render.shade import (
+    area_light_contrib, face_forward, light_dirs, sample_emitters, shade_lambert)
 
 SHADOW_EPS = 1e-3  # offset shadow-ray origins off the surface
 SHADOW_T_FRAC = 1.0 - 1e-3  # stop shadow rays just before the light
 METHODS = ("brute", "bvh", "binary", "wide8")
-
-
-def _require_ported(light_samples: int) -> None:
-    if light_samples > 0:
-        raise NotImplementedError(
-            "area-light sampling (light_samples > 0) is not ported to tpurt_torch "
-            "yet (ROADMAP.md queue 1, item 17)")
 
 
 def tri_table(tris) -> torch.Tensor:
@@ -214,8 +216,28 @@ def shadow_rays(scene: Scene, p: torch.Tensor, n: torch.Tensor,
     return Rays(o=o_sh, d=d_sh), t_sh
 
 
-def _shade_layer(tracer: Tracer, rays: Rays, hit: Hit, shade=None):
-    """Shade the closest-hit layer with hard shadow rays -> color (R, 3)."""
+def area_shadow_rays(p: torch.Tensor, n: torch.Tensor, valid: torch.Tensor,
+                     lp: torch.Tensor):
+    """One shadow ray per (hit point, emitter sample lp (S, 3)), flattened
+    sample-major (neighbouring rays toward one sample, as shadow_rays keeps
+    neighbouring rays toward one light), with t_max just short of the
+    sample; a missed primary ray gets t_max = 0.  Returns (Rays (S*R, 3),
+    t_max (S*R,))."""
+    o_surf = p + SHADOW_EPS * n
+    delta = lp[None, :, :] - o_surf[:, None, :]                  # (R, S, 3)
+    ldist = torch.sqrt(torch.clamp_min(torch.sum(delta * delta, dim=-1), 1e-12))
+    lwi = delta / ldist[..., None]
+    S, R = lp.shape[0], p.shape[0]
+    o_al = o_surf[None].expand(S, R, 3).reshape(-1, 3)
+    t_al = torch.where(valid[:, None], ldist * SHADOW_T_FRAC, 0.0).T.reshape(-1)
+    return Rays(o=o_al, d=lwi.transpose(0, 1).reshape(-1, 3)), t_al
+
+
+def _shade_layer(tracer: Tracer, rays: Rays, hit: Hit, shade=None,
+                 light_samples: int = 0, generator: torch.Generator | None = None):
+    """Shade the closest-hit layer with hard shadow rays -> color (R, 3);
+    light_samples > 0 with a generator adds the area lights' Monte-Carlo
+    direct light, one hard shadow ray per (point, sample)."""
     scene = tracer.scene
     valid = hit.valid
     p, n, albedo, emission = hit_surface(tracer, rays, hit, shade)
@@ -227,6 +249,11 @@ def _shade_layer(tracer: Tracer, rays: Rays, hit: Hit, shade=None):
         vis = torch.zeros((R, 0), dtype=torch.float32, device=p.device)
     color = shade_lambert(p, n, albedo, emission, scene.lights, vis,
                           scene.ambient)
+    if light_samples > 0 and generator is not None:
+        lp, ln_, le, pdf, _ = sample_emitters(generator, scene.tris, light_samples)
+        al_rays, t_al = area_shadow_rays(p, n, valid, lp)
+        vis_al = tracer.visibility(al_rays, t_max=t_al).reshape(light_samples, R).T
+        color = color + area_light_contrib(p, n, albedo, lp, ln_, le, pdf, vis_al)
     return torch.where(valid[..., None], color, 0.0)
 
 
@@ -294,18 +321,23 @@ def occluder_rays(surf: SoftSurface, light_pos: torch.Tensor):
 
 
 def _render_soft(tracer: Tracer, rays: Rays, k_layers: int, sharpness: float,
-                 band: float, k_occ: int) -> torch.Tensor:
-    """K-layer soft render of flat rays (R, 3) -> (R, 3), point lights only:
-    one k-nearest walk for the layers, one for the shadow candidates of
-    each (layer-0 point, light), shared by every layer."""
+                 band: float, k_occ: int, light_samples: int = 0,
+                 generator: torch.Generator | None = None) -> torch.Tensor:
+    """K-layer soft render of flat rays (R, 3) -> (R, 3): one k-nearest walk
+    for the layers, one for the shadow candidates of each (layer-0 point,
+    light), shared by every layer; with light_samples > 0 and a generator
+    the same toward each emitter sample (tpurt's shared_vis)."""
     scene = tracer.scene
     ids = tracer.k_nearest(rays, k=k_layers, band=band).tri     # (R, K)
     r, k = ids.shape
     surf = soft_surface(tracer.table, rays, ids)
     alphas = coverage(surf.u, surf.v, sharpness, surf.valid, band) * det_gate(surf.cos_dn)
-    n_l = scene.lights.pos.shape[0]
-    if n_l > 0:
-        wi, dist, cand, t_seg = occluder_rays(surf, scene.lights.pos)
+
+    def shared_vis(light_pos: torch.Tensor) -> torch.Tensor:
+        """Soft transmittance (R*K, n_l) toward n_l point positions from
+        every layer, the candidates traced once from layer 0."""
+        n_l = light_pos.shape[0]
+        wi, dist, cand, t_seg = occluder_rays(surf, light_pos)
         occ = tracer.occluder_ids(cand, t_seg, k_occ, band)
         occ = occ.reshape(n_l, r, k_occ).permute(0, 2, 1)          # (L, C, R)
         vis = soft_occlusion_layers_soa(
@@ -313,32 +345,42 @@ def _render_soft(tracer: Tracer, rays: Rays, k_layers: int, sharpness: float,
             [wi[i][:, :, None, :] for i in range(3)],
             (dist * SHADOW_T_FRAC)[:, :, None, :], occ, tracer.table,
             sharpness, band)                                        # (K, L, R)
-        vis = vis.permute(2, 0, 1).reshape(r * k, -1)               # (R*K, L)
+        return vis.permute(2, 0, 1).reshape(r * k, -1)              # (R*K, L)
+
+    if scene.lights.pos.shape[0] > 0:
+        vis = shared_vis(scene.lights.pos)
     else:
         vis = torch.zeros((r * k, 0), dtype=torch.float32, device=ids.device)
 
     def aos3(comps):  # 3 x (K, R) -> (R*K, 3), ray-major layer order
         return torch.stack(comps, dim=-1).transpose(0, 1).reshape(-1, 3)
 
-    color = shade_lambert(aos3(surf.p), aos3(surf.n), aos3(surf.albedo),
-                          aos3(surf.emission), scene.lights, vis, scene.ambient)
+    pf, nf, alb = aos3(surf.p), aos3(surf.n), aos3(surf.albedo)
+    color = shade_lambert(pf, nf, alb, aos3(surf.emission), scene.lights, vis,
+                          scene.ambient)
+    if light_samples > 0 and generator is not None:
+        lp, ln_, le, pdf, _ = sample_emitters(generator, scene.tris, light_samples)
+        color = color + area_light_contrib(pf, nf, alb, lp, ln_, le, pdf, shared_vis(lp))
     colors = torch.where(surf.valid.T[..., None], color.reshape(r, k, 3), 0.0)
     return composite(alphas.T, colors, scene.background)
 
 
 def render_rays(tracer: Tracer, rays: Rays, *, soft: bool = False,
                 k_layers: int = 4, sharpness: float = 100.0, band: float = 0.08,
-                k_occ: int = 8, light_samples: int = 0) -> torch.Tensor:
+                k_occ: int = 8, light_samples: int = 0,
+                generator: torch.Generator | None = None) -> torch.Tensor:
     """Radiance for a flat batch of rays -> (R, 3).
 
     soft=False: the hard closest-hit render.  soft=True: the differentiable
     K-layer render; k_occ candidate occluders per (ray, light), traced once
-    from the nearest layer and shared by all layers."""
-    _require_ported(light_samples)
+    from the nearest layer and shared by all layers.  light_samples > 0
+    with a generator (on the scene's device): area light from that many
+    points drawn on the emissive triangles, shared by the batch."""
     if soft:
-        return _render_soft(tracer, rays, k_layers, sharpness, band, k_occ)
+        return _render_soft(tracer, rays, k_layers, sharpness, band, k_occ,
+                            light_samples, generator)
     hit, shade = tracer.closest_shaded(rays)
-    color = _shade_layer(tracer, rays, hit, shade)
+    color = _shade_layer(tracer, rays, hit, shade, light_samples, generator)
     bg = tracer.scene.background.expand(color.shape)
     return torch.where(hit.valid[..., None], color, bg)
 
@@ -352,14 +394,16 @@ def render(scene: Scene, cam: Camera, *, method: str = "brute",
 
     A soft render builds its tracer with band-inflated boxes (band=band);
     a hard one with band 0.  spp > 1 with a generator averages spp
-    jittered samples (render_image)."""
-    _require_ported(light_samples)
+    jittered samples (render_image).  light_samples > 0 with a generator
+    adds the emissive triangles' sampled area light (without one, nothing
+    is sampled)."""
     if tracer is None:
         tracer = make_tracer(scene, method, band=band if soft else 0.0)
     else:
         tracer = dataclasses.replace(tracer, scene=scene, table=tri_table(scene.tris))
     return render_image(tracer, cam, spp=spp, generator=generator, soft=soft,
-                        k_layers=k_layers, sharpness=sharpness, band=band, k_occ=k_occ)
+                        k_layers=k_layers, sharpness=sharpness, band=band, k_occ=k_occ,
+                        light_samples=light_samples)
 
 
 def render_image(tracer: Tracer, cam: Camera, spp: int = 1,
@@ -371,13 +415,15 @@ def render_image(tracer: Tracer, cam: Camera, spp: int = 1,
     per-ray engines give the same pixels in any order.  With spp > 1 and a
     generator, the mean of spp samples, each with its own sub-pixel jitter
     from sample_square(generator); otherwise one sample at pixel centres,
-    as tpurt's render does without a key."""
+    as tpurt's render does without a key.  The generator also draws each
+    sample's emitter points when kw asks for light_samples."""
     perm, inv = (torch.as_tensor(x, device=cam.eye.device)
                  for x in pixel_morton_perm(cam.height, cam.width))
 
     def one(jitter):
         rays = gen_primary_rays(cam, jitter)
-        return render_rays(tracer, Rays(o=rays.o[perm], d=rays.d[perm]), **kw)[inv]
+        return render_rays(tracer, Rays(o=rays.o[perm], d=rays.d[perm]),
+                           generator=generator, **kw)[inv]
 
     if spp <= 1 or generator is None:
         img = one(None)

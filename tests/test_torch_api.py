@@ -105,10 +105,15 @@ def test_renderer_refuses_what_is_not_ported(kw, err, match):
 
 
 def test_renderer_area_lights_raise_at_render():
+    """Area lights render through the Renderer (they raised before they
+    were ported): light_samples > 0 draws from a generator seeded
+    light_seed, the same image each time; cornell has no emitter, so the
+    image is the point-lit one."""
     scene, cam = _cornell(4)
-    r = Renderer(scene, RenderConfig(method="brute", light_samples=2))
-    with pytest.raises(NotImplementedError, match="item 17"):
-        r.render(cam)
+    r = Renderer(scene, RenderConfig(method="brute", light_samples=2, light_seed=3))
+    img = r.render(cam)
+    assert torch.equal(img, r.render(cam))
+    assert torch.equal(img, Renderer(scene, RenderConfig(method="brute")).render(cam))
 
 
 # -- spp -------------------------------------------------------------------
@@ -148,7 +153,7 @@ def test_sample_square_shape_range_and_seed():
 
 # -- config ----------------------------------------------------------------
 # tpurt's fields the port leaves out until a ported path reads them
-UNREAD = {"RenderConfig": {"light_seed"}, "FitConfig": {"seed"}}
+UNREAD = {"RenderConfig": set(), "FitConfig": {"seed"}}
 
 
 @pytest.mark.parametrize("cls", ["RenderConfig", "FitConfig"])

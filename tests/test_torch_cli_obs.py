@@ -30,12 +30,13 @@ def _verbs(parser):
 
 
 def test_parser_has_tpurts_verbs_and_flags():
-    """tpurt's flags, less render's --seed: it seeds only the area-light
-    sampler, which is not ported."""
+    """tpurt's verbs and flags, render's --seed (the area-light sampler's)
+    among them."""
     got, ref = _verbs(build_parser()), _verbs(j_build_parser())
     assert set(got) == set(ref) == {"render", "build-bvh", "fit", "check-grads", "bench"}
     for verb in ref:
-        assert got[verb] == ref[verb] - ({"--seed"} if verb == "render" else set()), verb
+        assert got[verb] == ref[verb], verb
+    assert "--seed" in got["render"]
     assert "--config" not in got["render"] and "--set" not in got["render"]
 
 
@@ -84,12 +85,23 @@ def test_fit_checkpoints_and_resumes(tmp_path):
     (["bench"], "item 8"),
     (["render", "--shard", "--width", "4"], "slice 5"),
     (["fit", "--shard", "--width", "4", "--steps", "1"], "slice 5"),
-    (["render", "--light-samples", "2", "--width", "4", "--method", "brute"], "item 17"),
 ])
 def test_unported_verbs_and_flags_raise(argv, match, tmp_path):
     with pytest.raises(NotImplementedError, match=match):
         main(argv + (["-o", str(tmp_path / "x.npy")] if argv[0] == "render" else []),
              device="cpu")
+
+
+def test_render_light_samples_and_seed(tmp_path):
+    """render --light-samples (it raised before area lights were ported)
+    writes the image; cornell has no emitter, so it is the point-lit one,
+    whatever --seed."""
+    out = [str(tmp_path / f"{k}.npy") for k in ("a", "b")]
+    argv = ["render", "--width", "4", "--method", "brute"]
+    assert main(argv + ["--light-samples", "2", "--seed", "5", "-o", out[0]], device="cpu") == 0
+    assert main(argv + ["-o", out[1]], device="cpu") == 0
+    a, b = (np.load(p) for p in out)
+    assert a.shape == (4, 4, 3) and np.array_equal(a, b)
 
 
 # -- obs -------------------------------------------------------------------

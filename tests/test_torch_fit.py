@@ -372,15 +372,28 @@ def test_tree_quality_matches_tpurt():
 
 
 @pytest.mark.parametrize("kw,match", [
-    (dict(render=RenderConfig(method="brute", light_samples=2, **RK)), "item 17"),
     (dict(mesh=object()), "slice 5"),
 ])
 def test_unported_fit_options_raise(kw, match):
-    """Area lights (light_samples > 0) and a device mesh are refused when
-    the fit is set up."""
+    """A device mesh is refused when the fit is set up."""
     scene, cam = make_cornell_box(device="cpu")
     with pytest.raises(NotImplementedError, match=match):
         InverseRenderer(scene, cam, **{"render": RenderConfig(method="brute", **RK), **kw})
+
+
+def test_fit_runs_and_ignores_light_samples():
+    """A render config with light_samples > 0 fits (it was refused before
+    area lights were ported): the fit passes no generator, so, as tpurt's
+    fit passes no key, it samples no emitters and takes the steps of the
+    same fit without them."""
+    scene, cam = make_cornell_box(device="cpu")
+    cam = dataclasses.replace(cam, width=8, height=8)
+    with torch.no_grad():
+        target = render(scene, cam, method="brute", **RK) * 0.9
+    res = [InverseRenderer(scene, cam, fit=FitConfig(steps=2),
+                           render=RenderConfig(method="brute", light_samples=s, **RK)).fit(target)
+           for s in (2, 0)]
+    assert res[0].losses == res[1].losses and len(res[0].losses) == 2
 
 
 def test_hard_render_config_is_refused():

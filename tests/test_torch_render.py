@@ -62,9 +62,20 @@ def test_render_with_a_prebuilt_tracer_and_uint8():
     (dict(light_samples=2), "item 17"),
 ])
 def test_unported_options_raise(kw, item):
+    """Area lights (ROADMAP item 17, which raised before it was ported)
+    render: without a generator they sample nothing, as tpurt without a
+    key; with one, cornell (no emitter) gets no area light either, and the
+    image is the point-lit one."""
     scene, cam = make_cornell_box(device="cpu")
-    with pytest.raises(NotImplementedError, match=item):
-        render(scene, dataclasses.replace(cam, width=4, height=4), **kw)
+    cam = dataclasses.replace(cam, width=4, height=4)
+    point = render(scene, cam, **{k: v for k, v in kw.items() if k != "light_samples"})
+    g = torch.Generator()
+    g.manual_seed(0)
+    for generator in (None, g):
+        img = render(scene, cam, generator=generator, **kw)
+        assert img.shape == (4, 4, 3) and bool(torch.isfinite(img).all())
+        if kw.get("spp", 1) == 1:
+            assert torch.equal(img, point)
 
 
 def test_render_rays_soft_raises_and_method_checked():

@@ -14,7 +14,7 @@ from tpurt.accel.morton import morton3d as j_morton3d
 from tpurt.core.geometry import AABB as JAABB
 from tpurt.kernels.treebuild import morton_codes_pallas, radix_tree_pallas
 
-from chip_smoke import karras_work
+from chip_smoke import differing_elements, karras_work, prefilled_radix_outputs
 from tpurt_torch.accel.morton import triangle_morton_codes
 from tpurt_torch.core.geometry import Triangles
 from tpurt_torch.kernels import treebuild as tb
@@ -117,92 +117,129 @@ def _delta_fn(codes: np.ndarray, counter: list):
     return delta
 
 
-def _radix_scalar(codes: np.ndarray):
-    """treebuild.cu's radix_kernel, one node at a time in Python (its early
-    out-of-range test, its short-circuit `cand <= l - 1 && delta(...)`)."""
-    n = len(codes)
-    delta = _delta_fn(codes, [0, 0])
-    left, right = np.zeros(n - 1, np.int32), np.zeros(n - 1, np.int32)
-    parent = np.full(2 * n - 1, -1, np.int32)
-    first, last = np.arange(2 * n - 1) - (n - 1), np.arange(2 * n - 1) - (n - 1)
-    for i in range(n - 1):
-        d = 1 if delta(i, i + 1) - delta(i, i - 1) >= 0 else -1
-        dmin = delta(i, i - d)
-        l = 0
-        for b in range(31):
-            cand = l + (1 << (30 - b))
-            if delta(i, i + cand * d) > dmin:
-                l = cand
-        j = i + l * d
-        dnode = delta(i, j)
-        s = 0
-        for b in range(31):
-            cand = s + (1 << (30 - b))
-            if cand <= l - 1 and delta(i, i + cand * d) > dnode:
-                s = cand
-        gamma = i + s * d + min(d, 0)
-        lo, hi = min(i, j), max(i, j)
-        left[i] = n - 1 + gamma if lo == gamma else gamma
-        right[i] = n - 1 + gamma + 1 if hi == gamma + 1 else gamma + 1
-        first[i], last[i] = lo, hi
-        parent[left[i]] = parent[right[i]] = i
-    return left, right, parent, first.astype(np.int32), last.astype(np.int32)
+_U32 = 0xFFFFFFFF
+_UNWRITTEN = -7  # what the outputs hold before the threads run
 
 
-def _karras_scalar(codes: np.ndarray):
-    """Karras 2012, fig. 4, as published: the range end by an exponential,
-    then a binary search, the split over t = ceil(l/2), ceil(l/4), ..., 1.
-    Each node's (first, last, gamma), and (the delta evaluations that load a
-    code, all of them) with the own code counted as a load."""
+def _radix_loop(codes: np.ndarray):
+    """treebuild.cu's radix_kernel, thread by thread in Python, in its
+    uint32 index arithmetic: Karras's search (2012, fig. 4; the range end by
+    an exponential then a binary search, the split over t = ceil(l/2),
+    ceil(l/4), ..., 1), thread t writing leaf t's first and last and thread
+    0 the root's parent, into outputs that start unwritten.  Returns the
+    five outputs and (the delta evaluations that load a code, all of
+    them), the node's own code counted as a load."""
     n = len(codes)
     counter = [n - 1, 0]
     delta = _delta_fn(codes, counter)
-    nodes = []
-    for i in range(n - 1):
-        up, down = delta(i, i + 1), delta(i, i - 1)
+
+    def step(i, m, d):  # i + m d as a uint32; below 0 it wraps above n
+        return (i + m if d > 0 else i - m) & _U32
+
+    def dl(i, j):
+        return delta(i, j if j < n else -1)
+
+    left, right = (np.full(n - 1, _UNWRITTEN, np.int32) for _ in range(2))
+    parent, first, last = (np.full(2 * n - 1, _UNWRITTEN, np.int32) for _ in range(3))
+    for t in range(n):
+        first[n - 1 + t] = last[n - 1 + t] = t
+        if t == 0:
+            parent[0] = -1
+        if t >= n - 1:
+            continue
+        i = t
+        up, down = dl(i, i + 1), dl(i, step(i, 1, -1))
         d = 1 if up - down >= 0 else -1
         dmin = down if d > 0 else up
         lmax = 2
-        while delta(i, i + lmax * d) > dmin:
-            lmax *= 2
-        l, t = 0, lmax // 2
-        while t >= 1:
-            if delta(i, i + (l + t) * d) > dmin:
-                l += t
-            t //= 2
-        j = i + l * d
-        dnode = delta(i, j)
-        s, t = 0, l
+        while dl(i, step(i, lmax, d)) > dmin:
+            lmax = (lmax << 1) & _U32
+        l, h = 0, lmax >> 1
+        while h > 0:
+            if dl(i, step(i, l + h, d)) > dmin:
+                l += h
+            h >>= 1
+        j = step(i, l, d)
+        dnode = dl(i, j)
+        s, h = 0, l
         while True:
-            t = (t + 1) // 2
-            if delta(i, i + (s + t) * d) > dnode:
-                s += t
-            if t <= 1:
+            h = (h + 1) >> 1
+            if dl(i, step(i, s + h, d)) > dnode:
+                s += h
+            if h <= 1:
                 break
-        nodes.append((min(i, j), max(i, j), i + s * d + min(d, 0)))
-    return nodes, (counter[0], counter[1])
+        gamma = step(i, s, d) + (-1 if d < 0 else 0)
+        lo, hi = min(i, j), max(i, j)
+        left[t] = n - 1 + gamma if lo == gamma else gamma
+        right[t] = n + gamma if hi == gamma + 1 else gamma + 1
+        first[t], last[t] = lo, hi
+        parent[left[t]] = parent[right[t]] = t
+    return (left, right, parent, first, last), (counter[0], counter[1])
+
+
+def _codes(case: str) -> np.ndarray:
+    rng = np.random.default_rng(6)
+    if case.startswith("pow2_"):  # N around 2^k, with duplicate runs
+        k, off = (int(x) for x in case[5:].split("_"))
+        return _dup_codes((1 << k) + off - 1, seed=k + off, hi=1 << (k + 1))
+    return {"dups300": _dup_codes(300, hi=200), "equal64": np.full(64, 9, np.uint32),
+            "random300": np.sort(rng.integers(0, 2**30, 300, dtype=np.uint32)),
+            "n2": np.array([1, 2], np.uint32),
+            "equal4097": np.full(4097, 77, np.uint32)}[case]
 
 
 @pytest.mark.parametrize("case", ["dups300", "random300", "equal64", "n2"])
 def test_radix_twin_matches_the_kernels_scalar_walk_and_counts_its_loads(case):
-    """The twin against the kernel's own ladders; Karras's search finds the
-    same tree, and the bound's count of its work (karras_work, read off the
-    tree) is the scalar search's."""
-    codes = {"dups300": _dup_codes(300, hi=200), "equal64": np.full(64, 9, np.uint32),
-             "random300": np.sort(np.random.default_rng(6).integers(0, 2**30, 300,
-                                                                     dtype=np.uint32)),
-             "n2": np.array([1, 2], np.uint32)}[case]
+    """The twin against the kernel's loop, which writes every output
+    element; the bound's count of Karras's search (karras_work, read off the
+    tree) is the loop's own count of its delta evaluations."""
+    codes = _codes(case)
     got = tb.radix_tree_ref(torch.from_numpy(codes.astype(np.int64)))
-    for g, r in zip(got, _radix_scalar(codes)):
+    loop, work = _radix_loop(codes)
+    for g, r in zip(got, loop):
         np.testing.assert_array_equal(g.numpy(), r)
-    nodes, work = _karras_scalar(codes)
     n = len(codes)
-    left, first, last = (x.numpy() for x in (got[0], got[3], got[4]))
-    for i, (lo, hi, gamma) in enumerate(nodes):
-        assert (first[i], last[i]) == (lo, hi)
-        assert left[i] == (n - 1 + gamma if lo == gamma else gamma)
     assert karras_work(got, n) == work
     assert work[0] < 66 * (n - 1)
+
+
+@pytest.mark.parametrize("case", [f"pow2_{k}_{off}" for k in (2, 5, 8, 11)
+                                  for off in (0, 1, 2)] + ["equal4097"])
+def test_radix_kernel_loop_matches_the_twin_around_powers_of_two(case):
+    """N = 2^k - 1, 2^k, 2^k + 1, where the exponential search's last
+    candidate leaves the keys on either side; and 4,097 equal codes, where
+    the index bits alone order the keys."""
+    codes = _codes(case)
+    got = tb.radix_tree_ref(torch.from_numpy(codes.astype(np.int64)))
+    loop, work = _radix_loop(codes)
+    for name, g, r in zip(("left", "right", "parent", "first", "last"), got, loop):
+        np.testing.assert_array_equal(g.numpy(), r, err_msg=name)
+    assert karras_work(got, len(codes)) == work
+
+
+def test_build_ab_counts_differing_bits_per_output():
+    """[build_ab]'s comparison: per radix output (or one codes tensor) the
+    elements whose bits differ; another dtype or shape differs in all of
+    its elements.  The outputs as the wrapper made them before the kernel
+    wrote the whole stage hold the twin's leaves and root."""
+    codes = torch.from_numpy(_dup_codes(300, hi=200).astype(np.int64))
+    ref = tb.radix_tree_ref(codes)
+    same = tuple(x.clone() for x in ref)
+    assert differing_elements(same, ref) == dict.fromkeys(
+        ("left", "right", "parent", "first", "last"), 0)
+    same[2][[5, 77]] += 1
+    got = differing_elements(same, ref)
+    assert got["parent"] == 2 and sum(got.values()) == 2
+    assert differing_elements(same[:4] + (ref[4].long(),), ref)["last"] == ref[4].numel()
+    assert differing_elements(same[:1] + (ref[1][:-1],) + same[2:], ref)["right"] == 299
+    c = codes.clone()
+    assert differing_elements(c, codes) == {"codes": 0}
+    c[3] ^= 1 << 20
+    assert differing_elements(c, codes) == {"codes": 1}
+    pre = prefilled_radix_outputs(300, "cpu")
+    assert int(pre[2][0]) == int(ref[2][0]) == -1
+    for k in (3, 4):
+        assert torch.equal(pre[k][299:], ref[k][299:])
 
 
 def test_wrappers_route_cpu_tensors_to_the_twins_without_a_launch():
@@ -236,6 +273,16 @@ def test_radix_wrapper_refuses_short_and_mistyped_codes():
         tb.radix_tree(torch.tensor([1], dtype=torch.int64))
     with pytest.raises(TypeError):
         tb.radix_tree(torch.tensor([1, 2], dtype=torch.int32))
+
+
+def test_radix_wrapper_refuses_more_than_2_to_the_30_codes():
+    """The kernel's 32-bit index arithmetic holds up to N = 2^30; the
+    wrapper refuses more before it looks at the device (an expanded view
+    stands in for 8 GiB of codes)."""
+    big = torch.zeros(1, dtype=torch.int64).expand(tb.MAX_RADIX_KEYS + 1)
+    with pytest.raises(ValueError, match=r"2\^30"):
+        tb.radix_tree(big)
+    assert tb.MAX_RADIX_KEYS == 1 << 30
 
 
 def test_triangle_morton_codes_match_tpurt():
