@@ -2,7 +2,8 @@
 step of the 1M-triangle sponza scene through the hand-written BVH8 CUDA
 kernels, and of the 70K-triangle bunny at 512x512 through the binary-BVH
 kernels; the LBVH build through the Morton and radix-tree kernels at 1M and
-5M triangles, the port's Renderer, area lights (hard and soft) and CLI.
+5M triangles, the port's Renderer, area lights (hard and soft), the
+distributed paths (dist/, at world 1 on NCCL) and CLI.
 
     python3 chip_smoke.py [--parent DIR] [--parent NAME=DIR ...]
 
@@ -69,6 +70,11 @@ Phases, one line each (any failure exits non-zero and prints no result):
            device ms (bare launches), over the fit's 8 row-major chunks, one
            row-major launch and the Morton frame, both calls; knear_bin the
            same on the bunny.
+  dist_fit the data-parallel fit: InverseRenderer(mesh=...) (a world-1
+           NCCL group, dist_setup) on [fit]'s problem against [fit]'s
+           mesh-free fit and a second mesh-free run: losses within rtol
+           1e-4, the parameters' largest differences, the all-reduces a
+           step (FIT_CHUNKS), their bytes, one all-reduce's ms, s/step.
   fit_check
            cornell 32^2 soft on the card: wide8 image against brute, wide8
            gradients against the same code on the CPU, finite differences,
@@ -144,12 +150,37 @@ The LBVH build (morton and radix; every make_tracer above ran them):
            route's (every kernel wrapper swapped for its twin, on the card,
            the same seed), occluded8's flags on the area shadow rays against
            the twin's on every ray; frame ms split into closest, occluded
-           and glue, area shadow rays a second; [area_profile]: the frame's
-           device-time shares, idle share and largest glue kernels.  The
+           and glue, area shadow rays a second; occluded8's bound on the
+           area rays from its twin's walk counts ([bound] rays=area);
+           [area_profile]: the frame's device-time shares, idle share and
+           largest glue kernels.  The
            soft render with its d/d(verts, albedo): binary on the bunny
            (knear_bin), wide8 on one 261,120-ray chunk of the overview
            (knear8), against the twin route's image and gradients.
+  dist_fold
+           the ring's local steps (dist/ring.py) over FOLD_PARTS Morton
+           partitions of the 1M sponza on the one card, in the order rank
+           0's rays meet them: the main view's and the overview's hard
+           frames (closest8, occluded8), one fit chunk of the main view
+           soft (knear8, k 4 and k_occ 8), and the bunny's hard frame and
+           soft render through the binary kernels; each against the same
+           fold through the twins on the card (0 differing ids, flags and
+           k-lists) and the replicated render (the image rule), launches,
+           ms.
+  dist_shard
+           shard_render and Renderer(mesh=...) of the bunny at world 1
+           (the film back through NCCL's all-gather) bitwise equal to
+           Renderer.render; alltoall_trace on cornell 32^2 against brute
+           force.
   sponza5m the 5M scene's generation seconds and its phases' seconds.
+  dist_ring
+           the 5M sponza at 3840x2160 through Renderer(mesh,
+           partition="ring") against the replicated wide8 Renderer: init
+           seconds (partition, builds), peak bytes, frame ms by CUDA events
+           split into closest8, occluded8, the ring functions' own time
+           (fold and all-gathers) and glue, the ratio of the frames, the
+           images by the image rule, the ring frame's closest8 and
+           occluded8 calls against their twins on the card (0 differing).
   build_ab morton and radix against each other tree's (--parent), radix on
            the sorted codes of the 1M and 5M sponza and on 2^20 equal codes,
            morton (the control) on the two scenes' centroids: every output
@@ -158,11 +189,14 @@ The LBVH build (morton and radix; every make_tracer above ran them):
            new, other the kernel's device ms from bare launches and the
            stage's ms as each tree's wrapper makes it (the parent's: full,
            arange and two cats before its kernel); without other trees,
-           this build's alone.
+           this build's alone; morton also timed with a 128 MB write
+           before each bare launch (l2_flushed_ms, the time held to its
+           HBM bound: back-to-back launches find their inputs in L2).
   cli      `python -m tpurt_torch.cli.main` as subprocesses in a temporary
            directory: build-bvh on the 5M sponza (its metric line), render of
            the 5M sponza at 3840x2160 (shape, finite, hit fraction) and of the
-           bunny through "binary" (equal to the in-process Renderer's), fit
+           bunny through "binary", alone and with --shard (a world-1 NCCL
+           group), each equal to the in-process Renderer's, fit
            on cornell 32^2 with checkpoints every 2 steps (6 steps, then a
            resumed run to 8), check-grads on cornell 24^2.
 Then the kernels' JSON line and, last, {"ok": true, "device": {...}}.
@@ -190,10 +224,11 @@ sys.path.insert(0, os.path.join(HERE, "src"))
 
 import numpy as np  # noqa: E402
 import torch  # noqa: E402
+import torch.distributed as dist  # noqa: E402
 
 from tpurt_torch.accel.bvh8 import (  # noqa: E402
     WideBVH, collapse_wide, pack_wide, refit_wide_direct, tri_rows_bytes, wide_bytes)
-from tpurt_torch.accel.intersect import DEFAULT_T_MIN  # noqa: E402
+from tpurt_torch.accel.intersect import DEFAULT_T_MIN, intersect_brute  # noqa: E402
 from tpurt_torch.accel import lbvh as lbvh_mod  # noqa: E402
 from tpurt_torch.accel import morton as morton_mod  # noqa: E402
 from tpurt_torch.accel.lbvh import BVH, build_lbvh  # noqa: E402
@@ -202,9 +237,15 @@ from tpurt_torch.accel.traverse_ref import closest_walk, occluded_walk, safe_inv
 from tpurt_torch.api.config import FitConfig, RenderConfig  # noqa: E402
 from tpurt_torch.api.inverse import InverseRenderer  # noqa: E402
 from tpurt_torch.api.renderer import Renderer  # noqa: E402
-from tpurt_torch.core.geometry import T_MAX, Camera, Hit, PointLight, Rays  # noqa: E402
+from tpurt_torch.core.geometry import T_MAX, Camera, Hit, KHits, PointLight, Rays  # noqa: E402
 from tpurt_torch.core.scene import (  # noqa: E402
     make_bunny_scene, make_cornell_box, make_sponza_scene)
+from tpurt_torch.dist import collectives as coll_mod  # noqa: E402
+from tpurt_torch.dist import ring as ring_mod  # noqa: E402
+from tpurt_torch.dist.runtime import init_distributed  # noqa: E402
+from tpurt_torch.dist.scene_partition import (  # noqa: E402
+    BIG_ID, alltoall_trace, build_partition_bvhs, build_partition_wides, partition_scene)
+from tpurt_torch.dist.shard import make_mesh, shard_render  # noqa: E402
 from tpurt_torch.kernels import _build  # noqa: E402
 from tpurt_torch.kernels import traverse as kb  # noqa: E402
 from tpurt_torch.kernels import traverse8 as k8  # noqa: E402
@@ -271,8 +312,10 @@ GATE_RES = 32
 # eps 1e-4 agrees with autograd to 0.4%, at 1e-3 it does not).
 FD_RES = 24
 # wide8 against brute image: tpurt's engine threshold, atol on >= 99.7% of
-# pixels.
+# pixels (tpurt's image rule: at most IMAGE_OFF_FRAC of pixels off by more
+# than IMAGE_ATOL).
 IMAGE_ATOL, IMAGE_MIN_FRAC = 2e-3, 0.997
+IMAGE_OFF_FRAC = 1.0 - IMAGE_MIN_FRAC
 # wide8 gradients on the card against the same code on the CPU: atomics sum
 # in another order and CUDA's exp, sqrt and division round differently, so
 # they agree to this fraction of the largest gradient.
@@ -1331,7 +1374,8 @@ def fit_phase(scene, cam: Camera, method: str = "wide8", chunks: int = FIT_CHUNK
     if launches[kernel] < 2 * chunks * steps:
         fail(f"{name}: the fit launched {kernel} {launches[kernel]} times "
              f"(< {2 * chunks * steps})")
-    return dict(inv=inv, target=target, launches=launches)
+    return dict(inv=inv, target=target, launches=launches, result=res,
+                step_s=[round(x, 4) for x in secs])
 
 
 def generic_cornell(dev, res: int = GATE_RES):
@@ -1560,6 +1604,8 @@ def treebuild_parity(view: str, points: torch.Tensor | None = None,
         out["morton"] = dict(
             n=points.shape[0], mismatches=int((got != ref).sum()), max_abs_err=max_abs(got, ref),
             ms=kernel_device_ms(lambda: tb.morton_codes(points, lo, inv), "morton_kernel"),
+            l2_flushed_ms=flushed_ms(build_launch(this_library(), "morton",
+                                                  (points, lo, inv))[0]),
             call_ms=cuda_ms(lambda: tb.morton_codes(points, lo, inv)),
             plain_ms=cuda_ms(lambda: tb.morton_codes_ref(points, lo, inv), iters=3, warmup=1),
             **morton_bound(points.shape[0]))
@@ -1579,6 +1625,7 @@ def treebuild_parity(view: str, points: torch.Tensor | None = None,
         r["launches"] = tb.LAUNCHES[name]
         phase("treebuild_parity", view=view, kernel=name, n=r["n"],
               mismatches=r["mismatches"], ms=f"{r['ms']:.4f}", call_ms=f"{r['call_ms']:.4f}",
+              **({"l2_flushed_ms": f"{r['l2_flushed_ms']:.4f}"} if "l2_flushed_ms" in r else {}),
               plain_ms=f"{r['plain_ms']:.4f}",
               bound_ms=f"{r['bound_ms']:.6f}", bound_by=r["bound_by"], bytes=r["bytes"],
               ops=r["ops"], **{k: r[k] for k in ("loads", "evals") if k in r},
@@ -1701,6 +1748,25 @@ def build_launch(lib: ctypes.CDLL, kernel: str, inputs, writes_all: bool = True)
 
     launch.keep = (inputs, once)
     return launch, stage
+
+
+def flushed_ms(launch, passes: int = 20, flush_bytes: int = 128 << 20) -> float:
+    """The device ms of one bare launch with the L2 cache flushed before it:
+    a write of flush_bytes (more than the card's 50 MB of L2) precedes each
+    launch, and CUDA events bracket the launch alone.  The write keeps the
+    device busy while the host enqueues the events and the launch, so they
+    time the kernel and not the host."""
+    buf = torch.empty(flush_bytes // 4, dtype=torch.float32, device="cuda")
+    launch()
+    events = [tuple(torch.cuda.Event(enable_timing=True) for _ in range(2))
+              for _ in range(passes)]
+    for start, end in events:
+        buf.zero_()
+        start.record()
+        launch()
+        end.record()
+    torch.cuda.synchronize()
+    return sum(start.elapsed_time(end) for start, end in events) / passes
 
 
 def events_ms(fn, passes: int = 20) -> float:
@@ -2021,18 +2087,20 @@ def chunked_twin(fn, record: list | None = None):
 
 @contextlib.contextmanager
 def twin_route(record: dict | None = None):
-    """The render pipeline with every kernel wrapper swapped for its twin
-    (run over chunks, chunked_twin) for the duration: the twin route on the
-    card.  record: name -> list of each call's (rays, args, kwargs, out)."""
-    saved = {name: getattr(pipeline_mod, name) for name in TWINS}
+    """The render pipeline and the ring's local walks (dist/ring.py) with
+    every kernel wrapper swapped for its twin (run over chunks,
+    chunked_twin) for the duration: the twin route on the card.  record:
+    name -> list of each call's (rays, args, kwargs, out)."""
+    saved = [(mod, name, getattr(mod, name)) for mod in (pipeline_mod, ring_mod)
+             for name in TWINS]
     try:
-        for name, twin in TWINS.items():
+        for mod, name, _ in saved:
             rec = None if record is None else record.setdefault(name, [])
-            setattr(pipeline_mod, name, chunked_twin(twin, rec))
+            setattr(mod, name, chunked_twin(TWINS[name], rec))
         yield
     finally:
-        for name, fn in saved.items():
-            setattr(pipeline_mod, name, fn)
+        for mod, name, fn in saved:
+            setattr(mod, name, fn)
 
 
 def with_emitters(scene, n: int = AREA_EMITTERS, le: float = AREA_LE, seed: int = AREA_SEED):
@@ -2123,6 +2191,14 @@ def area_hard(view: str, r: Renderer, cam: Camera) -> dict:
     any_hit = getattr(pipeline_mod, ANY_HIT[method])
     flags = any_hit(al_rays, tree, t_al)
     strict_flags("area", view, names[1], tree, al_rays, flags, twin_flags)
+    area_bound = None
+    if method == "wide8":
+        def area_twin(lo: int, hi: int, stats=None):
+            return (k8.occluded_wide8_ref(rays_slice(al_rays, slice(lo, hi)), tree,
+                                          t_al[lo:hi], stats=stats),)
+
+        area_bound = bound(counted(area_twin, n_area), n_area, 28, 1, WIDE_HALF)
+        phase("bound", view=view, kernel=names[1], rays="area", **area_bound)
     frame = morton_rays(cam)
     n = frame.o.shape[0]
     g = seeded(frame.o.device)
@@ -2154,7 +2230,7 @@ def area_hard(view: str, r: Renderer, cam: Camera) -> dict:
     if diff["off_frac"] > MAX_MISMATCH_FRAC:
         fail(f"area ({view}): the image differs from the twin route's on "
              f"{diff['off_frac']} of pixels")
-    return dict(ms=ms, launches=launches, n_area=n_area)
+    return dict(ms=ms, launches=launches, n_area=n_area, area_bound=area_bound)
 
 
 def area_soft(view: str, tracer: Tracer, rays: Rays) -> dict:
@@ -2246,8 +2322,9 @@ def cli_phase(bscene, bcam: Camera) -> None:
     """The port's verbs as users run them: `python -m tpurt_torch.cli.main`
     subprocesses in a temporary directory, each generating its own scene.
     Each verb's exit code and seconds; the 5M build's metric line, the 4K
-    image's shape, finiteness and hit fraction, the bunny image against the
-    in-process Renderer's, the fit's checkpoints and its resumed run."""
+    image's shape, finiteness and hit fraction, the bunny image (and the
+    same through render --shard, at world 1 on NCCL) against the in-process
+    Renderer's, the fit's checkpoints and its resumed run."""
     tmp = tempfile.mkdtemp(prefix="tpurt_torch_cli_")
     env = dict(os.environ, PYTHONPATH=os.pathsep.join(
         p for p in (os.path.join(HERE, "src"), os.environ.get("PYTHONPATH")) if p))
@@ -2284,6 +2361,13 @@ def cli_phase(bscene, bcam: Camera) -> None:
         phase("cli", verb="render", scene="bunny", shape=img.shape, equal_to_renderer=same)
         if not same:
             fail("cli render bunny: the image differs from the in-process Renderer's")
+        # --shard alone: a world-1 NCCL group, the rays sharded over it
+        run("render", "--shard", "--scene", "bunny", "--method", "binary", "-o", "z.npy")
+        sharded = np.load(os.path.join(tmp, "z.npy"))
+        phase("cli", verb="render --shard", scene="bunny",
+              equal_to_renderer=bool(np.array_equal(sharded, ref)))
+        if not np.array_equal(sharded, ref):
+            fail("cli render --shard bunny: the image differs from the in-process Renderer's")
         ck = os.path.join(tmp, "ckpt")
         fit = ["--scene", "cornell", "--width", "32", "--method", "wide8", "--ckpt", ck,
                "--ckpt-every", "2"]
@@ -2297,6 +2381,438 @@ def cli_phase(bscene, bcam: Camera) -> None:
         run("check-grads", "--scene", "cornell", "--width", str(FD_RES), "--method", "wide8")
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
+
+
+# ---------------------------------------------------------------------------
+# The distributed paths ([dist_*]): dist/ at world 1 under NCCL
+# ---------------------------------------------------------------------------
+# [dist_fold]: the scene split into this many partitions on the one card,
+# each walked and folded in the order rank 0's rays meet them; the bunny
+# (69,940 triangles) into 3, whose last chunk then holds 2 padding rows, so
+# the binary kernels meet -1 slots and zero rows (the 1M sponza's 999,968
+# split into 4 have none).
+FOLD_PARTS, FOLD_PARTS_BUNNY = 4, 3
+
+
+def dist_setup():
+    """The process group and mesh every [dist_*] phase runs on: one card,
+    so world 1, over NCCL (no fallback: a group that does not come up on
+    NCCL fails the script)."""
+    init_distributed(device="cuda")
+    mesh = make_mesh("cuda")
+    backend = dist.get_backend(mesh.get_group())
+    phase("dist", backend=backend, world=dist.get_world_size(), mesh=tuple(mesh.mesh.shape),
+          nccl=torch.cuda.nccl.version())
+    if backend != "nccl" or mesh.size() != 1:
+        fail(f"the dist phases need a world-1 NCCL group, got {backend} of {mesh.size()}")
+    return mesh
+
+
+@contextlib.contextmanager
+def recording(module, names, record: dict, timed: bool = False):
+    """module's functions `names` wrapped for the duration: each call's
+    (args, kwargs, output) appended to record[name]; timed: its seconds
+    (host clock between synchronizes) added to record[name + "_s"]."""
+    saved = {n: getattr(module, n) for n in names}
+
+    def wrap(n, fn):
+        def run(*a, **kw):
+            if timed:
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+            out = fn(*a, **kw)
+            if timed:
+                torch.cuda.synchronize()
+                record[n + "_s"] = record.get(n + "_s", 0.0) + time.perf_counter() - t0
+            record.setdefault(n, []).append((a, kw, out))
+            return out
+        return run
+
+    try:
+        for n in names:
+            setattr(module, n, wrap(n, saved[n]))
+        yield record
+    finally:
+        for n, fn in saved.items():
+            setattr(module, n, fn)
+
+
+@dataclasses.dataclass
+class FoldTracer(Tracer):
+    """The ring's local steps (dist/ring.py closest_step, occluded_step,
+    knear_step) over several partitions' trees on one card, in the order
+    rank 0's rays meet them: the render pipeline's engine calls, each folded
+    partition by partition.  log: each call's folded output, by call."""
+
+    parts: list = dataclasses.field(default_factory=list)
+    log: dict = dataclasses.field(default_factory=dict)
+
+    def closest_shaded(self, rays: Rays):
+        o, d = rays.o.reshape(-1, 3), rays.d.reshape(-1, 3)
+        best = ring_mod.closest_init(o.shape[0], o.device)
+        for p in self.parts:
+            best = ring_mod.closest_step(o, d, best, p)
+        self.log.setdefault("closest", []).append(best)
+        return Hit(**{k: v.reshape(rays.shape) for k, v in best.items()}), None
+
+    def visibility(self, rays: Rays, t_max) -> torch.Tensor:
+        o, d = rays.o.reshape(-1, 3), rays.d.reshape(-1, 3)
+        tm = torch.as_tensor(t_max, dtype=torch.float32, device=o.device).expand(rays.shape)
+        blocked = torch.zeros(o.shape[0], dtype=torch.bool, device=o.device)
+        for p in self.parts:
+            blocked = ring_mod.occluded_step(o, d, tm.reshape(-1), blocked, p)
+        self.log.setdefault("occluded", []).append(blocked)
+        return 1.0 - blocked.reshape(rays.shape).float()
+
+    def _knear(self, rays: Rays, t_max, k: int, band: float, call: str) -> torch.Tensor:
+        o, d = rays.o.reshape(-1, 3), rays.d.reshape(-1, 3)
+        tm = torch.as_tensor(t_max, dtype=torch.float32, device=o.device).expand(rays.shape)
+        ts, ids = ring_mod.knear_init(o.shape[0], k, o.device)
+        with torch.no_grad():
+            for p in self.parts:
+                ts, ids = ring_mod.knear_step(o, d, tm.reshape(-1), ts, ids, p, self.table,
+                                              k, band)
+        ids = torch.where(ids == BIG_ID, -1, ids)
+        self.log.setdefault(call, []).append(ids)
+        return ids
+
+    def k_nearest(self, rays: Rays, k: int, band: float) -> KHits:
+        ids = self._knear(rays, T_MAX, k, band, "layers")
+        z = torch.zeros(ids.shape, dtype=torch.float32, device=ids.device)
+        return KHits(t=z, u=z, v=z, tri=ids.reshape(*rays.shape, k))
+
+    def occluder_ids(self, rays: Rays, t_max, k_occ: int, band: float) -> torch.Tensor:
+        return self._knear(rays, 2.0 * torch.as_tensor(t_max), k_occ, band, "occluders")
+
+
+def fold_logs_equal(view: str, kernel_log: dict, twin_log: dict) -> dict:
+    """The fold through the kernels against the same fold through their
+    twins: differing ids, flags and k-lists (each fails the script), and
+    the largest |t, u, v - twin's| on agreeing rays (must be 0)."""
+    out = {}
+    for call, outs in kernel_log.items():
+        for got, ref in zip(outs, twin_log[call]):
+            if call == "closest":
+                same = got["tri"] == ref["tri"]
+                out[f"{call}_differing"] = out.get(f"{call}_differing", 0) + int((~same).sum())
+                out["max_abs_tuv"] = max([out.get("max_abs_tuv", 0.0)] + [
+                    max_abs(got[k][same], ref[k][same]) for k in ("t", "u", "v")])
+            else:
+                bad = (got != ref).reshape(got.shape[0], -1).any(dim=1)
+                out[f"{call}_differing"] = out.get(f"{call}_differing", 0) + int(bad.sum())
+    for key, v in out.items():
+        if v:
+            FAILURES.append(f"dist_fold ({view}): {key} = {v} against the twins' fold")
+    return out
+
+
+def fold_tracers(scene, parts: list) -> tuple:
+    """A FoldTracer over `parts` and its twin-route copy (its own log)."""
+    table = tri_table(scene.tris)
+    return (FoldTracer(scene=scene, table=table, method="fold", parts=parts),
+            FoldTracer(scene=scene, table=table, method="fold", parts=parts))
+
+
+def fold_view(view: str, scene, frame: Rays, ref_tracer: Tracer, parts: list,
+              soft_rays: Rays | None = None, soft_ref: Tracer | None = None,
+              soft_parts: list | None = None) -> dict:
+    """[dist_fold] on one view: the hard frame through the ring's local
+    steps over `parts` (closest and any hit), its launches, the same fold
+    through the twins on the card (0 differing ids and flags), its image
+    against ref_tracer's replicated render (IMAGE_ATOL on at most 0.3% of
+    pixels) and its ms; with soft_rays, the soft render (SOFT) of those rays
+    over soft_parts (band trees; the k-nearest calls k 4 and k_occ 8), its
+    k-lists against the twins' fold and its image against soft_ref's."""
+    fold, twin = fold_tracers(scene, parts)
+    with torch.no_grad():
+        reset_launches()
+        img = render_rays(fold, frame)
+        launches = launch_counts()
+        with twin_route():
+            render_rays(twin, frame)
+        ref = render_rays(ref_tracer, frame)
+        ms = cuda_ms(lambda: render_rays(fold, frame), iters=3, warmup=1)
+        ref_ms = cuda_ms(lambda: render_rays(ref_tracer, frame), iters=3, warmup=1)
+    diff = image_diff(img, ref)
+    eq = fold_logs_equal(view, {k: fold.log[k][:1] for k in fold.log},
+                         {k: twin.log[k][:1] for k in twin.log})
+    names, _ = HARD_KERNELS["wide8" if isinstance(parts[0], WideBVH) else "binary"]
+    out = {"launches": launches}
+    phase("dist_fold", view=view, path="hard", parts=len(parts), rays=frame.o.shape[0],
+          launches=json.dumps(launches), **eq, vs_replicated_max_abs=diff["max_abs"],
+          vs_replicated_off_frac=diff["off_frac"], fold_frame_ms=f"{ms:.4f}",
+          replicated_frame_ms=f"{ref_ms:.4f}")
+    if diff["off_frac"] > IMAGE_OFF_FRAC:
+        fail(f"dist_fold ({view}): the fold's image differs on {diff['off_frac']} of pixels")
+    for k in names:
+        if launches[k] != len(parts):
+            fail(f"dist_fold ({view}): {k} launched {launches[k]} times, not {len(parts)}")
+    if soft_rays is None:
+        return out
+    fold, twin = fold_tracers(scene, soft_parts)
+    with torch.no_grad():
+        reset_launches()
+        color = render_rays(fold, soft_rays, **SOFT)
+        out["soft_launches"] = launch_counts()
+        with twin_route():
+            render_rays(twin, soft_rays, **SOFT)
+        ref = render_rays(soft_ref, soft_rays, **SOFT)
+        ms = cuda_ms(lambda: render_rays(fold, soft_rays, **SOFT), iters=3, warmup=1)
+    diff = image_diff(color, ref)
+    eq = fold_logs_equal(view, fold.log, twin.log)
+    kn = knear_kernel(soft_parts[0])
+    phase("dist_fold", view=view, path="soft", parts=len(soft_parts), rays=soft_rays.o.shape[0],
+          launches=json.dumps(out["soft_launches"]), **eq,
+          nonempty_layer_lists=int((fold.log["layers"][0][:, 0] >= 0).sum()),
+          vs_replicated_max_abs=diff["max_abs"], vs_replicated_off_frac=diff["off_frac"],
+          fold_soft_ms=f"{ms:.4f}")
+    if diff["off_frac"] > IMAGE_OFF_FRAC:
+        fail(f"dist_fold ({view}, soft): the fold's colors differ on {diff['off_frac']} of rays")
+    if out["soft_launches"][kn] != 2 * len(soft_parts):
+        fail(f"dist_fold ({view}, soft): {kn} launched {out['soft_launches'][kn]} times")
+    return out
+
+
+def dist_fold(scene, cam: Camera, bscene, bcam: Camera) -> dict:
+    """[dist_fold]: the 1M sponza split into FOLD_PARTS Morton partitions
+    on the one card, each with its WideBVH (band 0 and band BAND), folded
+    through the ring's local steps: the main view's and the overview's hard
+    frames (closest8, occluded8), one fit chunk of the main view soft
+    (knear8, k 4 and k_occ 8); the bunny the same through its PackedBVHs
+    in FOLD_PARTS_BUNNY (closest_bin, occluded_bin; knear_bin on its whole
+    frame).  This is where the kernels meet several partitions' trees, their
+    -1 padding slots and zeroed rows included, on the card."""
+    t0 = time.perf_counter()
+    part = partition_scene(scene.tris, FOLD_PARTS)
+    hard = build_partition_wides(part, scene.tris)
+    soft = build_partition_wides(part, scene.tris, band=BAND)
+    torch.cuda.synchronize()
+    phase("dist_fold", scene="sponza1m", parts=FOLD_PARTS, chunk=part.chunk,
+          padding_rows=int((part.gid < 0).sum()), build_s=f"{time.perf_counter() - t0:.3f}",
+          wides=[w.num_wides for w in hard])
+    rep, rep_soft = make_tracer(scene, "wide8"), make_tracer(scene, "wide8", band=BAND)
+    over = Camera.create(eye=OVERVIEW_EYE, target=OVERVIEW_TARGET, fov_y_deg=50.0,
+                         width=WIDTH, height=HEIGHT, device=cam.eye.device)
+    frame = morton_rays(cam)
+    chunk = rays_slice(gen_primary_rays(cam), slice(0, (WIDTH * HEIGHT) // FIT_CHUNKS))
+    out = {"main": fold_view("main", scene, frame, rep, hard, chunk, rep_soft, soft),
+           "overview": fold_view("overview", scene, morton_rays(over), rep, hard)}
+    del hard, soft, rep, rep_soft
+    bpart = partition_scene(bscene.tris, FOLD_PARTS_BUNNY)
+    phase("dist_fold", scene="bunny", parts=FOLD_PARTS_BUNNY, chunk=bpart.chunk,
+          padding_rows=int((bpart.gid < 0).sum()))
+    bframe = morton_rays(bcam)
+    out["bunny"] = fold_view(
+        "bunny", bscene, bframe, make_tracer(bscene, "binary"), build_partition_bvhs(bpart),
+        bframe, make_tracer(bscene, "binary", band=BAND),
+        build_partition_bvhs(bpart, band=BAND))
+    return out
+
+
+def dist_shard(mesh, bscene, bcam: Camera) -> None:
+    """[dist_shard]: the ray-sharded render at world 1 (rank 0 renders every
+    ray, the film comes back through NCCL's all-gather): shard_render and
+    Renderer(mesh=...) equal Renderer.render bitwise (the bunny, binary);
+    alltoall_trace on cornell 32^2 (its local trace brute force, as
+    tpurt's): at world 1 every ray is resolved, with brute force's hit."""
+    single = Renderer(bscene, RenderConfig(method="binary"))
+    ref = single.render(bcam)
+    sharded = shard_render(single.tracer, bcam, mesh)
+    meshed = Renderer(bscene, RenderConfig(method="binary"), mesh=mesh).render(bcam)
+    sc, cm = make_cornell_box(device=bcam.eye.device)
+    rays = gen_primary_rays(dataclasses.replace(cm, width=32, height=32))
+    hit, resolved = alltoall_trace(mesh, rays, partition_scene(sc.tris, 1))
+    brute = intersect_brute(rays, sc.tris)
+    same = int((hit.tri[resolved] == brute.tri[resolved]).sum())
+    ok = (bitwise_equal(sharded, ref) and bitwise_equal(meshed, ref)
+          and bool(resolved.all()) and same == rays.o.shape[0])
+    phase("dist_shard", shard_render_bitwise=bitwise_equal(sharded, ref),
+          renderer_mesh_bitwise=bitwise_equal(meshed, ref), alltoall_rays=rays.o.shape[0],
+          resolved=int(resolved.sum()), resolved_equal_brute=same,
+          max_abs_t=repr(max_abs(hit.t[resolved], brute.t[resolved])))
+    if not ok:
+        fail("dist_shard: a sharded render or the all-to-all trace differs")
+
+
+def dist_fit(mesh, scene, cam: Camera, fit: dict) -> dict:
+    """[dist_fit]: InverseRenderer(mesh=...) on the 1M sponza at
+    1920x1088, FIT_STEPS steps in FIT_CHUNKS chunks, on [fit]'s problem:
+    s/step beside [fit]'s mesh-free fit, exactly FIT_CHUNKS all-reduces a
+    step and their bytes, one all-reduce of that size by CUDA events; its
+    losses and parameters against the mesh-free fit's.  The backward's
+    atomic adds (index_add_) sum in another order on every run, and Adam's
+    first steps turn a gradient near 0 into a step of +-lr, so two runs of
+    the same fit differ in the parameters by up to ~lr (printed: the
+    mesh-free fit against a second run of itself, and the mesh's against
+    it).  The hold is therefore made with PyTorch's deterministic
+    algorithms on (index_add_ sums in one order): the mesh's fit and the
+    mesh-free fit, losses and parameters within rtol 1e-4 (the largest
+    differences printed)."""
+    rcfg = RenderConfig(method="wide8", **SOFT)
+    fcfg = FitConfig(steps=FIT_STEPS, grad_chunks=FIT_CHUNKS, lr=FIT_LR)
+    per_step, secs, t_last = [], [], [0.0]
+
+    def on_step(i: int, loss: float) -> None:
+        torch.cuda.synchronize()
+        now = time.perf_counter()
+        secs.append(now - t_last[0])
+        t_last[0] = now
+        per_step.append(dict(coll_mod.COUNTS))
+        coll_mod.reset_counts()
+
+    def run(m, callback=None):
+        return InverseRenderer(scene, cam, fit=fcfg, render=rcfg, mesh=m).fit(
+            fit["target"], callback=callback)
+
+    reset_launches()
+    coll_mod.reset_counts()
+    torch.cuda.synchronize()
+    t_last[0] = time.perf_counter()
+    res = run(mesh, on_step)
+    launches = launch_counts()
+    again = run(None)
+    ref = fit["result"]
+    torch.use_deterministic_algorithms(True, warn_only=True)
+    try:
+        det = {"mesh": run(mesh), "mesh_free": run(None)}
+    finally:
+        torch.use_deterministic_algorithms(False)
+    n_bytes = per_step[0]["all_reduce_bytes"] // max(per_step[0]["all_reduce"], 1)
+    buf = torch.zeros(n_bytes // 4, dtype=torch.float32, device=cam.eye.device)
+    ar_ms = cuda_ms(lambda: dist.all_reduce(buf, group=mesh.get_group()), iters=20)
+
+    def loss_rel(a, b):
+        return max(abs(x - y) / abs(y) for x, y in zip(a.losses, b.losses))
+
+    def params_diff(a, b, tag):
+        out = {}
+        for k in b.params:
+            x, y = a.params[k], b.params[k]
+            out[f"{tag}_{k}_max_abs"] = max_abs(x, y)
+            out[f"{tag}_{k}_max_rel"] = float(((x - y).abs() / y.abs().clamp_min(1e-6)).max())
+        return out
+
+    det_close = all(bool(torch.allclose(det["mesh"].params[k], det["mesh_free"].params[k],
+                                        rtol=1e-4, atol=1e-6)) for k in ref.params)
+    det_loss = loss_rel(det["mesh"], det["mesh_free"])
+    phase("dist_fit", tris=scene.num_tris, steps=FIT_STEPS, chunks=FIT_CHUNKS,
+          step_s=[round(x, 4) for x in secs], mesh_free_step_s=fit["step_s"],
+          losses=res.losses, mesh_free_losses=ref.losses,
+          loss_max_rel=repr(loss_rel(res, ref)), rerun_loss_max_rel=repr(loss_rel(again, ref)),
+          **{k: repr(v) for k, v in {**params_diff(res, ref, "mesh"),
+                                     **params_diff(again, ref, "rerun")}.items()},
+          deterministic_loss_max_rel=repr(det_loss),
+          **{k: repr(v) for k, v in params_diff(det["mesh"], det["mesh_free"],
+                                                "deterministic").items()},
+          deterministic_params_within_rtol_1e4=det_close,
+          all_reduces=[c["all_reduce"] for c in per_step], bytes_per_all_reduce=n_bytes,
+          all_reduce_ms=f"{ar_ms:.4f}", launches=json.dumps(launches))
+    if loss_rel(res, ref) > 1e-4 or det_loss > 1e-4 or not det_close:
+        fail(f"dist_fit: the mesh's fit is off the mesh-free fit (losses "
+             f"{loss_rel(res, ref)}, deterministic {det_loss}, params {det_close})")
+    if any(c["all_reduce"] != FIT_CHUNKS for c in per_step):
+        fail(f"dist_fit: all-reduces a step {per_step}, not {FIT_CHUNKS}")
+    return dict(launches=launches, ar_ms=ar_ms, n_bytes=n_bytes)
+
+
+def dist_ring(mesh, scene, cam: Camera) -> dict:
+    """[dist_ring]: the 5M sponza at 3840x2160 through Renderer(mesh,
+    partition="ring") (ring_engine wide8, the one partition's WideBVH)
+    against the replicated wide8 Renderer: init seconds split into partition
+    and build, peak bytes, the frame's ms by CUDA events (render_rays on the
+    Morton frame) for both, the ring's split into closest8, occluded8, the
+    ring functions' own time (fold, state and the all-gathers; the
+    all-gather alone beside) and glue, the replicated's into closest8,
+    occluded8 and glue; the images by the image rule; the ring frame's
+    closest8 and occluded8 calls against their twins on the card (0
+    differing ids and flags)."""
+    frame = morton_rays(cam)
+    n = frame.o.shape[0]
+    builds = ("partition_scene", "build_partition_wides", "build_lbvh", "build_wide",
+              "tri_table")
+    out = {}
+    for name, kw in (("replicated", {}), ("ring", dict(mesh=mesh, partition="ring"))):
+        torch.cuda.empty_cache()
+        base = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        reset_launches()
+        rec = {}
+        with recording(pipeline_mod, builds, rec, timed=True):
+            r, s_init = sync_time(lambda: Renderer(scene, RenderConfig(method="wide8"), **kw))
+        init_launches = launch_counts()
+        img, s_render = sync_time(lambda: r.render(cam))
+        peak = torch.cuda.max_memory_allocated() - base
+        calls = {}
+        reset_launches()
+        coll_mod.reset_counts()
+        with torch.no_grad(), recording(ring_mod if name == "ring" else pipeline_mod,
+                                        ("traverse_wide8", "occluded_wide8"), calls):
+            render_rays(r.tracer, frame)
+        launches, counts = launch_counts(), dict(coll_mod.COUNTS)
+        with torch.no_grad():
+            ms = {"frame": cuda_ms(lambda: render_rays(r.tracer, frame), iters=5, warmup=1)}
+            (c_args, c_kw, _), (o_args, _, _) = (calls["traverse_wide8"][0],
+                                                  calls["occluded_wide8"][0])
+            tree = c_args[1]
+            ms["closest8"] = cuda_ms(lambda: k8.traverse_wide8(*c_args, **c_kw), iters=5,
+                                     warmup=1)
+            ms["occluded8"] = cuda_ms(lambda: k8.occluded_wide8(*o_args), iters=5, warmup=1)
+            if name == "ring":
+                tr = r.tracer
+                ms["ring_trace"] = cuda_ms(lambda: ring_mod.ring_trace(
+                    mesh, frame, tr.part, pbvh=tr.pbvh), iters=5, warmup=1)
+                ms["ring_occluded"] = cuda_ms(lambda: ring_mod.ring_occluded(
+                    mesh, o_args[0], tr.part, o_args[2], pbvh=tr.pbvh), iters=5, warmup=1)
+                hit = calls["traverse_wide8"][0][2]
+                ms["all_gather"] = cuda_ms(lambda: coll_mod.all_gather_tree(
+                    {"t": hit.t, "u": hit.u, "v": hit.v, "tri": hit.tri}, mesh), iters=5,
+                    warmup=1)
+                ms["fold"] = (ms["ring_trace"] - ms["closest8"] + ms["ring_occluded"]
+                              - ms["occluded8"])
+                ms["glue"] = ms["frame"] - ms["ring_trace"] - ms["ring_occluded"]
+            else:
+                ms["glue"] = ms["frame"] - ms["closest8"] - ms["occluded8"]
+        # the ring's kernel calls against their twins (the replicated
+        # frame's kernels are held to theirs by [parity])
+        twin = {}
+        if name == "ring":
+            hit = calls["traverse_wide8"][0][2]
+            with torch.no_grad():
+                twin_hit = chunked_twin(k8.traverse_wide8_ref)(*c_args, **c_kw)
+                twin_blk = chunked_twin(k8.occluded_wide8_ref)(*o_args)
+            same = hit.tri == twin_hit.tri
+            blk = calls["occluded_wide8"][0][2]
+            twin = dict(closest8_id_mismatches=int((~same).sum()),
+                        closest8_max_abs_tuv=max(max_abs(getattr(hit, f)[same],
+                                                         getattr(twin_hit, f)[same])
+                                                 for f in ("t", "u", "v")),
+                        occluded8_flag_mismatches=int((blk != twin_blk).sum()))
+            strict_flags("dist_ring", name, "occluded8", tree, o_args[0], blk, twin_blk)
+            if twin["closest8_id_mismatches"] or twin["closest8_max_abs_tuv"] > MAX_ABS_ERR:
+                FAILURES.append(f"dist_ring: closest8 against its twin: {twin}")
+            del hit, twin_hit, twin_blk, blk
+        s = {k[:-2]: round(v, 3) for k, v in rec.items() if k.endswith("_s")}
+        phase("dist_ring", engine=name, tris=scene.num_tris, rays=n, init_s=f"{s_init:.3f}",
+              init_split_s=json.dumps(s), render_s=f"{s_render:.3f}", peak_bytes=peak,
+              init_launches=json.dumps(init_launches), launches=json.dumps(launches),
+              collectives=json.dumps(counts), **{k: repr(v) for k, v in twin.items()},
+              shadow_rays=o_args[0].o.shape[0],
+              **{f"{k}_ms": f"{v:.4f}" for k, v in ms.items()},
+              rays_per_s=f"{n / (ms['frame'] * 1e-3):.1f}")
+        for k in ("closest8", "occluded8"):
+            if launches[k] != 1:
+                fail(f"dist_ring ({name}): {k} launched {launches[k]} times in a frame")
+        out[name] = dict(img=img, ms=ms, launches=launches, init_launches=init_launches,
+                         peak=peak, init_s=s_init, split=s)
+        del r, calls, c_args, o_args, tree
+    diff = image_diff(out["ring"].pop("img"), out["replicated"].pop("img"))
+    ratio = out["ring"]["ms"]["frame"] / out["replicated"]["ms"]["frame"]
+    phase("dist_ring", ring_over_replicated=f"{ratio:.4f}",
+          vs_replicated_max_abs=diff["max_abs"], vs_replicated_off_frac=diff["off_frac"])
+    if diff["off_frac"] > IMAGE_OFF_FRAC:
+        fail(f"dist_ring: the ring's image differs on {diff['off_frac']} of pixels")
+    out["ratio"] = ratio
+    return out
 
 
 def main() -> None:
@@ -2439,6 +2955,9 @@ def main() -> None:
     fit_check(dev)
     profile_fit(fit["inv"], fit["target"])
     fit_launches = fit["launches"]
+    # -- the distributed paths at world 1 (NCCL): the data-parallel fit --
+    mesh = dist_setup()
+    dfit = dist_fit(mesh, scene, cam, fit)
     del fit
 
     # -- the binary engine's configuration: the 70K bunny at 512x512 -------
@@ -2586,10 +3105,13 @@ def main() -> None:
     main_launches = renderer_phase(scene, cam, img)
     # -- area lights, hard and soft: the 1M sponza and the bunny -----------
     area = area_phase(scene, cam, bscene, bcam)
+    # -- the ring's local steps over 4 partitions on the card; sharding --
+    fold = dist_fold(scene, cam, bscene, bcam)
+    dist_shard(mesh, bscene, bcam)
     del scene, img, fit_b
     torch.cuda.empty_cache()
     t5 = time.perf_counter()
-    (scene5, _), s_scene5 = sync_time(lambda: make_sponza_scene(
+    (scene5, cam5), s_scene5 = sync_time(lambda: make_sponza_scene(
         num_tris=NUM_TRIS_5M, width=WIDTH_5M, height=HEIGHT_5M, device=dev))
     tbp["sponza5m"] = treebuild_parity("sponza5m", points=scene5.tris.centroids())
     stages["sponza5m"] = build_stages("sponza5m", scene5, wide8=True, parent=parent_lib)
@@ -2599,7 +3121,11 @@ def main() -> None:
     del build_cells
     phase("sponza5m", tris=scene5.num_tris, scene_s=f"{s_scene5:.3f}",
           seconds=f"{time.perf_counter() - t5:.1f}")
-    del scene5, stages["sponza5m"]["bvh"]
+    del stages["sponza5m"]["bvh"]
+    torch.cuda.empty_cache()
+    # -- the partitioned ring on the 5M sponza against the replicated frame --
+    ring5 = dist_ring(mesh, scene5, cam5)
+    del scene5
     torch.cuda.empty_cache()
     t_cli = time.perf_counter()
     cli_phase(bscene, bcam)
@@ -2614,7 +3140,7 @@ def main() -> None:
         kernels.append(entry(
             name, main_launches[name], max(p[name]["max_abs_err"] for p in tbp.values()
                                            if name in p),
-            one["ms"], one["plain_ms"], one, source=TREEBUILD_SRC,
+            one.get("l2_flushed_ms", one["ms"]), one["plain_ms"], one, source=TREEBUILD_SRC,
             mismatches=sum(p[name]["mismatches"] for p in tbp.values() if name in p),
             call_ms=round(one["call_ms"], 4), sponza5m_ms=round(five["ms"], 4),
             sponza5m_call_ms=round(five["call_ms"], 4),
@@ -2623,7 +3149,10 @@ def main() -> None:
             build_stage_ms=round(stages["sponza1m"]["ms"][name], 4),
             sponza5m_build_stage_ms=round(stages["sponza5m"]["ms"][name], 4),
             build_ab={cell: {t: {k: round(x, 5) for k, x in v.items()} for t, v in r.items()}
-                      for cell, r in ab_build.items() if cell.startswith(name)}))
+                      for cell, r in ab_build.items() if cell.startswith(name)},
+            **({"l2_warm_ms": round(one["ms"], 4),
+                "sponza5m_l2_flushed_ms": round(five["l2_flushed_ms"], 4)}
+               if name == "morton" else {})))
     # the area-light path's launches of each walk kernel ([area]): closest8
     # and occluded8 in the 1M main view's hard frame, knear8 in the
     # overview chunk's soft render, the binary kernels in the bunny's
@@ -2632,7 +3161,21 @@ def main() -> None:
                "closest_bin": "bunny", "occluded_bin": "bunny", "knear_bin": "bunny_soft"}
         if k["name"] in src:
             k["area_launches"] = area[src[k["name"]]]["launches"][k["name"]]
+        # launches on the dist paths, each read from its run
+        k["dist_launches"] = {cell: counts[k["name"]] for cell, counts in {
+            "ring_frame_5m": ring5["ring"]["launches"],
+            "ring_init_5m": ring5["ring"]["init_launches"],
+            "fold_frame_1m": fold["main"]["launches"],
+            "fold_soft_chunk_1m": fold["main"]["soft_launches"],
+            "fold_frame_bunny": fold["bunny"]["launches"],
+            "fold_soft_bunny": fold["bunny"]["soft_launches"],
+            "dist_fit_1m": dfit["launches"]}.items() if counts[k["name"]]}
+        if k["name"] == "occluded8":
+            for view in ("main", "overview"):
+                k[f"area_{view}_device_ms"] = round(area[view]["ms"]["area_device"], 4)
+                k[f"area_{view}_bound_ms"] = round(area[view]["area_bound"]["bound_ms"], 6)
     phase("done", seconds=f"{time.perf_counter() - t_start:.1f}")
+    dist.destroy_process_group()
     if FAILURES:
         fail("; ".join(FAILURES))
     print(json.dumps({"kernels": kernels}), flush=True)

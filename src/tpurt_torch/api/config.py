@@ -1,8 +1,8 @@
-"""Render and fit settings (counterpart of ``tpurt/api/config.py``'s
-RenderConfig and FitConfig).  Only the fields a ported path reads are here:
-FitConfig.seed has no reader in tpurt either, and DistConfig, the Config
-container, file loading and flat overrides wait for the slice whose code
-calls them."""
+"""Render, fit and process-group settings (counterpart of
+``tpurt/api/config.py``'s RenderConfig, FitConfig and DistConfig).  Only
+the fields a ported path reads are here: FitConfig.seed has no reader in
+tpurt either, and the Config container, file loading and flat overrides
+wait for a path that calls them."""
 
 from __future__ import annotations
 
@@ -63,3 +63,15 @@ class FitConfig:
     # degraded past rebuild_ratio x its at-build value; 0 disables it
     rebuild_every: int = 25
     rebuild_ratio: float = 2.0
+
+
+@dataclass(frozen=True)
+class DistConfig:
+    """Process-group knobs: dist/runtime.init_distributed's arguments (None:
+    torchrun's environment, or a world-1 group).  data_parallel is tpurt's
+    field, which no path of either package reads."""
+
+    data_parallel: bool = True
+    coordinator: str | None = None
+    num_processes: int | None = None
+    process_id: int | None = None

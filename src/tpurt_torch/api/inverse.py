@@ -1,5 +1,5 @@
 """Inverse renderer: fit vertices and albedo to a target image
-(counterpart of ``tpurt/api/inverse.py``, one device).
+(counterpart of ``tpurt/api/inverse.py``).
 
 Each step: refit the tree to the current vertices (no rebuild: topology
 frozen, no gradient; the WideBVH's boxes and rows for "wide8", the LBVH's
@@ -11,7 +11,22 @@ accumulated in table space: every dependence of the render on vertices and
 albedo goes through the (T, 15) triangle table, so each chunk's backward
 stops at a detached copy of the table, the chunks' table gradients add up
 there, and one backward through the table brings them to the parameters.
-That is tpurt's per-chunk gradient sum with the memory of one chunk.
+That is tpurt's per-chunk gradient sum with the memory of one chunk
+(dist/collectives.chunked_grad).
+
+With a mesh (a DeviceMesh from ``dist.shard.make_mesh``; every rank runs
+the same fit), the fit is data-parallel as tpurt's: the rays are padded to
+``grad_chunks`` x the mesh size, rank r takes the r-th contiguous shard and
+splits it into ``grad_chunks`` chunks, and each chunk's table gradient
+(T x 15 f32) and loss are summed over the ranks by one asynchronous
+all-reduce of 60 T + 4 bytes, issued as soon as the chunk's backward is
+done, so it overlaps the next chunk's render.  The table gradient is what is
+reduced, not the parameter gradients: the step's backward already stops at
+the table, its size does not depend on which parameters are fit or on how
+the triangles share vertices, and one backward through the table per step
+follows the reduction on every rank, as without a mesh.  Every rank then
+takes the same optimizer step, so the parameters stay equal; only the
+mesh's first rank writes checkpoints.
 
 The fit passes no generator, so it samples no emitters: a render config
 with ``light_samples > 0`` fits the point-lit image, as tpurt's fit, which
@@ -29,6 +44,7 @@ from dataclasses import dataclass
 from typing import Callable
 
 import torch
+from torch.distributed.device_mesh import DeviceMesh
 
 from tpurt_torch.accel.bvh8 import refit_wide_direct
 from tpurt_torch.accel.lbvh import range_minmax_sparse
@@ -38,6 +54,8 @@ from tpurt_torch.api.checkpoint import latest_step, restore_ckpt, save_ckpt
 from tpurt_torch.api.config import FitConfig, RenderConfig
 from tpurt_torch.core.geometry import Camera, Rays
 from tpurt_torch.core.scene import Scene
+from tpurt_torch.dist.collectives import chunked_grad, rank_rows
+from tpurt_torch.dist.shard import replicate
 from tpurt_torch.render.camera import gen_primary_rays
 from tpurt_torch.render.pipeline import make_tracer, render_rays, tri_table
 
@@ -75,11 +93,13 @@ class InverseRenderer:
     """
 
     def __init__(self, scene: Scene, cam: Camera, fit: FitConfig | None = None,
-                 render: RenderConfig | None = None, mesh=None):
+                 render: RenderConfig | None = None, mesh: DeviceMesh | None = None):
+        if mesh is not None and not isinstance(mesh, DeviceMesh):
+            raise TypeError(f"mesh must be a torch.distributed DeviceMesh "
+                            f"(dist.shard.make_mesh), not {type(mesh).__name__}")
+        self.mesh = mesh
         if mesh is not None:
-            raise NotImplementedError(
-                "a device mesh (data-parallel fit) is not ported to tpurt_torch "
-                "yet (ROADMAP.md queue 1, slice 5)")
+            scene = replicate(scene, mesh)
         self.fit_cfg = fit or FitConfig()
         self.render_cfg = render or RenderConfig(
             method="wide8", soft=True, k_layers=6, sharpness=40.0, band=0.15)
@@ -133,16 +153,16 @@ class InverseRenderer:
         tracer = dataclasses.replace(self.tracer0, scene=frozen, bvh=bvh, packed=packed,
                                      wide=wide, table=leaf)
         rkw = self.render_cfg.render_kwargs()
-        n = self.fit_cfg.grad_chunks
-        loss = torch.zeros((), dtype=torch.float32, device=o.device)
-        for oc, dc, tc in zip(o.reshape(n, -1, 3), d.reshape(n, -1, 3),
-                              target.reshape(n, -1, 3)):
-            colors = render_rays(tracer, Rays(o=oc, d=dc), **rkw)
-            chunk_loss = torch.sum((colors - tc) ** 2)
-            chunk_loss.backward()
-            loss = loss + chunk_loss.detach()
+
+        def chunk_loss(tab, oc, dc, tc):
+            colors = render_rays(dataclasses.replace(tracer, table=tab), Rays(o=oc, d=dc),
+                                 **rkw)
+            return torch.sum((colors - tc) ** 2)
+
+        loss, grad = chunked_grad(chunk_loss, leaf, (o, d, target),
+                                  self.fit_cfg.grad_chunks, mesh=self.mesh)
         opt.zero_grad(set_to_none=True)
-        table.backward(torch.zeros_like(table) if leaf.grad is None else leaf.grad)
+        table.backward(grad)
         opt.step()
         return loss
 
@@ -188,14 +208,18 @@ class InverseRenderer:
         dev = rays.o.device
         target = torch.as_tensor(target_image, dtype=torch.float32,
                                  device=dev).reshape(-1, 3)
-        # Pad so the chunks divide the batch: padded rays have zero direction
-        # and never hit (a constant background term), padded targets are 0.
+        # Pad so the chunks (of every rank) divide the batch: padded rays
+        # have zero direction and never hit (a constant background term),
+        # padded targets are 0.
         n = rays.shape[0]
-        pad = (-n) % cfg.grad_chunks
+        pad = (-n) % (cfg.grad_chunks * (1 if self.mesh is None else self.mesh.size()))
         o, d = rays.o, rays.d
         if pad:
             zeros = torch.zeros((pad, 3), dtype=torch.float32, device=dev)
             o, d, target = (torch.cat([x, zeros]) for x in (o, d, target))
+        if self.mesh is not None:
+            rows = rank_rows(o.shape[0], self.mesh)
+            o, d, target = o[rows], d[rows], target[rows]
         params = self.init_params()
         opt = make_optimizer(cfg, params)
         start = 0
@@ -216,7 +240,8 @@ class InverseRenderer:
             if (cfg.rebuild_every and "verts" in params
                     and (i + 1) % cfg.rebuild_every == 0):
                 self._maybe_rebuild(params)
-            if cfg.ckpt_path and cfg.ckpt_every and (i + 1) % cfg.ckpt_every == 0:
+            if (cfg.ckpt_path and cfg.ckpt_every and (i + 1) % cfg.ckpt_every == 0
+                    and (self.mesh is None or self.mesh.get_local_rank() == 0)):
                 save_ckpt(cfg.ckpt_path, {"params": {k: v.detach() for k, v in params.items()},
                                           "opt": opt.state_dict()}, i + 1)
         final = {k: v.detach() for k, v in params.items()}

@@ -1,7 +1,12 @@
 """tpurt_torch CLI: render / build-bvh / fit / check-grads / bench
 (counterpart of ``tpurt/cli/main.py``, with tpurt's verbs and flags).
 
-Thin wrapper over the api/ layer, on the CUDA device.
+Thin wrapper over the api/ layer, on the CUDA device.  ``--shard`` (render,
+fit) joins the process group (dist/runtime.init_distributed: torchrun's
+environment, or a world-1 group) and passes the mesh over its ranks to the
+Renderer or InverseRenderer; only the coordinator writes files:
+
+    torchrun --nproc-per-node 4 -m tpurt_torch.cli.main render --shard --scene sponza
 
     python -m tpurt_torch.cli.main render --scene cornell --width 256 -o out.png
     python -m tpurt_torch.cli.main build-bvh --scene sponza5m
@@ -9,7 +14,7 @@ Thin wrapper over the api/ layer, on the CUDA device.
     python -m tpurt_torch.cli.main check-grads --scene cornell --width 24
 
 ``bench`` raises: the port's benchmark is ROADMAP.md item 8 (tpurt's
-``bench.py`` imports JAX).  ``--shard`` raises: ``dist/`` is slice 5.
+``bench.py`` imports JAX).
 ``render --light-samples S --seed K`` adds area light from S points drawn
 on the emissive triangles by a generator seeded K.
 """
@@ -40,11 +45,18 @@ def _scene(args):
     return scene, cam
 
 
-def _require_one_device(args) -> None:
-    if getattr(args, "shard", False):
-        raise NotImplementedError(
-            "--shard needs dist/, which is not ported to tpurt_torch yet "
-            "(ROADMAP.md queue 1, slice 5)")
+def _mesh(args):
+    """The mesh over every rank with --shard (the process group joined or
+    made first), else None."""
+    if not args.shard:
+        return None
+    from tpurt_torch.api.config import DistConfig
+    from tpurt_torch.dist.runtime import init_distributed
+    from tpurt_torch.dist.shard import make_mesh
+
+    cfg = DistConfig()
+    init_distributed(cfg.coordinator, cfg.num_processes, cfg.process_id, device=args.device)
+    return make_mesh(args.device)
 
 
 def _save_image(img: torch.Tensor, path: str) -> None:
@@ -69,17 +81,20 @@ def _save_image(img: torch.Tensor, path: str) -> None:
 def cmd_render(args) -> int:
     from tpurt_torch.api.config import RenderConfig
     from tpurt_torch.api.renderer import Renderer
+    from tpurt_torch.dist.runtime import is_coordinator
     from tpurt_torch.obs import get_logger, trace_span
 
-    _require_one_device(args)
     log = get_logger()
+    mesh = _mesh(args)
     scene, cam = _scene(args)
     cfg = RenderConfig(method=args.method, spp=args.spp,
                        light_samples=args.light_samples, light_seed=args.seed)
     with trace_span("render", log=True):
-        img = Renderer(scene, cfg).render(cam)
+        img = Renderer(scene, cfg, mesh=mesh).render(cam)
         if img.is_cuda:
             torch.cuda.synchronize()
+    if not is_coordinator():
+        return 0
     _save_image(img, args.out)
     log.info("wrote %s (%dx%d, %d tris)", args.out, cam.width, cam.height, scene.num_tris)
     return 0
@@ -111,8 +126,8 @@ def cmd_fit(args) -> int:
     from tpurt_torch.obs import get_logger
     from tpurt_torch.render.pipeline import render
 
-    _require_one_device(args)
     log = get_logger()
+    mesh = _mesh(args)
     scene, cam = _scene(args)
     rcfg = RenderConfig(method=args.method, soft=True, k_layers=4, sharpness=40.0,
                         band=0.15)
@@ -124,7 +139,7 @@ def cmd_fit(args) -> int:
         perturbed, cam,
         fit=FitConfig(steps=args.steps, lr=args.lr, ckpt_path=args.ckpt,
                       ckpt_every=args.ckpt_every),
-        render=rcfg)
+        render=rcfg, mesh=mesh)
     res = inv.fit(target, callback=lambda i, l: log.info("step %d loss %.3e", i, l))
     if not res.losses:
         log.info("fit done: nothing to run (resumed at step %d of %d)", args.steps, args.steps)
@@ -207,7 +222,7 @@ def build_parser() -> argparse.ArgumentParser:
     sp.add_argument("--seed", type=int, default=0,
                     help="seed of the area-light sampler (light_seed)")
     sp.add_argument("--shard", action="store_true",
-                    help="shard rays over all devices (not ported: raises)")
+                    help="shard rays over every rank of the process group")
     sp.set_defaults(fn=cmd_render)
 
     sp = sub.add_parser("build-bvh", help="build the LBVH and report tris/s")
@@ -220,7 +235,8 @@ def build_parser() -> argparse.ArgumentParser:
     sp.add_argument("--steps", type=int, default=50)
     sp.add_argument("--lr", type=float, default=1e-2)
     sp.add_argument("--perturb", type=float, default=0.02)
-    sp.add_argument("--shard", action="store_true", help="not ported: raises")
+    sp.add_argument("--shard", action="store_true",
+                    help="data-parallel fit over every rank of the process group")
     sp.add_argument("--ckpt", default=None)
     sp.add_argument("--ckpt-every", type=int, default=50)
     sp.set_defaults(fn=cmd_fit)
@@ -239,9 +255,16 @@ def build_parser() -> argparse.ArgumentParser:
 def main(argv=None, device="cuda") -> int:
     """Run one verb; its scene lives on `device` (the card unless a caller,
     such as a test, asks for the CPU)."""
+    import torch.distributed as dist
+
     args = build_parser().parse_args(argv)
     args.device = device
-    return args.fn(args)
+    owns_group = getattr(args, "shard", False) and not dist.is_initialized()
+    try:
+        return args.fn(args)
+    finally:
+        if owns_group and dist.is_initialized():
+            dist.destroy_process_group()
 
 
 if __name__ == "__main__":

@@ -20,7 +20,12 @@ Engines (``Tracer.method``):
   ``"pallas"``: CUDA kernels on the GPU, their plain-torch twins on the CPU;
 - ``"wide8"``: the 8-wide BVH walks (kernels/traverse8.py), the counterpart
   of tpurt's ``"pallas8"``: CUDA kernels on the GPU, their plain-torch twins
-  on the CPU.
+  on the CPU;
+- ``"ring"``: the scene Morton-partitioned over a DeviceMesh, one chunk a
+  rank, the rays rotated around the ranks (dist/ring.py), each chunk walked
+  by the wide8 kernels or the binary ones (``ring_engine``, tpurt's
+  ``"pallas8"`` and ``"packet"``).  Hard and soft; the hits come back to
+  every rank, and the shading reads the replicated table.
 
 Area lights: with light_samples > 0 and a torch.Generator, each render
 draws light_samples points on the scene's emissive triangles
@@ -36,9 +41,11 @@ nothing is sampled, as tpurt samples nothing without a key.
 from __future__ import annotations
 
 import dataclasses
+import functools
 from dataclasses import dataclass
 
 import torch
+from torch.distributed.device_mesh import DeviceMesh
 
 from tpurt_torch.accel.bvh8 import WideBVH, build_wide
 from tpurt_torch.accel.intersect import (
@@ -55,6 +62,9 @@ from tpurt_torch.diff.intersect_vjp import intersect_tuv
 from tpurt_torch.diff.softvis import (
     composite, coverage, cross3, det_gate, dot3, k_nearest_brute,
     soft_occlusion_layers_soa)
+from tpurt_torch.dist.ring import ring_k_nearest, ring_occluded, ring_trace
+from tpurt_torch.dist.scene_partition import (
+    ScenePartition, build_partition_bvhs, build_partition_wides, partition_scene)
 from tpurt_torch.kernels.traverse import (
     k_nearest_ids_packed, occluded_packed, traverse_packed)
 from tpurt_torch.kernels.traverse8 import (
@@ -65,7 +75,8 @@ from tpurt_torch.render.shade import (
 
 SHADOW_EPS = 1e-3  # offset shadow-ray origins off the surface
 SHADOW_T_FRAC = 1.0 - 1e-3  # stop shadow rays just before the light
-METHODS = ("brute", "bvh", "binary", "wide8")
+METHODS = ("brute", "bvh", "binary", "wide8", "ring")
+RING_ENGINES = ("wide8", "binary")
 
 
 def tri_table(tris) -> torch.Tensor:
@@ -81,7 +92,9 @@ def tri_table(tris) -> torch.Tensor:
 @dataclass
 class Tracer:
     """Traversal engine bound to a scene.  ``table`` is tri_table of
-    ``scene.tris`` and must track it."""
+    ``scene.tris`` and must track it.  The "ring" engine's state: the Morton
+    partition ``part``, this rank's own chunk's tree ``pbvh`` (a WideBVH or
+    a PackedBVH) and the DeviceMesh ``mesh`` the rays rotate over."""
 
     scene: Scene
     bvh: BVH | None = None
@@ -89,11 +102,32 @@ class Tracer:
     wide: WideBVH | None = None
     table: torch.Tensor | None = None
     method: str = "brute"
+    part: ScenePartition | None = None
+    pbvh: WideBVH | PackedBVH | None = None
+    mesh: DeviceMesh | None = None
+
+    def _ring_pad(self, rays: Rays, *extra):
+        """Flat rays (and per-ray tensors) padded to a multiple of the mesh
+        with zero rays (and zeros) -> (Rays, n, extras)."""
+        o, d = rays.o.reshape(-1, 3), rays.d.reshape(-1, 3)
+        n = o.shape[0]
+        pad = (-n) % self.mesh.size()
+        extra = tuple(torch.as_tensor(e, dtype=torch.float32, device=o.device)
+                      .expand(rays.shape).reshape(-1) for e in extra)
+        if pad:
+            o, d = (torch.nn.functional.pad(x, (0, 0, 0, pad)) for x in (o, d))
+            extra = tuple(torch.nn.functional.pad(e, (0, pad)) for e in extra)
+        return Rays(o=o, d=d), n, extra
 
     def closest_shaded(self, rays: Rays) -> tuple[Hit, tuple | None]:
         """(Hit, shade) where shade = (albedo, emission, raw normal) of the
         winning triangle straight from the wide8 walk, or None for the
         other engines (the hard render then reads the table)."""
+        if self.method == "ring":
+            flat, n, _ = self._ring_pad(rays)
+            hit = ring_trace(self.mesh, flat, self.part, pbvh=self.pbvh)
+            return Hit(**{f: getattr(hit, f)[:n].reshape(rays.shape)
+                          for f in ("t", "u", "v", "tri")}), None
         if self.method == "wide8":
             return traverse_wide8(rays, self.wide, shade_out=True)
         if self.method == "binary":
@@ -110,6 +144,10 @@ class Tracer:
             occ = occluded_ref(rays, self.scene.tris, self.bvh, t_max)
         elif self.method == "binary":
             occ = occluded_packed(rays, self.packed, t_max)
+        elif self.method == "ring":
+            flat, n, (tm,) = self._ring_pad(rays, t_max)
+            occ = ring_occluded(self.mesh, flat, self.part, tm,
+                                pbvh=self.pbvh)[:n].reshape(rays.shape)
         else:
             occ = occluded_wide8(rays, self.wide, t_max)
         return 1.0 - occ.to(torch.float32)
@@ -125,6 +163,10 @@ class Tracer:
             return k_nearest_ref(rays, self.scene.tris, self.bvh, k=k, band=band)
         if self.method == "binary":
             ids = k_nearest_ids_packed(rays, self.packed, k, band, t_max=T_MAX)
+        elif self.method == "ring":
+            flat, n, _ = self._ring_pad(rays)
+            ids = ring_k_nearest(self.mesh, flat, self.part, self.table, k, band,
+                                 pbvh=self.pbvh)[:n]
         else:
             ids = k_nearest_wide8(rays, self.wide, k, band, t_max=T_MAX)
         z = torch.zeros(ids.shape, dtype=torch.float32, device=ids.device)
@@ -148,20 +190,39 @@ class Tracer:
                                     DEFAULT_T_MIN, 2.0 * tm)
         if self.method == "binary":
             return k_nearest_ids_packed(flat, self.packed, k_occ, band, t_max=2.0 * tm)
+        if self.method == "ring":
+            flat, n, (tm,) = self._ring_pad(flat, tm)
+            return ring_k_nearest(self.mesh, flat, self.part, self.table, k_occ, band,
+                                  t_max=2.0 * tm, pbvh=self.pbvh)[:n]
         return k_nearest_wide8(flat, self.wide, k_occ, band, t_max=2.0 * tm)
 
 
 def make_tracer(scene: Scene, method: str = "brute", band: float = 0.0,
-                leaf_size: int = 8) -> Tracer:
+                leaf_size: int = 8, mesh=None, ring_engine: str = "wide8") -> Tracer:
     """Build a Tracer for `scene` on the scene's device: the table, and for
     the BVH engines the LBVH with its DFS thread at `leaf_size` (boxes
     inflated by `band`, which the soft path needs so near-miss band hits are
     not culled); for "binary" its packed layout, with rows for the static
     bound max_cut_leaves as tpurt packs it; for "wide8" its 8-wide
-    collapse."""
+    collapse.  "ring" (needs `mesh`, a DeviceMesh): the scene
+    Morton-partitioned into one chunk a rank, and this rank's chunk's tree
+    for `ring_engine` ("wide8": a WideBVH; "binary": a PackedBVH)."""
     if method not in METHODS:
         raise ValueError(f"method {method!r} not in {METHODS}")
     table = tri_table(scene.tris)
+    if method == "ring":
+        if mesh is None:
+            raise ValueError("method='ring' needs a DeviceMesh (mesh=, dist.shard.make_mesh)")
+        if ring_engine not in RING_ENGINES:
+            raise ValueError(f"ring_engine {ring_engine!r} not in {RING_ENGINES}")
+        with torch.no_grad():
+            part = partition_scene(scene.tris, mesh.size())
+            rank = mesh.get_local_rank()
+            pbvh = (build_partition_wides(part, scene.tris, band=band, index=rank)
+                    if ring_engine == "wide8" else
+                    build_partition_bvhs(part, leaf_size=leaf_size, band=band, index=rank))
+        return Tracer(scene=scene, method=method, table=table, part=part, pbvh=pbvh,
+                      mesh=mesh)
     if method == "brute":
         return Tracer(scene=scene, method=method, table=table)
     packed = wide = None
@@ -407,8 +468,11 @@ def render(scene: Scene, cam: Camera, *, method: str = "brute",
 
 
 def render_image(tracer: Tracer, cam: Camera, spp: int = 1,
-                 generator: torch.Generator | None = None, **kw) -> torch.Tensor:
-    """The camera's (H, W, 3) image through render_rays(tracer, ..., **kw).
+                 generator: torch.Generator | None = None, trace=None,
+                 **kw) -> torch.Tensor:
+    """The camera's (H, W, 3) image through render_rays(tracer, ..., **kw),
+    or through trace(rays, generator=, **kw) when given (the Renderer's
+    ray-sharded render).
 
     Primary rays are traced in Morton pixel order (neighbouring rays on
     neighbouring pixels) and the image is put back in row-major order; the
@@ -420,10 +484,11 @@ def render_image(tracer: Tracer, cam: Camera, spp: int = 1,
     perm, inv = (torch.as_tensor(x, device=cam.eye.device)
                  for x in pixel_morton_perm(cam.height, cam.width))
 
+    run = trace or functools.partial(render_rays, tracer)
+
     def one(jitter):
         rays = gen_primary_rays(cam, jitter)
-        return render_rays(tracer, Rays(o=rays.o[perm], d=rays.d[perm]),
-                           generator=generator, **kw)[inv]
+        return run(Rays(o=rays.o[perm], d=rays.d[perm]), generator=generator, **kw)[inv]
 
     if spp <= 1 or generator is None:
         img = one(None)

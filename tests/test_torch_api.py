@@ -94,11 +94,13 @@ def test_renderer_soft_config_and_overrides():
 
 
 @pytest.mark.parametrize("kw,err,match", [
-    (dict(mesh=object()), NotImplementedError, "slice 5"),
-    (dict(partition="ring"), NotImplementedError, "slice 5"),
+    (dict(mesh=object()), TypeError, "DeviceMesh"),
+    (dict(partition="ring"), ValueError, "mesh"),
     (dict(partition="sideways"), ValueError, "sideways"),
 ])
 def test_renderer_refuses_what_is_not_ported(kw, err, match):
+    """dist/ is ported: a mesh must be a DeviceMesh, and the ring needs
+    one; an unknown partition is refused."""
     scene, _ = _cornell()
     with pytest.raises(err, match=match):
         Renderer(scene, RenderConfig(method="brute"), **kw)

@@ -83,13 +83,25 @@ def test_fit_checkpoints_and_resumes(tmp_path):
 
 @pytest.mark.parametrize("argv,match", [
     (["bench"], "item 8"),
-    (["render", "--shard", "--width", "4"], "slice 5"),
-    (["fit", "--shard", "--width", "4", "--steps", "1"], "slice 5"),
+    (["render", "--shard", "--width", "4"], "x.npy"),
+    (["fit", "--shard", "--width", "8", "--steps", "2", "--ckpt-every", "2"],
+     "ckpt_00000002.pt"),
 ])
 def test_unported_verbs_and_flags_raise(argv, match, tmp_path):
-    with pytest.raises(NotImplementedError, match=match):
-        main(argv + (["-o", str(tmp_path / "x.npy")] if argv[0] == "render" else []),
-             device="cpu")
+    """bench is not ported and raises.  --shard is (dist/): on the CPU it
+    runs at world 1 on a gloo group of its own, writes its image or
+    checkpoint, returns 0 and leaves no group of its own behind."""
+    import torch.distributed as dist
+
+    if argv[0] == "bench":
+        with pytest.raises(NotImplementedError, match=match):
+            main(argv, device="cpu")
+        return
+    out = ["-o", str(tmp_path / "x.npy")] if argv[0] == "render" else [
+        "--ckpt", str(tmp_path)]
+    before = dist.is_initialized()
+    assert main(argv + out, device="cpu") == 0
+    assert match in os.listdir(tmp_path) and dist.is_initialized() == before
 
 
 def test_render_light_samples_and_seed(tmp_path):

@@ -372,12 +372,13 @@ def test_tree_quality_matches_tpurt():
 
 
 @pytest.mark.parametrize("kw,match", [
-    (dict(mesh=object()), "slice 5"),
+    (dict(mesh=object()), "DeviceMesh"),
 ])
 def test_unported_fit_options_raise(kw, match):
-    """A device mesh is refused when the fit is set up."""
+    """The data-parallel fit is ported: a mesh that is not a DeviceMesh is
+    refused when the fit is set up."""
     scene, cam = make_cornell_box(device="cpu")
-    with pytest.raises(NotImplementedError, match=match):
+    with pytest.raises(TypeError, match=match):
         InverseRenderer(scene, cam, **{"render": RenderConfig(method="brute", **RK), **kw})
 
 
