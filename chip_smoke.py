@@ -3,7 +3,7 @@ step of the 1M-triangle sponza scene through the hand-written BVH8 CUDA
 kernels, and of the 70K-triangle bunny at 512x512 through the binary-BVH
 kernels; the LBVH build through the Morton and radix-tree kernels at 1M and
 5M triangles, the port's Renderer, area lights (hard and soft), the
-distributed paths (dist/, at world 1 on NCCL) and CLI.
+distributed paths (dist/, at world 1 on NCCL), the CLI and the benchmark.
 
     python3 chip_smoke.py [--parent DIR] [--parent NAME=DIR ...]
 
@@ -128,7 +128,14 @@ The LBVH build (morton and radix; every make_tracer above ran them):
            twin ms (morton's from a profile, radix's from bare launches, the
            wrapper call's and the twin's by CUDA events), the bound from this
            input (radix: the work of Karras's search for its tree), the
-           phase's launches.
+           phase's launches.  morton at 1M and 5M also from HBM: bare
+           launches after a 128 MB read that leaves the L2 clean
+           (l2_flushed_ms, the time held to its bound), after a 128 MB
+           write (l2_write_flushed_ms: the launch also writes the dirty
+           lines back, the yardstick the row was once read by), and an
+           empty kernel under the same flush (launch_floor_ms); and morton
+           on the edge inputs, N = 1, 2, 3, 5 and 2^20 + 3 seeded points,
+           each also as a view 12 bytes past its tensor's base.
   build_stages
            a warm build_lbvh at 1M and 5M: seconds, launches, peak memory
            above what was allocated before it; each of its lbvh.* stage
@@ -189,9 +196,8 @@ The LBVH build (morton and radix; every make_tracer above ran them):
            new, other the kernel's device ms from bare launches and the
            stage's ms as each tree's wrapper makes it (the parent's: full,
            arange and two cats before its kernel); without other trees,
-           this build's alone; morton also timed with a 128 MB write
-           before each bare launch (l2_flushed_ms, the time held to its
-           HBM bound: back-to-back launches find their inputs in L2).
+           this build's alone; morton's bare launches also with a clean
+           L2 before each (flushed_ms), in the same turns.
   cli      `python -m tpurt_torch.cli.main` as subprocesses in a temporary
            directory: build-bvh on the 5M sponza (its metric line), render of
            the 5M sponza at 3840x2160 (shape, finite, hit fraction) and of the
@@ -199,6 +205,13 @@ The LBVH build (morton and radix; every make_tracer above ran them):
            group), each equal to the in-process Renderer's, fit
            on cornell 32^2 with checkpoints every 2 steps (6 steps, then a
            resumed run to 8), check-grads on cornell 24^2.
+  bench    `python -m tpurt_torch.cli.main bench --parity --staged
+           --profile-dir DIR` in a subprocess (tpurt_torch.bench, the port's
+           benchmark): the 1M fwd and fwd_bwd rows, the 5M fwd, fwd_bwd and
+           ring rows, the staged rows and the kernels against their twins,
+           each row printed; the headline's numbers on their own line.  It
+           must exit 0 with wide8 as the engine that ran, no error, and
+           value, value_fwd_bwd and the three 5M values above 0.
 Then the kernels' JSON line and, last, {"ok": true, "device": {...}}.
 """
 
@@ -349,7 +362,13 @@ PEAK_INT32_OPS = 64 * 132 * 1.98e9
 # Karras's search (exponential, then binary), which the function needs,
 # not over the kernel's fixed 62-step ladder.
 MORTON_OPS = 3 * 6 + 3 * 8 + 4
+# flushed_ms's spin between the flush and the timed launch: ~100 us at the
+# card's 1.98 GHz, longer than the host takes to enqueue the launch.
+FLUSH_SPIN_CYCLES = 200_000
 RADIX_DELTA_OPS, RADIX_STEP_OPS = 10, 6
+# morton's edge inputs ([treebuild_parity] morton_edges): a point count
+# below, at and past a whole vector of points, and a ragged one past 2^20.
+MORTON_EDGE_N, MORTON_EDGE_SEED = (1, 2, 3, 5, (1 << 20) + 3), 5
 # [area]: the generated scenes carry no emitters, so AREA_EMITTERS of their
 # triangles (a seeded choice) get radiance AREA_LE; AREA_SAMPLES emitter
 # samples a frame (8,355,840 area shadow rays at 1920x1088), drawn from a
@@ -363,7 +382,7 @@ KERNEL_NAMES = ("closest8_kernel", "occluded8_kernel", "knear8_kernel",
 WALK_KERNELS = ("closest8", "occluded8", "knear8", "closest_bin", "occluded_bin", "knear_bin")
 # The redesigned kernels, which [build] fails on if ptxas reports a spill.
 NO_SPILL = ("knear8", "knear_bin", "closest8", "closest_bin", "occluded8", "occluded_bin",
-            "radix")
+            "radix", "morton")
 # Each kernel engine's hard-frame kernels (closest hit, any hit) and its
 # closest-hit call as render_rays makes it.
 HARD_KERNELS = {
@@ -1601,11 +1620,12 @@ def treebuild_parity(view: str, points: torch.Tensor | None = None,
         inv = tb.inv_extent(lo, points.amax(dim=0))
         ref = tb.morton_codes_ref(points, lo, inv)
         got = tb.morton_codes(points, lo, inv)
+        bare = build_launch(this_library(), "morton", (points, lo, inv))[0]
         out["morton"] = dict(
             n=points.shape[0], mismatches=int((got != ref).sum()), max_abs_err=max_abs(got, ref),
             ms=kernel_device_ms(lambda: tb.morton_codes(points, lo, inv), "morton_kernel"),
-            l2_flushed_ms=flushed_ms(build_launch(this_library(), "morton",
-                                                  (points, lo, inv))[0]),
+            l2_flushed_ms=flushed_ms(bare), l2_write_flushed_ms=flushed_ms(bare, write=True),
+            launch_floor_ms=launch_floor_ms(),
             call_ms=cuda_ms(lambda: tb.morton_codes(points, lo, inv)),
             plain_ms=cuda_ms(lambda: tb.morton_codes_ref(points, lo, inv), iters=3, warmup=1),
             **morton_bound(points.shape[0]))
@@ -1625,13 +1645,37 @@ def treebuild_parity(view: str, points: torch.Tensor | None = None,
         r["launches"] = tb.LAUNCHES[name]
         phase("treebuild_parity", view=view, kernel=name, n=r["n"],
               mismatches=r["mismatches"], ms=f"{r['ms']:.4f}", call_ms=f"{r['call_ms']:.4f}",
-              **({"l2_flushed_ms": f"{r['l2_flushed_ms']:.4f}"} if "l2_flushed_ms" in r else {}),
+              **{k: f"{r[k]:.4f}" for k in ("l2_flushed_ms", "l2_write_flushed_ms",
+                                            "launch_floor_ms") if k in r},
               plain_ms=f"{r['plain_ms']:.4f}",
               bound_ms=f"{r['bound_ms']:.6f}", bound_by=r["bound_by"], bytes=r["bytes"],
               ops=r["ops"], **{k: r[k] for k in ("loads", "evals") if k in r},
               launches=r["launches"])
         if r["mismatches"]:
             fail(f"{name} ({view}): {r['mismatches']} elements differ from its twin")
+    return out
+
+
+def morton_edges(dev) -> dict:
+    """morton against its twin on the card, bitwise, at the sizes and bases
+    that a kernel reading points in vectors must cover: N in MORTON_EDGE_N
+    seeded points, each from a tensor's own base and as the view points[1:]
+    of N + 1 points (its base 12 bytes past the allocation's).  Returns each
+    input's differing codes; fails on any."""
+    rng = np.random.default_rng(MORTON_EDGE_SEED)
+    out = {}
+    for n in MORTON_EDGE_N:
+        pts = torch.as_tensor(rng.uniform(-3.0, 5.0, (n + 1, 3)).astype(np.float32),
+                              device=dev)
+        for view, p in ((f"n{n}", pts[:n].clone()), (f"n{n}_offset12", pts[1:])):
+            lo = p.amin(dim=0)
+            inv = tb.inv_extent(lo, p.amax(dim=0))
+            got, ref = tb.morton_codes(p, lo, inv), tb.morton_codes_ref(p, lo, inv)
+            out[view] = int((got != ref).sum()) + int(got.shape != ref.shape)
+            phase("treebuild_parity", view=view, kernel="morton", n=n,
+                  base_offset=p.data_ptr() % 16, mismatches=out[view])
+    if any(out.values()):
+        fail(f"morton differs from its twin on the edge inputs: {out}")
     return out
 
 
@@ -1750,23 +1794,42 @@ def build_launch(lib: ctypes.CDLL, kernel: str, inputs, writes_all: bool = True)
     return launch, stage
 
 
-def flushed_ms(launch, passes: int = 20, flush_bytes: int = 128 << 20) -> float:
-    """The device ms of one bare launch with the L2 cache flushed before it:
-    a write of flush_bytes (more than the card's 50 MB of L2) precedes each
-    launch, and CUDA events bracket the launch alone.  The write keeps the
-    device busy while the host enqueues the events and the launch, so they
-    time the kernel and not the host."""
-    buf = torch.empty(flush_bytes // 4, dtype=torch.float32, device="cuda")
+def flushed_ms(launch, passes: int = 20, flush_bytes: int = 128 << 20,
+               write: bool = False) -> float:
+    """The device ms of one bare launch with the L2 cache flushed before it,
+    CUDA events bracketing the launch alone; the median of `passes`.  The
+    flush reads flush_bytes (more than the card's 50 MB of L2) into a sum
+    held in a preallocated 1-element tensor, so the launch finds its inputs
+    in HBM and the L2 full of clean lines, which it evicts without writing
+    them back.  write: the flush writes the buffer instead; the L2 is
+    write-back, so the launch then also pays for evicting those dirty lines
+    to HBM (the yardstick morton's row was once read by, printed beside the
+    clean one).  A spin of FLUSH_SPIN_CYCLES follows the flush and touches
+    no memory: the device is still busy when the host has enqueued the
+    events and the launch, so they time the kernel and not the host."""
+    buf = torch.ones(flush_bytes // 4, dtype=torch.float32, device="cuda")
+    total = torch.empty((), dtype=torch.float32, device="cuda")
     launch()
     events = [tuple(torch.cuda.Event(enable_timing=True) for _ in range(2))
               for _ in range(passes)]
     for start, end in events:
-        buf.zero_()
+        if write:
+            buf.zero_()
+        else:
+            torch.sum(buf, dim=0, out=total)
+        torch.cuda._sleep(FLUSH_SPIN_CYCLES)
         start.record()
         launch()
         end.record()
     torch.cuda.synchronize()
-    return sum(start.elapsed_time(end) for start, end in events) / passes
+    return float(np.median([start.elapsed_time(end) for start, end in events]))
+
+
+def launch_floor_ms() -> float:
+    """flushed_ms of an empty kernel (torch's spin kernel, 0 cycles, one
+    thread): what a launch bracketed by the same events and flush costs
+    with no work in it."""
+    return flushed_ms(lambda: torch.cuda._sleep(0))
 
 
 def events_ms(fn, passes: int = 20) -> float:
@@ -1801,9 +1864,11 @@ def build_ab(libs: dict, cells: dict) -> dict:
     tree's outputs from its stage bitwise equal to this build's (a tree
     that differs fails the script at its end), then in turns other, new,
     new, other for each other tree the kernel's device ms from bare
-    launches (events_ms over launch()) and the stage's ms as that tree's
-    wrapper makes it (events_ms over stage(): output allocation, the
-    wrapper's fills, the launch)."""
+    launches (events_ms over launch(): morton's inputs stay in L2, as the
+    build's centroids come straight from the op before it), morton's also
+    with a clean L2 before each launch (flushed_ms), and the stage's ms as
+    that tree's wrapper makes it (events_ms over stage(): output
+    allocation, the wrapper's fills, the launch)."""
     out = {}
     for cell, (kernel, inputs) in cells.items():
         codes = inputs if kernel == "radix" else None
@@ -1818,18 +1883,20 @@ def build_ab(libs: dict, cells: dict) -> dict:
         del ref
         order = [name for other in libs if other != "new"
                  for name in (other, "new", "new", other)] or ["new"]
-        dev_turns = [(name, events_ms(fns[name][0])) for name in order]
-        stage_turns = [(name, events_ms(fns[name][1])) for name in order]
+        turns = {"device": [(name, events_ms(fns[name][0])) for name in order],
+                 "stage": [(name, events_ms(fns[name][1])) for name in order]}
+        if kernel == "morton":  # also from HBM with a clean L2 (flushed_ms)
+            turns["flushed"] = [(name, flushed_ms(fns[name][0])) for name in order]
         mean = lambda ts, name: float(np.mean([t for s, t in ts if s == name]))  # noqa: E731
-        out[cell] = {name: dict(device_ms=mean(dev_turns, name),
-                                stage_ms=mean(stage_turns, name)) for name in libs}
+        out[cell] = {name: {f"{k}_ms": mean(ts, name) for k, ts in turns.items()}
+                     for name in libs}
         n = (inputs if codes is not None else inputs[0]).shape[0]
         phase("build_ab", kernel=kernel, cell=cell, n=n,
               writes_leaves=json.dumps(writes), mismatches=json.dumps(bad),
-              device_turns=json.dumps([[s, round(t, 5)] for s, t in dev_turns]),
-              stage_turns=json.dumps([[s, round(t, 5)] for s, t in stage_turns]),
-              **{f"{name}_device_ms": f"{v['device_ms']:.5f}" for name, v in out[cell].items()},
-              **{f"{name}_stage_ms": f"{v['stage_ms']:.5f}" for name, v in out[cell].items()})
+              **{f"{k}_turns": json.dumps([[s, round(t, 5)] for s, t in ts])
+                 for k, ts in turns.items()},
+              **{f"{name}_{k}": f"{x:.5f}" for name, v in out[cell].items()
+                 for k, x in v.items()})
         if any(sum(v.values()) for v in bad.values()):
             FAILURES.append(f"{kernel} ({cell}): outputs differ from another tree's: {bad}")
     return out
@@ -2381,6 +2448,56 @@ def cli_phase(bscene, bcam: Camera) -> None:
         run("check-grads", "--scene", "cornell", "--width", str(FD_RES), "--method", "wide8")
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
+
+
+# [bench]: the verb's flags beyond its defaults, the headline row's keys that
+# must be positive, and the subprocess's time limit.
+BENCH_FLAGS = ("--parity", "--staged")
+BENCH_VALUES = ("value", "value_fwd_bwd", "value_5m", "value_5m_fwd_bwd", "value_5m_ring")
+BENCH_TIMEOUT_S = 600
+
+
+def bench_phase() -> dict:
+    """[bench]: `python -m tpurt_torch.cli.main bench --parity --staged
+    --profile-dir DIR` as a user runs it, in a subprocess in a temporary
+    directory (the kernels it launches are this checkout's, already built):
+    the 1M fwd and fwd_bwd rows, the 5M rows, the staged rows and the
+    kernels' parity against their twins.  Each JSON row it printed, then the
+    headline's numbers on their own line.  Fails unless it exits 0 with a
+    headline row last that parses, names wide8 as the engine that ran,
+    carries no error and every BENCH_VALUES key above 0, and its profile
+    trace was written."""
+    tmp = tempfile.mkdtemp(prefix="tpurt_torch_bench_")
+    env = dict(os.environ, PYTHONPATH=os.pathsep.join(
+        p for p in (os.path.join(HERE, "src"), os.environ.get("PYTHONPATH")) if p))
+    argv = [sys.executable, "-m", "tpurt_torch.cli.main", "bench", *BENCH_FLAGS,
+            "--profile-dir", "trace"]
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    try:
+        p = subprocess.run(argv, cwd=tmp, env=env, capture_output=True, text=True,
+                           timeout=BENCH_TIMEOUT_S)
+        traced = os.path.exists(os.path.join(tmp, "trace", "trace.json"))
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    seconds = time.perf_counter() - t0
+    out = p.stdout.strip().splitlines()
+    for ln in out[:-1] + p.stderr.splitlines():  # the 5M rows, then the stderr rows
+        if ln.startswith("{"):
+            phase("bench", row=ln)
+    try:
+        row = json.loads(out[-1])
+    except (IndexError, json.JSONDecodeError):
+        fail(f"bench: no headline row (exit {p.returncode})\n{p.stdout[-2000:]}\n"
+             f"{p.stderr[-4000:]}")
+    phase("bench", argv=json.dumps(argv[3:]), rc=p.returncode, seconds=f"{seconds:.1f}",
+          traced=traced, **{k: v for k, v in row.items() if not isinstance(v, dict)})
+    bad = [k for k in BENCH_VALUES if not row.get(k, 0) > 0]
+    if p.returncode != 0 or "error" in row or row.get("engine_ran") != "wide8" or bad or not traced:
+        fail(f"bench: exit {p.returncode}, error {row.get('error')}, engine_ran "
+             f"{row.get('engine_ran')}, values missing or <= 0 {bad}, trace written {traced}\n"
+             f"{p.stderr[-4000:]}")
+    return row
 
 
 # ---------------------------------------------------------------------------
@@ -3095,6 +3212,7 @@ def main() -> None:
                (1 << 20,), 12345, dtype=torch.int64, device=dev)),
            "bunny": treebuild_parity("bunny", points=bscene.tris.centroids()),
            "sponza1m": treebuild_parity("sponza1m", points=scene.tris.centroids())}
+    morton_edges(dev)
     parent_lib = others.get("parent")
     stages = {"sponza1m": build_stages("sponza1m", scene, parent=parent_lib)}
     del stages["sponza1m"]["bvh"]
@@ -3130,6 +3248,8 @@ def main() -> None:
     t_cli = time.perf_counter()
     cli_phase(bscene, bcam)
     phase("cli", seconds=f"{time.perf_counter() - t_cli:.1f}")
+    del bscene
+    bench_phase()
     # morton and radix: the 1M sponza's centroids and codes first, the 5M
     # beside them; ms is the kernel's device time (radix: bare launches),
     # call_ms the wrapper call's (its host launch included); launches from
@@ -3151,7 +3271,8 @@ def main() -> None:
             build_ab={cell: {t: {k: round(x, 5) for k, x in v.items()} for t, v in r.items()}
                       for cell, r in ab_build.items() if cell.startswith(name)},
             **({"l2_warm_ms": round(one["ms"], 4),
-                "sponza5m_l2_flushed_ms": round(five["l2_flushed_ms"], 4)}
+                **{f"{pre}{k}": round(r[k], 4) for pre, r in (("", one), ("sponza5m_", five))
+                   for k in ("l2_flushed_ms", "l2_write_flushed_ms", "launch_floor_ms")}}
                if name == "morton" else {})))
     # the area-light path's launches of each walk kernel ([area]): closest8
     # and occluded8 in the 1M main view's hard frame, knear8 in the

@@ -57,7 +57,22 @@ from tpurt_torch.core.scene import Scene
 from tpurt_torch.dist.collectives import chunked_grad, rank_rows
 from tpurt_torch.dist.shard import replicate
 from tpurt_torch.render.camera import gen_primary_rays
-from tpurt_torch.render.pipeline import make_tracer, render_rays, tri_table
+from tpurt_torch.render.pipeline import Tracer, make_tracer, render_rays, tri_table
+
+
+def refit_tracer(tracer: Tracer, tris, table: torch.Tensor | None = None) -> Tracer:
+    """The tracer with its tree refit to `tris` (topology frozen, no
+    gradient): the WideBVH's boxes and rows for "wide8" (from `table`, the
+    tri_table at the same vertices, when given), else the LBVH's boxes and
+    flat tree and then the packed rows for "binary".  A tracer without a
+    tree ("brute") is returned as it is."""
+    if tracer.bvh is None:
+        return tracer
+    if tracer.wide is not None:
+        return dataclasses.replace(tracer, wide=refit_wide_direct(tracer.wide, tris, table=table))
+    bvh = refit_aabbs(tracer.bvh, tris, update_flat=True)
+    packed = None if tracer.packed is None else refit_packed(tracer.packed, bvh, tris)
+    return dataclasses.replace(tracer, bvh=bvh, packed=packed)
 
 
 def make_optimizer(cfg: FitConfig, params: dict[str, torch.Tensor]):
@@ -141,17 +156,11 @@ class InverseRenderer:
         frozen = dataclasses.replace(scene, tris=dataclasses.replace(
             scene.tris, verts=scene.tris.verts.detach(),
             albedo=scene.tris.albedo.detach()))
-        bvh, packed, wide = self.tracer0.bvh, self.tracer0.packed, self.tracer0.wide
-        if bvh is not None and "verts" in params:
+        tracer = self.tracer0
+        if "verts" in params:
             with torch.profiler.record_function("tpurt::refit"):
-                if wide is not None:
-                    wide = refit_wide_direct(wide, frozen.tris, table=leaf.detach())
-                else:
-                    bvh = refit_aabbs(bvh, frozen.tris, update_flat=True)
-                    if packed is not None:
-                        packed = refit_packed(packed, bvh, frozen.tris)
-        tracer = dataclasses.replace(self.tracer0, scene=frozen, bvh=bvh, packed=packed,
-                                     wide=wide, table=leaf)
+                tracer = refit_tracer(tracer, frozen.tris, table=leaf.detach())
+        tracer = dataclasses.replace(tracer, scene=frozen, table=leaf)
         rkw = self.render_cfg.render_kwargs()
 
         def chunk_loss(tab, oc, dc, tc):

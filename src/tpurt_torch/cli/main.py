@@ -13,8 +13,11 @@ Renderer or InverseRenderer; only the coordinator writes files:
     python -m tpurt_torch.cli.main fit --scene cornell --steps 50 --perturb 0.03
     python -m tpurt_torch.cli.main check-grads --scene cornell --width 24
 
-``bench`` raises: the port's benchmark is ROADMAP.md item 8 (tpurt's
-``bench.py`` imports JAX).
+    python -m tpurt_torch.cli.main bench --skip-5m --parity
+
+``bench`` runs the port's benchmark (tpurt_torch/bench.py) as tpurt's runs
+``bench.py``: --scene, --tris, --width, --height and --method go to it,
+and so does every flag of the benchmark's own that follows the verb.
 ``render --light-samples S --seed K`` adds area light from S points drawn
 on the emissive triangles by a generator seeded K.
 """
@@ -152,9 +155,7 @@ def cmd_check_grads(args) -> int:
     """FD gradient gate through any engine (--method): the tree is built
     once and refit inside the loss as the fit step does, so this checks
     the path users train on."""
-    from tpurt_torch.accel.bvh8 import refit_wide_direct
-    from tpurt_torch.accel.packet import refit_packed
-    from tpurt_torch.accel.refit import refit_aabbs
+    from tpurt_torch.api.inverse import refit_tracer
     from tpurt_torch.diff.fdcheck import check_grads_fd
     from tpurt_torch.obs import get_logger
     from tpurt_torch.render.pipeline import make_tracer, render
@@ -176,17 +177,7 @@ def cmd_check_grads(args) -> int:
     def loss(verts):
         tris = dataclasses.replace(scene.tris, verts=verts)
         sc = dataclasses.replace(scene, tris=tris)
-        tracer = tracer0
-        if tracer0.bvh is not None:
-            frozen = dataclasses.replace(tris, verts=verts.detach())
-            if tracer0.wide is not None:
-                tracer = dataclasses.replace(
-                    tracer0, wide=refit_wide_direct(tracer0.wide, frozen))
-            else:
-                bvh = refit_aabbs(tracer0.bvh, frozen, update_flat=True)
-                packed = (None if tracer0.packed is None
-                          else refit_packed(tracer0.packed, bvh, frozen))
-                tracer = dataclasses.replace(tracer0, bvh=bvh, packed=packed)
+        tracer = refit_tracer(tracer0, dataclasses.replace(tris, verts=verts.detach()))
         return torch.mean(render(sc, cam, tracer=tracer, **soft_kw) ** 2)
 
     report = check_grads_fd(loss, scene.tris.verts, max_probes_per_leaf=args.probes)
@@ -195,9 +186,18 @@ def cmd_check_grads(args) -> int:
 
 
 def cmd_bench(args) -> int:
-    raise NotImplementedError(
-        "the port's benchmark is not written yet (ROADMAP.md queue 1, item 8); "
-        "tpurt's bench.py runs JAX and is not run from here")
+    """The benchmark's main on the verb's device, with the verb's flags that
+    were given (--method unless "auto", as tpurt's cmd_bench forwards it)
+    and then the benchmark's own flags (args.bench_args)."""
+    from tpurt_torch import bench
+
+    argv = ["--device", args.device, "--scene", args.scene]
+    for flag in ("tris", "width", "height"):
+        if getattr(args, flag):
+            argv += [f"--{flag}", str(getattr(args, flag))]
+    if args.method != "auto":
+        argv += ["--method", args.method]
+    return bench.main(argv + args.bench_args)
 
 
 def build_parser() -> argparse.ArgumentParser:
@@ -246,9 +246,10 @@ def build_parser() -> argparse.ArgumentParser:
     sp.add_argument("--probes", type=int, default=8)
     sp.set_defaults(fn=cmd_check_grads)
 
-    sp = sub.add_parser("bench", help="the rays/s benchmark (not ported: raises)")
+    sp = sub.add_parser("bench", help="the rays/s benchmark (tpurt_torch.bench; its own "
+                                      "flags, such as --skip-5m, follow the verb's)")
     common(sp)
-    sp.set_defaults(fn=cmd_bench)
+    sp.set_defaults(fn=cmd_bench, scene="sponza", method="auto")
     return p
 
 
@@ -257,7 +258,11 @@ def main(argv=None, device="cuda") -> int:
     such as a test, asks for the CPU)."""
     import torch.distributed as dist
 
-    args = build_parser().parse_args(argv)
+    parser = build_parser()
+    args, rest = parser.parse_known_args(argv)
+    if rest and args.cmd != "bench":
+        parser.error(f"unrecognized arguments: {' '.join(rest)}")
+    args.bench_args = rest
     args.device = device
     owns_group = getattr(args, "shard", False) and not dist.is_initialized()
     try:
