@@ -81,8 +81,28 @@ Phases, one line each (any failure exits non-zero and prints no result):
            and a 5-step albedo fit whose loss falls.
   profile_fit
            torch.profiler over one fit step: the device-time shares of
-           knear8, the backward (index_add_/scatter kernels and the rest),
-           the refit and the forward glue; the device's idle share.
+           knear8, the backward (index_add_/scatter kernels, the segsum
+           kernels and the radix sorts before them, and the rest), the refit
+           and the forward glue; the device's idle share.
+  segsum   the gather backward's segment_accumulate (csrc/segsum.cu) on the
+           real inputs of one [fit] step (chunk 0's soft_surface gather,
+           K x R rows x 12 of 15 columns, and its soft_occlusion gather,
+           L x k_occ x R rows (L lights) x 9; the step's corner gather, 3T
+           rows x 3), later of one [fit_bin] step and tpurt's five id
+           patterns at 2^20 rows:
+           the kernels against the twin on the card, every element (a
+           differing one fails the script at its end); device ms by CUDA
+           events of the sort, each kernel by bare launches, the wrapper
+           call, the twin, index_add_ and index_add_ under deterministic
+           algorithms; the kernels' bound from the bytes their function
+           moves on this input (sorted ids, permutation and the rows' `use`
+           columns in, the sums out), the design's bytes beside.
+  segsum_rule
+           the fit under 'scatter', 'segsum', 'segsum', 'scatter' in turns
+           (later [fit_bin]'s too): step seconds, their ratio against
+           SEGSUM_RULE, parameter elements that differ between the two runs
+           of each backend; the ops a step under
+           use_deterministic_algorithms(warn_only=True) warns about.
 The binary-BVH engine (method="binary": closest_bin, occluded_bin and
 knear_bin over the packed threaded tree):
   scene_bin
@@ -119,7 +139,10 @@ knear_bin over the packed threaded tree):
            step seconds, fwd+bwd rays/s, losses, gradient norms, peak
            memory, knear_bin launches.
   profile_fit_bin
-           as profile_fit, for one binary fit step on the bunny.
+           as profile_fit, for one binary fit step on the bunny; then
+           [segsum] and [segsum_rule] on the bunny's fit, [segsum]
+           on the patterns, and [segsum_default]: the gather backward's
+           default against the one SEGSUM_RULE picks.
 The LBVH build (morton and radix; every make_tracer above ran them):
   treebuild_parity
            each kernel against its twin on the card, bitwise: N = 2 (distinct
@@ -230,6 +253,7 @@ import subprocess
 import sys
 import tempfile
 import time
+import warnings
 from concurrent.futures import ThreadPoolExecutor
 
 HERE = os.path.dirname(os.path.abspath(__file__))
@@ -259,8 +283,10 @@ from tpurt_torch.dist.runtime import init_distributed  # noqa: E402
 from tpurt_torch.dist.scene_partition import (  # noqa: E402
     BIG_ID, alltoall_trace, build_partition_bvhs, build_partition_wides, partition_scene)
 from tpurt_torch.dist.shard import make_mesh, shard_render  # noqa: E402
+from tpurt_torch.diff import gather_grad as gg_mod  # noqa: E402
 from tpurt_torch.kernels import _build  # noqa: E402
 from tpurt_torch.kernels import traverse as kb  # noqa: E402
+from tpurt_torch.kernels import segsum as ss  # noqa: E402
 from tpurt_torch.kernels import traverse8 as k8  # noqa: E402
 from tpurt_torch.kernels import treebuild as tb  # noqa: E402
 from tpurt_torch.render import pipeline as pipeline_mod  # noqa: E402
@@ -287,6 +313,7 @@ MAX_ABS_ERR = 0.0
 KERNEL_SRC = "src/tpurt_torch/kernels/csrc/traverse8.cu"
 BIN_SRC = "src/tpurt_torch/kernels/csrc/traverse.cu"
 TREEBUILD_SRC = "src/tpurt_torch/kernels/csrc/treebuild.cu"
+SEGSUM_SRC = "src/tpurt_torch/kernels/csrc/segsum.cu"
 # The 1M scene's own camera faces a clutter box ~0.15 units away (every ray
 # hits it and every shadow ray is blocked), so parity, [timing] and
 # [walk_ab] also run on a view over the courtyard, which exercises deep
@@ -299,7 +326,9 @@ REPLACES = {"closest8": "src/tpurt/kernels/traverse8.py:425",
             "occluded_bin": "src/tpurt/kernels/traverse.py:446",
             "knear_bin": "src/tpurt/kernels/traverse.py:540",
             "morton": "src/tpurt/kernels/treebuild.py:53",
-            "radix": "src/tpurt/kernels/treebuild.py:95"}
+            "radix": "src/tpurt/kernels/treebuild.py:95",
+            # no Pallas kernel: tpurt computes the segment-sum in XLA
+            "segsum": "src/tpurt/diff/gather_grad.py:60"}
 # The binary engine's configuration: BASELINE config 2, tpurt's bench.py
 # "2-bunny" (make_bunny_scene's 70K-triangle default at 512x512).
 BUNNY_RES = 512
@@ -374,15 +403,23 @@ MORTON_EDGE_N, MORTON_EDGE_SEED = (1, 2, 3, 5, (1 << 20) + 3), 5
 # samples a frame (8,355,840 area shadow rays at 1920x1088), drawn from a
 # generator seeded AREA_SEED (RenderConfig.light_seed).
 AREA_EMITTERS, AREA_LE, AREA_SAMPLES, AREA_SEED = 64, 8.0, 4, 11
+# [segsum]: tpurt's five id patterns (tests/grad/test_gather_grad.py) at
+# 2^20 rows of 3 columns into its 257 table rows, made from a numpy seed;
+# the gather backward's default is 'segsum' (tpurt's) while its fit step is
+# at most SEGSUM_RULE x the 'scatter' step, on [fit]'s and [fit_bin]'s
+# problems.
+SEGSUM_PATTERN_ROWS, SEGSUM_PATTERN_V, SEGSUM_PATTERN_SEED = 1 << 20, 257, 7
+SEGSUM_RULE = 1.03
 
 
 KERNEL_NAMES = ("closest8_kernel", "occluded8_kernel", "knear8_kernel",
                 "closest_bin_kernel", "occluded_bin_kernel", "knear_bin_kernel",
-                "morton_kernel", "radix_kernel")
+                "morton_kernel", "radix_kernel", "segsum_scan_kernel", "segsum_carry_init",
+                "segsum_carry_pass", "segsum_ends_kernel")
 WALK_KERNELS = ("closest8", "occluded8", "knear8", "closest_bin", "occluded_bin", "knear_bin")
 # The redesigned kernels, which [build] fails on if ptxas reports a spill.
 NO_SPILL = ("knear8", "knear_bin", "closest8", "closest_bin", "occluded8", "occluded_bin",
-            "radix", "morton")
+            "radix", "morton", "segsum")
 # Each kernel engine's hard-frame kernels (closest hit, any hit) and its
 # closest-hit call as render_rays makes it.
 HARD_KERNELS = {
@@ -1344,10 +1381,11 @@ def reset_launches() -> None:
     k8.reset_launches()
     kb.reset_launches()
     tb.reset_launches()
+    ss.reset_launches()
 
 
 def launch_counts() -> dict:
-    return {**k8.LAUNCHES, **kb.LAUNCHES, **tb.LAUNCHES}
+    return {**k8.LAUNCHES, **kb.LAUNCHES, **tb.LAUNCHES, **ss.LAUNCHES}
 
 
 def fit_phase(scene, cam: Camera, method: str = "wide8", chunks: int = FIT_CHUNKS,
@@ -1476,9 +1514,9 @@ def profile_fit(inv: InverseRenderer, target: torch.Tensor, name: str = "profile
                 kernel: str = "knear8") -> None:
     """Where one fit step's device time goes (torch.profiler): the engine's
     k-nearest kernel, the backward (autograd's evaluate_function ranges;
-    within it the index_add_/scatter kernels), the refit (its
-    record_function range) and the rest, the forward glue; and the device's
-    idle share."""
+    within it the index_add_/scatter kernels, the segsum kernels and the
+    radix sorts before them), the refit (its record_function range) and the
+    rest, the forward glue; and the device's idle share."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -1503,6 +1541,8 @@ def profile_fit(inv: InverseRenderer, target: torch.Tensor, name: str = "profile
 
     knear = kernel_time(f"{kernel}_kernel")
     scatter = kernel_time("indexFunc", "scatter")
+    segsum = kernel_time("segsum_")
+    sort = kernel_time("RadixSort")
     backward = range_time(lambda k: k.startswith("autograd::engine::evaluate_function"))
     refit = range_time(lambda k: k == "tpurt::refit")
     # the refit range's device-side copy: first kernel's start to last one's end
@@ -1514,6 +1554,8 @@ def profile_fit(inv: InverseRenderer, target: torch.Tensor, name: str = "profile
           device_busy_ms=f"{busy / 1e3:.3f}", idle_share=f"{1 - busy / window:.4f}",
           **{f"{kernel}_share": f"{knear / total:.4f}"}, backward_share=f"{backward / total:.4f}",
           index_add_scatter_share=f"{scatter / total:.4f}",
+          segsum_share=f"{segsum / total:.4f}", segsum_sort_share=f"{sort / total:.4f}",
+          grad_backend=gg_mod.get_grad_backend(),
           backward_rest_share=f"{(backward - scatter) / total:.4f}",
           refit_share=f"{refit / total:.4f}", refit_ms=f"{refit / 1e3:.4f}",
           refit_span_ms=f"{refit_span / 1e3:.4f}", forward_glue_share=f"{glue / total:.4f}",
@@ -2156,14 +2198,17 @@ def chunked_twin(fn, record: list | None = None):
 def twin_route(record: dict | None = None):
     """The render pipeline and the ring's local walks (dist/ring.py) with
     every kernel wrapper swapped for its twin (run over chunks,
-    chunked_twin) for the duration: the twin route on the card.  record:
+    chunked_twin), and the gather backward's segment_accumulate for its
+    twin, for the duration: the twin route on the card.  record:
     name -> list of each call's (rays, args, kwargs, out)."""
     saved = [(mod, name, getattr(mod, name)) for mod in (pipeline_mod, ring_mod)
              for name in TWINS]
+    saved.append((gg_mod, "segment_accumulate", gg_mod.segment_accumulate))
     try:
-        for mod, name, _ in saved:
+        for mod, name, _ in saved[:-1]:
             rec = None if record is None else record.setdefault(name, [])
             setattr(mod, name, chunked_twin(TWINS[name], rec))
+        gg_mod.segment_accumulate = ss.segment_accumulate_ref
         yield
     finally:
         for mod, name, fn in saved:
@@ -2308,8 +2353,8 @@ def area_soft(view: str, tracer: Tracer, rays: Rays) -> dict:
     (w seeded); its launch counts; the same through the twins on the card.
     The image must match the twin route's (off by more than IMAGE_ATOL on
     at most MAX_MISMATCH_FRAC of rays), the gradients to GRAD_DEVICE_RTOL
-    of the largest (the backward's index_add_ adds in another order each
-    run).  The forward's ms (CUDA events)."""
+    of the largest (under the 'scatter' backend the backward's index_add_
+    adds in another order each run).  The forward's ms (CUDA events)."""
     scene, dev = tracer.scene, rays.o.device
     n = rays.o.shape[0]
     w = torch.rand((n, 3), generator=seeded(dev), device=dev)
@@ -2756,15 +2801,16 @@ def dist_fit(mesh, scene, cam: Camera, fit: dict) -> dict:
     1920x1088, FIT_STEPS steps in FIT_CHUNKS chunks, on [fit]'s problem:
     s/step beside [fit]'s mesh-free fit, exactly FIT_CHUNKS all-reduces a
     step and their bytes, one all-reduce of that size by CUDA events; its
-    losses and parameters against the mesh-free fit's.  The backward's
-    atomic adds (index_add_) sum in another order on every run, and Adam's
-    first steps turn a gradient near 0 into a step of +-lr, so two runs of
-    the same fit differ in the parameters by up to ~lr (printed: the
-    mesh-free fit against a second run of itself, and the mesh's against
-    it).  The hold is therefore made with PyTorch's deterministic
-    algorithms on (index_add_ sums in one order): the mesh's fit and the
-    mesh-free fit, losses and parameters within rtol 1e-4 (the largest
-    differences printed)."""
+    losses and parameters against the mesh-free fit's.  Under the
+    'scatter' backend the backward's atomic adds (index_add_) sum in
+    another order on every run, and Adam's first steps turn a gradient near
+    0 into a step of +-lr, so two runs of the same fit differ in the
+    parameters by up to ~lr (printed: the mesh-free fit against a second
+    run of itself, and the mesh's against it; [segsum_rule] counts the
+    elements that differ under each backend).  The hold is made with
+    PyTorch's deterministic algorithms on, under either backend: the mesh's
+    fit and the mesh-free fit, losses and parameters within rtol 1e-4 (the
+    largest differences printed)."""
     rcfg = RenderConfig(method="wide8", **SOFT)
     fcfg = FitConfig(steps=FIT_STEPS, grad_chunks=FIT_CHUNKS, lr=FIT_LR)
     per_step, secs, t_last = [], [], [0.0]
@@ -2932,6 +2978,165 @@ def dist_ring(mesh, scene, cam: Camera) -> dict:
     return out
 
 
+# ---------------------------------------------------------------------------
+# The gather backward: segment_accumulate (csrc/segsum.cu)
+# ---------------------------------------------------------------------------
+# The fit's gathers by the width of their backward: the K x R layer rows
+# into the table (12 of 15 columns), the L x k_occ x R shared occluder
+# candidates of the L lights (9), and tri_table's 3T corner rows into the
+# vertices (3).
+SEGSUM_KINDS = {12: "soft_surface", 9: "soft_occlusion", 3: "corners"}
+
+
+@contextlib.contextmanager
+def grad_backend(name: str):
+    """The gather backward's backend set to `name` for the duration."""
+    saved = gg_mod.get_grad_backend()
+    gg_mod.set_grad_backend(name)
+    try:
+        yield
+    finally:
+        gg_mod.set_grad_backend(saved)
+
+
+def record_segsum(inv: InverseRenderer, target: torch.Tensor, prefix: str) -> dict:
+    """The real (idx, cot, num_rows) of segment_accumulate in one fit step
+    under 'segsum': the first call of each width (SEGSUM_KINDS), so the
+    first chunk's two gathers and the step's corner gather."""
+    with grad_backend("segsum"), recording(gg_mod, ["segment_accumulate"], {}) as rec:
+        inv.fit(target, steps=1)
+    calls = {}
+    for (idx, cot, num_rows), _, _ in rec["segment_accumulate"]:
+        kind = SEGSUM_KINDS.get(cot.shape[1], f"use{cot.shape[1]}")
+        calls.setdefault(f"{prefix}_{kind}", (idx, cot, num_rows))
+    return calls
+
+
+def segsum_patterns(dev) -> dict:
+    """tpurt's five id patterns at SEGSUM_PATTERN_ROWS rows of 3 columns."""
+    rng = np.random.default_rng(SEGSUM_PATTERN_SEED)
+    n, v = SEGSUM_PATTERN_ROWS, SEGSUM_PATTERN_V
+    ids = {"uniform": rng.integers(0, v, n), "all_dup": np.full(n, 3),
+           "two_hot": rng.choice([0, v - 1], n), "sorted": np.sort(rng.integers(0, v, n)),
+           "clustered": rng.integers(0, 5, n) * (v // 7)}
+    cot = torch.tensor(rng.normal(size=(n, 3)), dtype=torch.float32, device=dev)
+    return {f"pattern_{k}": (torch.tensor(x, dtype=torch.int64, device=dev), cot, v)
+            for k, x in ids.items()}
+
+
+def segsum_bytes(n: int, use: int, v: int) -> int:
+    """The least bytes of the three kernels' function: the sorted ids and
+    the permutation read (4 + 8 a row), the `use` columns of every row
+    read, (v, use) written."""
+    return 12 * n + 4 * n * use + 4 * v * use
+
+
+def segsum_design_bytes(n: int, use: int, v: int, ends: int) -> int:
+    """What this design moves besides (a diagnostic, not the bound): the
+    scanned rows written and the end rows read back."""
+    return segsum_bytes(n, use, v) + 4 * n * use + 4 * ends * use
+
+
+def segsum_input(name: str, idx: torch.Tensor, cot: torch.Tensor, v: int) -> dict:
+    """segment_accumulate's kernels against the twin on one input (every
+    element, 0 differing or the script fails at its end), then device ms
+    by CUDA events: the sort, each kernel by bare launches (scan, carry,
+    ends), the wrapper call, the twin, index_add_ (atomic) and index_add_
+    under torch.use_deterministic_algorithms (torch's deterministic
+    route); the kernels' bound from this input's bytes (segsum_bytes), the
+    call's from the ids as given instead of sorted (call_bound_ms), and the
+    design's bytes beside (design_bound_ms)."""
+    n, use = cot.shape
+    got = ss.segment_accumulate(idx, cot, v)
+    ref = ss.segment_accumulate_ref(idx, cot, v)
+    differ, err = int((got != ref).sum()), max_abs(got, ref)
+    w = ss.prepare(idx, cot, v)
+    ss.launch_scan(w)
+    ss.launch_carry(w)
+    ss.launch_ends(w)
+    differ += int((w.out != ref).sum())
+    ends = int((w.end >= 0).sum())
+    i32 = idx.to(torch.int32)
+    ms = {"sort": cuda_ms(lambda: torch.sort(i32, stable=True)),
+          "scan": cuda_ms(lambda: ss.launch_scan(w)),
+          "carry": cuda_ms(lambda: ss.launch_carry(w)),
+          "ends": cuda_ms(lambda: ss.launch_ends(w)),
+          "call": cuda_ms(lambda: ss.segment_accumulate(idx, cot, v)),
+          "plain": cuda_ms(lambda: ss.segment_accumulate_ref(idx, cot, v), iters=3, warmup=1),
+          "index_add": cuda_ms(lambda: cot.new_zeros((v, use)).index_add_(0, idx, cot))}
+    torch.use_deterministic_algorithms(True)
+    try:
+        ms["index_add_deterministic"] = cuda_ms(
+            lambda: cot.new_zeros((v, use)).index_add_(0, idx, cot), iters=3, warmup=1)
+    finally:
+        torch.use_deterministic_algorithms(False)
+    ms["kernels"] = ms["scan"] + ms["carry"] + ms["ends"]
+    nbytes = segsum_bytes(n, use, v)
+    bound = nbytes / PEAK_BYTES_S * 1e3
+    call_bound = (idx.element_size() * n + 4 * n * use + 4 * v * use) / PEAK_BYTES_S * 1e3
+    design_bound = segsum_design_bytes(n, use, v, ends) / PEAK_BYTES_S * 1e3
+    phase("segsum", input=name, rows=n, use=use, num_rows=v, ends=ends, blocks=w.nb,
+          carry_passes=ss.carry_passes(w.nb), differing=differ, max_abs_err=err,
+          **{f"{k}_ms": f"{x:.4f}" for k, x in ms.items()},
+          bytes=nbytes, bound_ms=f"{bound:.6f}", bound_share=f"{bound / ms['kernels']:.4f}",
+          call_bound_ms=f"{call_bound:.6f}", design_bound_ms=f"{design_bound:.6f}")
+    if differ:
+        FAILURES.append(f"segsum {name}: {differ} elements differ from the twin")
+    return dict(ms=ms, err=err, differ=differ, bound_ms=bound, call_bound_ms=call_bound,
+                design_bound_ms=design_bound)
+
+
+def segsum_rule(name: str, inv: InverseRenderer, target: torch.Tensor) -> dict:
+    """[segsum_rule]: the fit (inv's FitConfig, from its initial
+    parameters each time) under 'scatter', 'segsum', 'segsum', 'scatter'
+    in turns, deterministic algorithms off: each backend's step seconds
+    (host clock between synchronizes, the mean of steps 2 on), their ratio
+    against SEGSUM_RULE, the parameter elements that differ between the
+    two runs of each backend; then one step under
+    use_deterministic_algorithms(True, warn_only=True) and the ops it warns
+    about."""
+    runs = []
+    for backend in ("scatter", "segsum", "segsum", "scatter"):
+        secs, t_last = [], [0.0]
+
+        def on_step(i: int, loss: float) -> None:
+            torch.cuda.synchronize()
+            now = time.perf_counter()
+            secs.append(now - t_last[0])
+            t_last[0] = now
+
+        with grad_backend(backend):
+            torch.cuda.synchronize()
+            t_last[0] = time.perf_counter()
+            res = inv.fit(target, callback=on_step)
+        runs.append((backend, float(np.mean(secs[1:])), res))
+    step = {b: float(np.mean([s for bb, s, _ in runs if bb == b])) for b in ("segsum", "scatter")}
+    fits = {b: [r for bb, _, r in runs if bb == b] for b in ("segsum", "scatter")}
+    differing = {b: sum(int((x.params[k] != y.params[k]).sum()) for k in x.params)
+                 for b, (x, y) in fits.items()}
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        torch.use_deterministic_algorithms(True, warn_only=True)
+        try:
+            with grad_backend("segsum"):
+                inv.fit(target, steps=1)
+            torch.cuda.synchronize()
+        finally:
+            torch.use_deterministic_algorithms(False)
+    warned = sorted({str(x.message).split(" does not have a deterministic")[0]
+                     for x in caught if "does not have a deterministic" in str(x.message)})
+    ratio = step["segsum"] / step["scatter"]
+    phase("segsum_rule", fit=name, steps=inv.fit_cfg.steps, chunks=inv.fit_cfg.grad_chunks,
+          turns=json.dumps([(b, round(s, 5)) for b, s, _ in runs]),
+          segsum_step_s=f"{step['segsum']:.5f}", scatter_step_s=f"{step['scatter']:.5f}",
+          ratio=f"{ratio:.4f}", within_rule=ratio <= SEGSUM_RULE,
+          params=sum(p.numel() for p in fits["segsum"][0].params.values()),
+          segsum_repeat_differing=differing["segsum"],
+          scatter_repeat_differing=differing["scatter"],
+          deterministic_warn_only_ops=json.dumps(warned))
+    return dict(step=step, ratio=ratio, differing=differing, warned=warned)
+
+
 def main() -> None:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--parent", action="append", default=[], metavar="[NAME=]DIR",
@@ -3072,6 +3277,13 @@ def main() -> None:
     fit_check(dev)
     profile_fit(fit["inv"], fit["target"])
     fit_launches = fit["launches"]
+    if gg_mod.get_grad_backend() == "segsum" and fit_launches["segsum"] == 0:
+        fail("the fit's backward never launched the segsum kernels")
+    # -- the gather backward: segsum on the fit's own inputs, both backends --
+    seg_inputs = record_segsum(fit["inv"], fit["target"], "fit")
+    seg = {k: segsum_input(k, *x) for k, x in seg_inputs.items()}
+    del seg_inputs
+    seg_rule = {"fit": segsum_rule("fit", fit["inv"], fit["target"])}
     # -- the distributed paths at world 1 (NCCL): the data-parallel fit --
     mesh = dist_setup()
     dfit = dist_fit(mesh, scene, cam, fit)
@@ -3109,6 +3321,18 @@ def main() -> None:
     fit_b = fit_phase(bscene, bcam, method="binary", chunks=BIN_FIT_CHUNKS,
                       steps=BIN_FIT_STEPS, name="fit_bin", kernel="knear_bin")
     profile_fit(fit_b["inv"], fit_b["target"], name="profile_fit_bin", kernel="knear_bin")
+    seg_inputs = record_segsum(fit_b["inv"], fit_b["target"], "bunny")
+    seg_inputs.update(segsum_patterns(dev))
+    seg.update({k: segsum_input(k, *x) for k, x in seg_inputs.items()})
+    del seg_inputs
+    seg_rule["fit_bin"] = segsum_rule("fit_bin", fit_b["inv"], fit_b["target"])
+    seg_picks = ("segsum" if all(r["ratio"] <= SEGSUM_RULE for r in seg_rule.values())
+                 else "scatter")
+    phase("segsum_default", default=gg_mod.get_grad_backend(), rule_picks=seg_picks,
+          ratios=json.dumps({k: round(r["ratio"], 4) for k, r in seg_rule.items()}),
+          fit_launches_per_step=fit_launches["segsum"] / FIT_STEPS,
+          fit_bin_launches_per_step=fit_b["launches"]["segsum"] / BIN_FIT_STEPS)
+    seg_fit_bin_launches = fit_b["launches"]["segsum"]
 
     def entry(name, launches_n, err, ms, plain, b, source=KERNEL_SRC, **extra):
         # library_ms: no single PyTorch call computes a BVH walk, Morton
@@ -3295,6 +3519,38 @@ def main() -> None:
             for view in ("main", "overview"):
                 k[f"area_{view}_device_ms"] = round(area[view]["ms"]["area_device"], 4)
                 k[f"area_{view}_bound_ms"] = round(area[view]["area_bound"]["bound_ms"], 6)
+    # segsum: the soft_surface gather of [fit]'s first chunk (K x R rows,
+    # 12 of 15 columns) as ms (the three kernels' device ms by bare
+    # launches), plain_ms the twin's, library_ms index_add_'s (atomic);
+    # launches from [fit] (3 steps), the bunny's fit, the soft area renders
+    # and the dist paths; every recorded input's ms and bound under inputs
+    main_seg = seg["fit_soft_surface"]
+    kernels.append({
+        "name": "segsum", "route": "cuda", "source": SEGSUM_SRC, "replaces": REPLACES["segsum"],
+        "launches": fit_launches["segsum"], "max_abs_err": max(r["err"] for r in seg.values()),
+        "ms": round(main_seg["ms"]["kernels"], 4), "plain_ms": round(main_seg["ms"]["plain"], 4),
+        "bound_ms": round(main_seg["bound_ms"], 6), "bound_by": "bytes",
+        "library_ms": round(main_seg["ms"]["index_add"], 4),
+        "library_deterministic_ms": round(main_seg["ms"]["index_add_deterministic"], 4),
+        "call_ms": round(main_seg["ms"]["call"], 4), "sort_ms": round(main_seg["ms"]["sort"], 4),
+        "call_bound_ms": round(main_seg["call_bound_ms"], 6),
+        "design_bound_ms": round(main_seg["design_bound_ms"], 6),
+        "differing": sum(r["differ"] for r in seg.values()),
+        "launches_per_fit_step": fit_launches["segsum"] / FIT_STEPS,
+        "fit_bin_launches": seg_fit_bin_launches,
+        "area_launches": {v: area[v]["launches"]["segsum"] for v in ("bunny_soft",
+                                                                     "overview_soft")},
+        "dist_launches": {cell: counts["segsum"] for cell, counts in {
+            "fold_soft_chunk_1m": fold["main"]["soft_launches"],
+            "fold_soft_bunny": fold["bunny"]["soft_launches"],
+            "dist_fit_1m": dfit["launches"]}.items() if counts["segsum"]},
+        "default": gg_mod.get_grad_backend(), "rule_picks": seg_picks,
+        "rule": {k: {"segsum_step_s": round(r["step"]["segsum"], 5),
+                     "scatter_step_s": round(r["step"]["scatter"], 5),
+                     "ratio": round(r["ratio"], 4), "repeat_differing": r["differing"]}
+                 for k, r in seg_rule.items()},
+        "inputs": {k: {**{m: round(x, 4) for m, x in r["ms"].items()},
+                       "bound_ms": round(r["bound_ms"], 6)} for k, r in seg.items()}})
     phase("done", seconds=f"{time.perf_counter() - t_start:.1f}")
     dist.destroy_process_group()
     if FAILURES:

@@ -68,11 +68,13 @@ SOFT = dict(soft=True, k_layers=4, sharpness=40.0, band=0.08, k_occ=8)
 CHUNK, CHUNK_LARGE, LARGE_TRIS = 262_144, 131_072, 2_000_000
 MIN_SECONDS = 0.5
 # --staged: BASELINE.md's configs 1-3 (tpurt's bench.py _run_staged) and the
-# fit of config 4: cornell at FIT_RES^2, verts x 1.02, FIT steps.
+# fit of config 4: cornell at FIT_RES^2, verts x 1.02, FIT steps, through
+# FIT_METHOD as tpurt's _run_fit_staged pins it (the plain-torch walk).
 STAGED = (("1-cornell", "cornell", {}), ("2-bunny", "bunny", {}),
           ("3-sponza1m", "sponza", dict(num_tris=1_000_000, width=1920, height=1088)))
 FIT_RES, FIT_PERTURB = 64, 1.02
 FIT = dict(steps=6, lr=1e-3, grad_chunks=2)
+FIT_METHOD = "bvh"
 # --parity: at most PARITY_RAYS rays, evenly strided over the headline frame
 # and over the bunny's (PARITY_BUNNY, its 512x512 camera).
 PARITY_RAYS = 65_536
@@ -286,7 +288,8 @@ def run_ring(scene, cam) -> tuple[float, float, float, float]:
 
 
 def run_staged(args, dev: torch.device) -> None:
-    """STAGED configs fwd and fwd_bwd, then the fit; one row each on stderr."""
+    """STAGED configs fwd and fwd_bwd through args.method, then the fit
+    through FIT_METHOD; one row each on stderr."""
     for name, sc_name, kw in STAGED:
         scene, cam = get_scene(sc_name, device=dev, **kw)
         for mode in ("fwd", "fwd_bwd"):
@@ -294,9 +297,9 @@ def run_staged(args, dev: torch.device) -> None:
             emit_row(sys.stderr, staged_config=name, mode=mode, method=args.method, **r)
     scene, cam = get_scene("cornell", device=dev)
     cam = dataclasses.replace(cam, width=FIT_RES, height=FIT_RES)
-    rcfg = RenderConfig(method=args.method, soft=True, k_layers=4, sharpness=40.0, band=0.08)
+    rcfg = RenderConfig(method=FIT_METHOD, soft=True, k_layers=4, sharpness=40.0, band=0.08)
     with torch.no_grad():
-        target = render(scene, cam, method=args.method, **rcfg.render_kwargs())
+        target = render(scene, cam, method=FIT_METHOD, **rcfg.render_kwargs())
     perturbed = dataclasses.replace(scene, tris=dataclasses.replace(
         scene.tris, verts=scene.tris.verts * FIT_PERTURB))
     inv = InverseRenderer(perturbed, cam, fit=FitConfig(**FIT), render=rcfg)
@@ -308,7 +311,8 @@ def run_staged(args, dev: torch.device) -> None:
     res = inv.fit(target, steps=FIT["steps"] - 1)
     _sync(dev)
     dt = (time.perf_counter() - t0) / (FIT["steps"] - 1)
-    emit_row(sys.stderr, staged_config="4-fit", method=args.method,
+    emit_row(sys.stderr, staged_config="4-fit", method=FIT_METHOD,
+             engine_ran=inv.tracer0.method,
              steps_per_s=round(1.0 / dt, 3), rays_per_s_fwd_bwd_equiv=round(cam.num_pixels / dt, 1),
              compile_s=round(compile_s, 2), final_loss=res.losses[-1])
 

@@ -140,6 +140,16 @@ def load() -> ctypes.CDLL:
         lib.tpurt_morton.restype = ctypes.c_int
         lib.tpurt_radix.argtypes = [_P, ctypes.c_int, _P, _P, _P, _P, _P, _P]
         lib.tpurt_radix.restype = ctypes.c_int
+        lib.tpurt_segsum_scan.argtypes = [
+            _P, _P, _P, ctypes.c_longlong, ctypes.c_int, ctypes.c_int, ctypes.c_int, _P, _P,
+            _P]
+        lib.tpurt_segsum_scan.restype = ctypes.c_int
+        lib.tpurt_segsum_carry.argtypes = [
+            _P, _P, ctypes.c_int, ctypes.c_int, _P, _P, _P, _P, _P]
+        lib.tpurt_segsum_carry.restype = ctypes.c_int
+        lib.tpurt_segsum_ends.argtypes = [
+            _P, _P, _P, _P, ctypes.c_int, ctypes.c_int, _P, _P]
+        lib.tpurt_segsum_ends.restype = ctypes.c_int
         lib.tpurt_error_string.argtypes = [ctypes.c_int]
         lib.tpurt_error_string.restype = ctypes.c_char_p
         _lib = lib

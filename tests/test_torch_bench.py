@@ -250,6 +250,10 @@ def test_staged_rows(monkeypatch, capsys):
     assert [(r["staged_config"], r.get("mode")) for r in rows] == [
         ("3-sponza", "fwd"), ("3-sponza", "fwd_bwd"), ("4-fit", None)]
     assert all(r["rays_per_s"] > 0 for r in rows[:2]) and rows[2]["steps_per_s"] > 0
+    # the fwd / fwd_bwd rows run --method (auto resolves to wide8); the fit is pinned
+    # to "bvh", as tpurt's _run_fit_staged pins it
+    assert [(r["method"], r["engine_ran"]) for r in rows] == [
+        ("wide8", "wide8"), ("wide8", "wide8"), ("bvh", "bvh")]
 
 
 def test_5m_rows_on_a_small_scene(monkeypatch, capsys):

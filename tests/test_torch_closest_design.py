@@ -32,6 +32,7 @@ import pytest
 import torch
 
 import chip_smoke
+from tests.launch_scan import launches_outside_on_device as _launches_outside_on_device
 from tests.walk_loops import END, T_MIN, Best, closest_bin_kernel_loop
 from tests.test_torch_knear_design import KernelStack, _cuda_const
 from tests.test_torch_traverse8 import _bunny_rays, _trays
@@ -356,22 +357,6 @@ def test_pack_bvh_records_the_depth(scene):
 # P5: every launch on its tensors' card
 # ---------------------------------------------------------------------------
 KERNELS = pathlib.Path(kb.__file__).resolve().parent
-
-
-def _launches_outside_on_device(path: pathlib.Path) -> list:
-    """Calls of a lib.tpurt_* entry point (the error-string lookup aside)
-    that no `with _build.on_device(...)` encloses."""
-    tree = ast.parse(path.read_text(), filename=str(path))
-    inside = set()
-    for node in ast.walk(tree):
-        if isinstance(node, ast.With) and any(
-                isinstance(i.context_expr, ast.Call)
-                and ast.unparse(i.context_expr.func) == "_build.on_device" for i in node.items):
-            inside.update(id(n) for n in ast.walk(node))
-    return [ast.unparse(n.func) for n in ast.walk(tree)
-            if isinstance(n, ast.Call) and isinstance(n.func, ast.Attribute)
-            and n.func.attr.startswith("tpurt_") and n.func.attr != "tpurt_error_string"
-            and id(n) not in inside]
 
 
 ENTRY_POINTS = {"traverse8.py": {"tpurt_closest8", "tpurt_occluded8", "tpurt_knear8"},

@@ -193,6 +193,43 @@ def test_sgd_fit_matches_tpurt(fit_case, monkeypatch):
                                    rtol=0, atol=1e-5)
 
 
+def test_padded_fit_adds_the_background_only(monkeypatch):
+    """cornell 5x5 in 2 chunks pads one zero ray: the port's padded SGD
+    step is tpurt's unpadded step (one chunk) plus the background's square
+    in the loss, at the SGD fit's tolerances (the target, an input to both,
+    is the port's render of the scene with its albedo dimmed).  tpurt's own padded step turns
+    NaN (ROADMAP P7, pinned): the zero ray's cos_dn is 0 * inf, and the
+    vertices of triangle 0, whose row its empty layers gather, go NaN."""
+    monkeypatch.setattr(j_gather_grad, "gather_verts", _plain)
+    monkeypatch.setattr(j_pipeline, "gather_verts", _plain)
+    js, jc = jscene.make_cornell_box()
+    jc = jc.replace(width=5, height=5)
+    ts, tc = _to_port(js, jc)
+    with torch.no_grad():
+        dim = dataclasses.replace(ts, tris=dataclasses.replace(
+            ts.tris, albedo=ts.tris.albedo * 0.8))
+        tgt = render(dim, tc, method="brute", **RK).numpy()
+    fit = dict(steps=1, optimizer="sgd", lr=1e-4)
+
+    def tpurt_fit(chunks):
+        return JInverseRenderer(js, jc, fit=JFitConfig(grad_chunks=chunks, **fit),
+                                render=JRenderConfig(method="brute", **RK)).fit(tgt)
+
+    ref, padded = tpurt_fit(1), tpurt_fit(2)
+    got = InverseRenderer(ts, tc, fit=FitConfig(grad_chunks=2, **fit),
+                          render=RenderConfig(method="brute", **RK)).fit(torch.from_numpy(tgt))
+    bg = float(np.sum(np.asarray(js.background) ** 2))
+    np.testing.assert_allclose(got.losses, [ref.losses[0] + bg], rtol=1e-4)
+    for k in ("verts", "albedo"):
+        moved = np.abs(np.asarray(ref.params[k]) - np.asarray(getattr(js.tris, k)))
+        assert moved.max() > 1e-4, k
+        np.testing.assert_allclose(got.params[k].numpy(), np.asarray(ref.params[k]),
+                                   rtol=0, atol=1e-5)
+    nan_verts = np.argwhere(np.isnan(np.asarray(padded.params["verts"])))[:, 0]
+    assert np.isnan(padded.losses[0]) and not np.isnan(np.asarray(padded.params["albedo"])).any()
+    assert sorted(set(nan_verts.tolist())) == sorted(np.asarray(js.tris.faces)[0].tolist())
+
+
 @pytest.mark.parametrize("method", ["bvh", "binary"])
 def test_sgd_fit_binary_engines_match_tpurt_bvh(fit_case, monkeypatch, method):
     """tpurt's default engine, "bvh", in its fit step (refit_aabbs inside the
