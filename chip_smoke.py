@@ -1,9 +1,10 @@
 """Smoke run of tpurt_torch on one NVIDIA GPU: the hard render and the fit
 step of the 1M-triangle sponza scene through the hand-written BVH8 CUDA
 kernels, and of the 70K-triangle bunny at 512x512 through the binary-BVH
-kernels; the LBVH build through the Morton and radix-tree kernels at 1M and
-5M triangles, the port's Renderer, area lights (hard and soft), the
-distributed paths (dist/, at world 1 on NCCL), the CLI and the benchmark.
+kernels; tpurt's packet engine's kernels on both; the LBVH build through
+the Morton and radix-tree kernels at 1M and 5M triangles, the port's
+Renderer, area lights (hard and soft), the distributed paths (dist/, at
+world 1 on NCCL), the CLI and the benchmark.
 
     python3 chip_smoke.py [--parent DIR] [--parent NAME=DIR ...]
 
@@ -202,6 +203,34 @@ The LBVH build (morton and radix; every make_tracer above ran them):
            (the film back through NCCL's all-gather) bitwise equal to
            Renderer.render; alltoall_trace on cornell 32^2 against brute
            force.
+tpurt's packet engine (method="packet": packet_closest, packet_occluded and
+packet_knear, one 1,024-thread CTA a 1,024-ray packet) and its wavefront
+engine (method="wave"):
+  packet   Renderer(scene, RenderConfig(method="packet")) on the 1M main
+           view: init and render seconds, launch counts (a kernel never
+           launched fails the script), the image against the wide8 frame
+           (the image rule), the goldens through "packet" (bunny3k_packet_48
+           at frac 0.0).  Then on the 1M main view, the overview and the
+           bunny at 512^2, their row-major frames as the Renderer traces
+           them: packet_closest on the frame, packet_occluded on its shadow
+           rays (per-ray t_max), packet_knear with k = 4 on the frame and
+           k_occ = 8 on the candidates from layer 0 (2 x the segment as
+           t_max), on the band-0.08 tree; and packet_knear on chunk 0 of
+           [fit]'s problem (261,120 rays).  Each against its twin on every
+           ray (any differing id, flag, list entry or t/u/v bit fails the
+           script at its end), the wrapper's ms (CUDA events), the kernel's
+           device ms (bare launches), the twin's ms and the bound from its
+           packet walk counts.
+  packet_frame
+           each hard frame's ms by CUDA events split into closest, occluded
+           and glue, rays/s, beside this run's wide8 and binary frames; the
+           rays whose closest hit or blocked flag differs from the binary
+           per-ray kernels' on the same tree, by group (a direction
+           component in [-1e-30, 0), a zero component, the rest).
+  fit_packet
+           as fit_bin, through method="packet" (packet_knear).
+  wave     render(method="wave") of the bunny's 512^2 hard frame, bitwise
+           the "bvh" frame (a difference fails the script at its end).
   sponza5m the 5M scene's generation seconds and its phases' seconds.
   dist_ring
            the 5M sponza at 3840x2160 through Renderer(mesh,
@@ -285,6 +314,7 @@ from tpurt_torch.dist.scene_partition import (  # noqa: E402
 from tpurt_torch.dist.shard import make_mesh, shard_render  # noqa: E402
 from tpurt_torch.diff import gather_grad as gg_mod  # noqa: E402
 from tpurt_torch.kernels import _build  # noqa: E402
+from tpurt_torch.kernels import packet as kp  # noqa: E402
 from tpurt_torch.kernels import traverse as kb  # noqa: E402
 from tpurt_torch.kernels import segsum as ss  # noqa: E402
 from tpurt_torch.kernels import traverse8 as k8  # noqa: E402
@@ -314,6 +344,7 @@ KERNEL_SRC = "src/tpurt_torch/kernels/csrc/traverse8.cu"
 BIN_SRC = "src/tpurt_torch/kernels/csrc/traverse.cu"
 TREEBUILD_SRC = "src/tpurt_torch/kernels/csrc/treebuild.cu"
 SEGSUM_SRC = "src/tpurt_torch/kernels/csrc/segsum.cu"
+PACKET_SRC = "src/tpurt_torch/kernels/csrc/packet.cu"
 # The 1M scene's own camera faces a clutter box ~0.15 units away (every ray
 # hits it and every shadow ray is blocked), so parity, [timing] and
 # [walk_ab] also run on a view over the courtyard, which exercises deep
@@ -328,7 +359,12 @@ REPLACES = {"closest8": "src/tpurt/kernels/traverse8.py:425",
             "morton": "src/tpurt/kernels/treebuild.py:53",
             "radix": "src/tpurt/kernels/treebuild.py:95",
             # no Pallas kernel: tpurt computes the segment-sum in XLA
-            "segsum": "src/tpurt/diff/gather_grad.py:60"}
+            "segsum": "src/tpurt/diff/gather_grad.py:60",
+            # no Pallas kernel: tpurt's packet engine is XLA (lax.map of a
+            # while_loop a packet)
+            "packet_closest": "src/tpurt/accel/packet.py:249",
+            "packet_occluded": "src/tpurt/accel/packet.py:331",
+            "packet_knear": "src/tpurt/accel/packet.py:398"}
 # The binary engine's configuration: BASELINE config 2, tpurt's bench.py
 # "2-bunny" (make_bunny_scene's 70K-triangle default at 512x512).
 BUNNY_RES = 512
@@ -378,6 +414,9 @@ BIN = dict(node_bytes=48, row_bytes=320, slabs=1, row_tests=8)
 # The any-hit twins count half rows (4 tests each) as rows: their kernels
 # end a walk at the first half row that blocks.
 WIDE_HALF, BIN_HALF = dict(WIDE, row_tests=4), dict(BIN, row_tests=4)
+# The packet walks, counted per packet: a visit is 1,024 slab tests, a leaf
+# visit 1,024 x 8 Möller–Trumbore tests; a binary node and leaf row read.
+PACKET = dict(BIN, slabs=1024, row_tests=8 * 1024)
 # The build kernels' configuration: the 5M sponza at 3840x2160 (tpurt's
 # get_scene("sponza5m"), BASELINE config 5's scene on one chip).
 NUM_TRIS_5M, WIDTH_5M, HEIGHT_5M = 5_000_000, 3840, 2160
@@ -415,11 +454,12 @@ SEGSUM_RULE = 1.03
 KERNEL_NAMES = ("closest8_kernel", "occluded8_kernel", "knear8_kernel",
                 "closest_bin_kernel", "occluded_bin_kernel", "knear_bin_kernel",
                 "morton_kernel", "radix_kernel", "segsum_scan_kernel", "segsum_carry_init",
-                "segsum_carry_pass", "segsum_ends_kernel")
+                "segsum_carry_pass", "segsum_ends_kernel", "packet_closest_kernel",
+                "packet_occluded_kernel", "packet_knear_kernel")
 WALK_KERNELS = ("closest8", "occluded8", "knear8", "closest_bin", "occluded_bin", "knear_bin")
 # The redesigned kernels, which [build] fails on if ptxas reports a spill.
 NO_SPILL = ("knear8", "knear_bin", "closest8", "closest_bin", "occluded8", "occluded_bin",
-            "radix", "morton", "segsum")
+            "radix", "morton", "segsum", "packet")
 # Each kernel engine's hard-frame kernels (closest hit, any hit) and its
 # closest-hit call as render_rays makes it.
 HARD_KERNELS = {
@@ -1380,12 +1420,13 @@ def render_bin(scene, cam: Camera, dev, tracer: Tracer, frame: Rays) -> dict:
 def reset_launches() -> None:
     k8.reset_launches()
     kb.reset_launches()
+    kp.reset_launches()
     tb.reset_launches()
     ss.reset_launches()
 
 
 def launch_counts() -> dict:
-    return {**k8.LAUNCHES, **kb.LAUNCHES, **tb.LAUNCHES, **ss.LAUNCHES}
+    return {**k8.LAUNCHES, **kb.LAUNCHES, **kp.LAUNCHES, **tb.LAUNCHES, **ss.LAUNCHES}
 
 
 def fit_phase(scene, cam: Camera, method: str = "wide8", chunks: int = FIT_CHUNKS,
@@ -3137,6 +3178,267 @@ def segsum_rule(name: str, inv: InverseRenderer, target: torch.Tensor) -> dict:
     return dict(step=step, ratio=ratio, differing=differing, warned=warned)
 
 
+# ---------------------------------------------------------------------------
+# tpurt's packet engine ([packet]) and wavefront engine ([wave])
+# ---------------------------------------------------------------------------
+def packet_launch(kernel: str, packed, rays: Rays, t_max=None, k: int | None = None):
+    """A bare launch of a packet kernel (packet_closest, packet_occluded,
+    packet_knear) through the port's library: arguments and outputs made
+    here, once, as the wrapper makes them; launch() enqueues the kernel on
+    the current stream."""
+    lib = _build.load()
+    o, d = rays.o.reshape(-1, 3), rays.d.reshape(-1, 3)
+    n, dev = o.shape[0], o.device
+    head = [_build.ptr(x) for x in (packed.node_f32, packed.node_i32, packed.tri_rows,
+                                     packed.tri_ids, o, d)]
+    t_min = ctypes.c_float(DEFAULT_T_MIN)
+    if kernel == "packet_closest":
+        outs = [torch.empty(n, dtype=torch.float32, device=dev) for _ in range(3)]
+        outs.append(torch.empty(n, dtype=torch.int32, device=dev))
+        args = (*head, n, t_min, *(_build.ptr(x) for x in outs))
+    else:
+        tm = torch.as_tensor(t_max, dtype=torch.float32, device=dev).expand(n).contiguous()
+        if kernel == "packet_knear":
+            outs = [torch.empty((n, k), dtype=torch.int32, device=dev)]
+            tail = (k, ctypes.c_float(-BAND), ctypes.c_float(1.0 + BAND))
+        else:
+            outs, tail = [torch.empty(n, dtype=torch.uint8, device=dev)], ()
+        args = (*head, _build.ptr(tm), n, t_min, *tail, _build.ptr(outs[0]))
+        outs.append(tm)
+    fn = getattr(lib, f"tpurt_{kernel}")
+
+    def launch() -> None:
+        err = fn(*args, ctypes.c_void_p(torch.cuda.current_stream().cuda_stream))
+        if err:
+            fail(f"{kernel} failed to launch: {_build.error_string(err)}")
+
+    launch.keep = (o, d, outs)  # what the kernel reads and writes lives as long
+    return launch
+
+
+def events(fn):
+    """(fn(), device ms of the call by CUDA events)."""
+    start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+    torch.cuda.synchronize()
+    start.record()
+    out = fn()
+    end.record()
+    torch.cuda.synchronize()
+    return out, start.elapsed_time(end)
+
+
+def hit_bits(h: Hit) -> torch.Tensor:
+    return torch.stack([h.tri, h.t.view(torch.int32), h.u.view(torch.int32),
+                        h.v.view(torch.int32)], dim=-1)
+
+
+def ray_groups(rays: Rays) -> dict:
+    """Masks of the flat rays by direction: a component in [-1e-30, 0)
+    (P1-like: its own slab tests all fail), a zero component, the rest."""
+    d = rays.d.reshape(-1, 3)
+    p1 = ((d < 0) & (d >= -1e-30)).any(dim=1)
+    zero = (d == 0).any(dim=1) & ~p1
+    return {"p1_like": p1, "zero": zero, "rest": ~(p1 | zero)}
+
+
+def by_group(differ: torch.Tensor, groups: dict) -> dict:
+    return {g: int((differ & m).sum()) for g, m in groups.items()}
+
+
+def packet_call(out: dict, view: str, call: str, kernel: str, packed, rays: Rays, ref_fn,
+                run_fn, in_bytes: int, out_bytes: int, t_max=None, k=None) -> torch.Tensor:
+    """One packet kernel call against its twin on every ray: the wrapper's
+    output (run_fn()) and the twin's (ref_fn(stats), its walk counted, its
+    ms by CUDA events as plain_ms), every differing id, flag, list entry
+    or t/u/v bit counted (any fails the script at its end), the wrapper's
+    ms, the kernel's bare-launch device ms and its bound.  Returns the
+    twin's output."""
+    n = rays.o.shape[0]
+    got = run_fn()
+    stats = {}
+    ref, plain = events(lambda: ref_fn(stats))
+    if kernel == "packet_closest":
+        differ = (hit_bits(got) != hit_bits(ref)).any(dim=-1)
+    elif kernel == "packet_knear":
+        differ = (got != ref).any(dim=-1)
+    else:
+        differ = got != ref
+    bad = int(differ.sum())
+    ms = cuda_ms(run_fn, iters=5, warmup=1)
+    dev_ms = events_ms(packet_launch(kernel, packed, rays, t_max, k), passes=5)
+    b = bound(k8.walk_counts(stats), n, in_bytes, out_bytes, PACKET)
+    out[call] = dict(kernel=kernel, rays=n, differ=bad, ms=ms, device_ms=dev_ms, plain_ms=plain,
+                     bound=b)
+    phase("packet", view=view, call=call, kernel=kernel, rays=n, packets=-(-n // kp.PACKET_RAYS),
+          differing=bad, ms=f"{ms:.4f}", device_ms=f"{dev_ms:.4f}", plain_ms=f"{plain:.1f}",
+          **b)
+    if bad:
+        FAILURES.append(f"{kernel} ({view}, {call}): {bad} rays differ from the twin's")
+    return ref
+
+
+@torch.no_grad()
+def packet_view(view: str, tracer: Tracer, soft_packed, frame: Rays,
+                beside: dict | None = None, layers_twin: bool = True) -> dict:
+    """The packet kernels on one frame (row-major primary rays, as the
+    Renderer traces them for "packet"): packet_closest on the frame,
+    packet_occluded on its shadow rays (per-ray t_max, built from the
+    twin's hits as _shade_layer builds them), packet_knear as the soft
+    render calls it on the band tree (k = 4 on the frame, then k_occ = 8 on
+    the candidates from layer 0 with 2 x the segment as t_max), each
+    against its twin (packet_call); the hard frame's ms split into closest,
+    occluded and glue (CUDA events), beside the wide8 and binary frames of
+    this run; the rays whose closest hit or flag differs from the binary
+    per-ray kernels' on the same tree, by group (ray_groups).
+    layers_twin False: the k = 4 call runs the kernel alone (its device ms
+    printed) and feeds the occluder call, which is held to its twin; the
+    1M frames' k = 4 twin would take ~100 s each, and packet_fit_chunk
+    holds that call on the main view's first 255 packets."""
+    packed, scene, n = tracer.packed, tracer.scene, frame.o.shape[0]
+    out = {}
+    href = packet_call(out, view, "closest", "packet_closest", packed, frame,
+                       lambda st: kp.traverse_packet_ref(frame, packed, stats=st),
+                       lambda: kp.traverse_packet(frame, packed), 24, 16)
+    p, nrm, _, _ = hit_surface(tracer, frame, href)
+    sh, t_sh = shadow_rays(scene, p, nrm, href.valid)
+    bref = packet_call(out, view, "occluded", "packet_occluded", packed, sh,
+                       lambda st: kp.occluded_packet_ref(sh, packed, t_sh, stats=st),
+                       lambda: kp.occluded_packet(sh, packed, t_sh), 28, 1, t_max=t_sh)
+
+    def layers():
+        return kp.k_nearest_ids_packet(frame, soft_packed, SOFT["k_layers"], BAND)
+
+    if layers_twin:
+        ids = packet_call(out, view, "layers", "packet_knear", soft_packed, frame,
+                          lambda st: kp.k_nearest_ids_packet_ref(
+                              frame, soft_packed, SOFT["k_layers"], BAND, stats=st),
+                          layers, 24, 4 * SOFT["k_layers"], t_max=T_MAX, k=SOFT["k_layers"])
+    else:
+        ids = layers()
+        dev_ms = events_ms(packet_launch("packet_knear", soft_packed, frame, T_MAX,
+                                         SOFT["k_layers"]), passes=5)
+        phase("packet", view=view, call="layers", kernel="packet_knear", rays=n,
+              twin="not run", device_ms=f"{dev_ms:.4f}")
+    cand, tm = occluder_call(tracer.table, scene, frame, ids)
+    packet_call(out, view, "occluders", "packet_knear", soft_packed, cand,
+                lambda st: kp.k_nearest_ids_packet_ref(cand, soft_packed, SOFT["k_occ"], BAND,
+                                                       t_max=tm, stats=st),
+                lambda: kp.k_nearest_ids_packet(cand, soft_packed, SOFT["k_occ"], BAND, t_max=tm),
+                28, 4 * SOFT["k_occ"], t_max=tm, k=SOFT["k_occ"])
+    del cand, tm, ids
+    # against the binary engine's per-ray kernels on the same tree
+    hbin = kb.traverse_packed(frame, packed)
+    bbin = kb.occluded_packed(sh, packed, t_sh)
+    vs_bin = {"closest": by_group(hbin.tri != href.tri, ray_groups(frame)),
+              "occluded": by_group(bbin != bref, ray_groups(sh)),
+              "closest_packet_only_hits": int(((href.tri >= 0) & (hbin.tri < 0)).sum())}
+    # the hard frame, by CUDA events
+    ms = {"packet_closest": cuda_ms(lambda: kp.traverse_packet(frame, packed)),
+          "packet_occluded": cuda_ms(lambda: kp.occluded_packet(sh, packed, t_sh))}
+    total = cuda_ms(lambda: render_rays(tracer, frame), iters=5, warmup=1)
+    extra = {f"{k}_ms": f"{v:.4f}" for k, v in (beside or {}).items()}
+    phase("packet_frame", view=view, rays=n, shadow_rays=sh.o.shape[0],
+          closest_ms=f"{ms['packet_closest']:.4f}", occluded_ms=f"{ms['packet_occluded']:.4f}",
+          glue_ms_derived=f"{total - sum(ms.values()):.4f}", frame_ms=f"{total:.4f}",
+          rays_per_s=f"{n / (total * 1e-3):.1f}", hit_frac=f"{float(href.valid.float().mean()):.4f}",
+          blocked_frac=f"{float(bref.float().mean()):.4f}", vs_binary=json.dumps(vs_bin), **extra)
+    out["frame"] = dict(ms, frame=total, vs_binary=vs_bin)
+    return out
+
+
+@torch.no_grad()
+def packet_fit_chunk(scene, cam: Camera, soft_packed) -> dict:
+    """packet_knear on one chunk of [fit]'s problem, as the fit's soft
+    render calls it: the first FIT_CHUNKS-th of the row-major frame
+    (261,120 rays at 1920x1088), k_layers, then k_occ on its candidates."""
+    rays = gen_primary_rays(cam)
+    m = rays.o.shape[0] // FIT_CHUNKS
+    chunk = rays_slice(rays, slice(0, m))
+    out = {}
+    ids = packet_call(out, "fit_chunk0", "layers", "packet_knear", soft_packed, chunk,
+                      lambda st: kp.k_nearest_ids_packet_ref(chunk, soft_packed, SOFT["k_layers"],
+                                                             BAND, stats=st),
+                      lambda: kp.k_nearest_ids_packet(chunk, soft_packed, SOFT["k_layers"], BAND),
+                      24, 4 * SOFT["k_layers"], t_max=T_MAX, k=SOFT["k_layers"])
+    cand, tm = occluder_call(tri_table(scene.tris), scene, chunk, ids)
+    packet_call(out, "fit_chunk0", "occluders", "packet_knear", soft_packed, cand,
+                lambda st: kp.k_nearest_ids_packet_ref(cand, soft_packed, SOFT["k_occ"], BAND,
+                                                       t_max=tm, stats=st),
+                lambda: kp.k_nearest_ids_packet(cand, soft_packed, SOFT["k_occ"], BAND, t_max=tm),
+                28, 4 * SOFT["k_occ"], t_max=tm, k=SOFT["k_occ"])
+    return out
+
+
+def packet_phase(scene, cam: Camera, bscene, bcam: Camera, beside: dict) -> dict:
+    """tpurt's packet engine on the card ([packet]): Renderer(method=
+    "packet") renders the 1M main view through the user's path (launch
+    counts, the image against the wide8 frame by tpurt's image rule, the
+    goldens); packet_view on the 1M main view, the overview and the bunny
+    512^2; packet_fit_chunk; a 3-step InverseRenderer(method="packet") fit
+    on the bunny ([fit_packet]); then tpurt's wavefront engine ([wave]):
+    the bunny's hard frame through "wave", bitwise the "bvh" frame.
+    beside: {view: {name: ms}} of the wide8 and binary frames."""
+    t0 = time.perf_counter()
+    dev = scene.tris.verts.device
+    reset_launches()
+    r, s_init = sync_time(lambda: Renderer(scene, RenderConfig(method="packet")))
+    img, s_render = sync_time(lambda: r.render(cam))
+    launches = launch_counts()
+    with torch.no_grad():
+        ref = render(scene, cam, method="wide8")
+    off = float(((img - ref).abs().amax(dim=-1) > IMAGE_ATOL).float().mean())
+    del ref
+    finite = bool(torch.isfinite(img).all())
+    sc, cm = make_cornell_box(device=dev)
+    sb, cb = make_bunny_scene(num_tris=3000, device=dev)
+    gold = {"cornell_packet_bad": golden_check(render(sc, dataclasses.replace(
+                cm, width=64, height=64), method="packet"), "cornell_brute_64.npy", 0.003),
+            "bunny3k_packet_bad": golden_check(render(sb, dataclasses.replace(
+                cb, width=48, height=48), method="packet"), "bunny3k_packet_48.npy", 0.0),
+            "cornell_soft_packet_bad": golden_check(render(sc, dataclasses.replace(
+                cm, width=48, height=48), method="packet", **SOFT), "cornell_soft_48.npy",
+                0.003)}
+    phase("packet", path="Renderer", tris=scene.num_tris, shape=tuple(img.shape),
+          init_s=f"{s_init:.3f}", render_s=f"{s_render:.3f}", finite=finite,
+          vs_wide8_off_frac=off, launches=json.dumps(launches), **gold)
+    if tuple(img.shape) != (cam.height, cam.width, 3) or not finite:
+        fail("the packet image is not a finite (H, W, 3) array")
+    if off > IMAGE_OFF_FRAC:
+        fail(f"the packet image differs from the wide8 one on {off} of pixels")
+    for name in ("packet_closest", "packet_occluded"):
+        if launches[name] <= 0:
+            fail(f"Renderer(method='packet') never launched {name}")
+    del img
+    soft = make_tracer(scene, "packet", band=BAND).packed
+    views = {"main": packet_view("main", r.tracer, soft, gen_primary_rays(cam), beside["main"],
+                                 layers_twin=False)}
+    over = Camera.create(eye=OVERVIEW_EYE, target=OVERVIEW_TARGET, fov_y_deg=50.0,
+                         width=WIDTH, height=HEIGHT, device=dev)
+    views["overview"] = packet_view("overview", r.tracer, soft, gen_primary_rays(over),
+                                    beside["overview"], layers_twin=False)
+    views["fit_chunk0"] = packet_fit_chunk(scene, cam, soft)
+    del r, soft
+    bt = make_tracer(bscene, "packet")
+    bsoft = make_tracer(bscene, "packet", band=BAND).packed
+    views["bunny"] = packet_view("bunny", bt, bsoft, gen_primary_rays(bcam), beside["bunny"])
+    del bt, bsoft
+    fitp = fit_phase(bscene, bcam, method="packet", chunks=BIN_FIT_CHUNKS, steps=BIN_FIT_STEPS,
+                     name="fit_packet", kernel="packet_knear")
+    launches_fit = fitp["launches"]
+    del fitp
+    # the wavefront engine: the bunny's hard frame, bitwise the "bvh" frame
+    with torch.no_grad():
+        wave, s_wave = sync_time(lambda: render(bscene, bcam, method="wave"))
+        per_ray, s_bvh = sync_time(lambda: render(bscene, bcam, method="bvh"))
+    same = bitwise_equal(wave, per_ray)
+    phase("wave", view="bunny", shape=tuple(wave.shape), bitwise_bvh=same,
+          wave_s=f"{s_wave:.3f}", bvh_s=f"{s_bvh:.3f}", mean=f"{float(wave.mean()):.5f}")
+    if not same:
+        FAILURES.append("the wave frame differs from the bvh frame")
+    phase("packet", seconds=f"{time.perf_counter() - t0:.1f}")
+    return dict(views=views, launches=launches, fit_launches=launches_fit)
+
+
 def main() -> None:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--parent", action="append", default=[], metavar="[NAME=]DIR",
@@ -3450,6 +3752,11 @@ def main() -> None:
     # -- the ring's local steps over 4 partitions on the card; sharding --
     fold = dist_fold(scene, cam, bscene, bcam)
     dist_shard(mesh, bscene, bcam)
+    # -- tpurt's packet and wavefront engines: the 1M views and the bunny --
+    pk = packet_phase(scene, cam, bscene, bcam, beside={
+        "main": {"wide8_frame": frame_ms["frame"], "binary_frame": bin_main["frame_ms"]},
+        "overview": {"wide8_frame": over_ms["frame"]},
+        "bunny": {"binary_frame": bin_b["frame_ms"]}})
     del scene, img, fit_b
     torch.cuda.empty_cache()
     t5 = time.perf_counter()
@@ -3519,6 +3826,30 @@ def main() -> None:
             for view in ("main", "overview"):
                 k[f"area_{view}_device_ms"] = round(area[view]["ms"]["area_device"], 4)
                 k[f"area_{view}_bound_ms"] = round(area[view]["area_bound"]["bound_ms"], 6)
+    # the packet kernels: the 1M main view's frame (packet_closest,
+    # packet_occluded) and [fit]'s chunk 0 (packet_knear, k_layers) first,
+    # every other call beside; launches from the Renderer's frame and the
+    # bunny's 3-step fit; max_abs_err the largest fraction of rays that
+    # differ from the twin's (ids, flags, list entries, t/u/v bits)
+    pv = pk["views"]
+    for name, view, call in (("packet_closest", "main", "closest"),
+                             ("packet_occluded", "main", "occluded"),
+                             ("packet_knear", "fit_chunk0", "layers")):
+        one = pv[view][call]
+        calls = {f"{v}_{c}": {"rays": r["rays"], "ms": round(r["ms"], 4),
+                              "device_ms": round(r["device_ms"], 4),
+                              "plain_ms": round(r["plain_ms"], 4),
+                              "bound_ms": round(r["bound"]["bound_ms"], 6), "differ": r["differ"]}
+                 for v, per_call in pv.items() for c, r in per_call.items()
+                 if c != "frame" and r["kernel"] == name}
+        kernels.append({
+            "name": name, "route": "cuda", "source": PACKET_SRC, "replaces": REPLACES[name],
+            "launches": (pk["fit_launches"] if name == "packet_knear" else pk["launches"])[name],
+            "max_abs_err": max(r["differ"] / r["rays"] for r in calls.values()),
+            "ms": round(one["ms"], 4), "plain_ms": round(one["plain_ms"], 4),
+            "bound_ms": round(one["bound"]["bound_ms"], 6), "bound_by": one["bound"]["bound_by"],
+            "library_ms": None, "device_ms": round(one["device_ms"], 4),
+            "view": f"{view}_{call}", "calls": calls})
     # segsum: the soft_surface gather of [fit]'s first chunk (K x R rows,
     # 12 of 15 columns) as ms (the three kernels' device ms by bare
     # launches), plain_ms the twin's, library_ms index_add_'s (atomic);

@@ -13,11 +13,11 @@ escape[n + 1].  make_tracer packs with the static bound
 max_cut_leaves instead of the live leaf count, as tpurt does, so the arrays
 carry unreachable zero rows past the live prefix.
 
-tpurt's packet engine itself (traverse_packet, occluded_packet,
-k_nearest_ids_packet) is not ported: it is an XLA formulation for the TPU
-(one scalar node cursor per 1,024-ray packet under lax.map).  On the GPU the
-per-ray walks of accel/traverse_ref.py and the CUDA kernels of
-kernels/traverse.py take its roles as oracle and engine.
+Two engines walk this layout: the binary per-ray kernels of
+kernels/traverse.py (tpurt's "pallas") and tpurt's packet engine
+(traverse_packet, occluded_packet, k_nearest_ids_packet: one cursor per
+1,024-ray packet), ported as kernels/packet.py, CUDA kernels on the GPU and
+plain-torch twins on the CPU.
 """
 
 from __future__ import annotations

@@ -228,18 +228,23 @@ def occluded_walk(rays: Rays, layout, t_max, t_min: float = DEFAULT_T_MIN,
 
 def knear_walk(rays: Rays, layout, k: int, band: float,
                t_min: float = DEFAULT_T_MIN, t_max=T_MAX,
-               stats: dict | None = None):
+               stats: dict | None = None, empty_id: int = BIG_ID):
     """The k nearest band hits per flat ray, sorted by (t, id): returns
     (t, u, v, ids), each (N, k), empty slots (T_MAX, 0, 0, -1).  Accept:
     |det| > 1e-12, u, v >= -band, u + v <= 1 + band, t_min < t < t_max; cull
-    bound min(k-th t, t_max).  Rays with t_max <= t_min start dead."""
+    bound min(k-th t, t_max).  Rays with t_max <= t_min start dead.
+
+    empty_id: the id of an empty slot while walking, which decides a
+    candidate at t = T_MAX (only possible with t_max > T_MAX): BIG_ID, as
+    tpurt's kernels (big_id), keeps it; -1, as tpurt's per-ray walks and
+    its packet and wave engines, drops it."""
     o, d = rays.o.reshape(-1, 3), rays.d.reshape(-1, 3)
     n, dev = o.shape[0], o.device
     tmax = _tmax_flat(rays, t_max)
     ts = torch.full((n, k), T_MAX, dtype=torch.float32, device=dev)
     us = torch.zeros((n, k), dtype=torch.float32, device=dev)
     vs = torch.zeros_like(us)
-    ids = torch.full((n, k), BIG_ID, dtype=torch.int32, device=dev)
+    ids = torch.full((n, k), empty_id, dtype=torch.int32, device=dev)
 
     def on_leaf(sel, node):
         tri, tid, valid = layout.leaf(node)
@@ -260,7 +265,7 @@ def knear_walk(rays: Rays, layout, k: int, band: float,
 
     _walk(o, d, layout, t_min, torch.nonzero(tmax > t_min)[:, 0],
           lambda a: torch.minimum(ts[a, k - 1], tmax[a]), on_leaf, stats=stats)
-    empty = ids == BIG_ID
+    empty = ids == empty_id
     return (ts, torch.where(empty, 0.0, us), torch.where(empty, 0.0, vs),
             torch.where(empty, -1, ids))
 
@@ -285,7 +290,8 @@ def k_nearest_ref(rays: Rays, tris: Triangles, bvh: BVH, k: int = 4,
                   t_max: float = T_MAX) -> KHits:
     """The k nearest band hits with their t, u, v (tpurt's k_nearest_ref).
     The BVH must be built with boxes inflated by the same band."""
-    t, u, v, ids = knear_walk(rays, FlatLayout(tris, bvh), k, band, t_min, t_max)
+    t, u, v, ids = knear_walk(rays, FlatLayout(tris, bvh), k, band, t_min, t_max,
+                              empty_id=-1)
     shape = rays.shape + (k,)
     return KHits(t=t.reshape(shape), u=u.reshape(shape), v=v.reshape(shape),
                  tri=ids.reshape(shape))
@@ -295,7 +301,7 @@ def occluder_ids_ref(rays: Rays, tris: Triangles, bvh: BVH, k: int, band: float,
                      t_min: float, t_max) -> torch.Tensor:
     """The k nearest band occluders per flat ray in (t_min, t_max) ->
     (N, k) int32, -1 padded (tpurt's occluder_ids_ref)."""
-    return knear_walk(rays, FlatLayout(tris, bvh), k, band, t_min, t_max)[3]
+    return knear_walk(rays, FlatLayout(tris, bvh), k, band, t_min, t_max, empty_id=-1)[3]
 
 
 def soft_occlusion_ref(rays: Rays, tris: Triangles, bvh: BVH, sharpness: float,

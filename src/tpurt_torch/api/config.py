@@ -14,8 +14,9 @@ from typing import Any
 class RenderConfig:
     """All render-path knobs."""
 
-    # "brute" | "bvh" | "binary" | "wide8".  tpurt defaults to "bvh", its
-    # per-ray walk; the port defaults to its BVH8 CUDA engine.
+    # "brute" | "bvh" | "binary" | "wide8" | "packet" | "wave".  tpurt
+    # defaults to "bvh", its per-ray walk; the port defaults to its BVH8
+    # CUDA engine.
     method: str = "wide8"
     # treelet-cut leaf size of the binary engines' LBVH
     leaf_size: int = 8

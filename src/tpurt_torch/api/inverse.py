@@ -3,8 +3,8 @@
 
 Each step: refit the tree to the current vertices (no rebuild: topology
 frozen, no gradient; the WideBVH's boxes and rows for "wide8", the LBVH's
-boxes and then the packed layout for "bvh" and "binary"), render the soft
-image in
+boxes and flat tree for "bvh" and "wave", and then the packed layout for
+"binary" and "packet"), render the soft image in
 ``grad_chunks`` ray chunks with loss = sum((color - target)^2), and update
 the parameters with Adam or SGD at optax's defaults.  The gradient is
 accumulated in table space: every dependence of the render on vertices and
@@ -64,8 +64,9 @@ def refit_tracer(tracer: Tracer, tris, table: torch.Tensor | None = None) -> Tra
     """The tracer with its tree refit to `tris` (topology frozen, no
     gradient): the WideBVH's boxes and rows for "wide8" (from `table`, the
     tri_table at the same vertices, when given), else the LBVH's boxes and
-    flat tree and then the packed rows for "binary".  A tracer without a
-    tree ("brute") is returned as it is."""
+    flat tree (what "bvh" and "wave" walk) and then the packed rows for
+    "binary" and "packet".  A tracer without a tree ("brute") is returned
+    as it is."""
     if tracer.bvh is None:
         return tracer
     if tracer.wide is not None:

@@ -1,6 +1,7 @@
 """The port's benchmark: primary rays a second on one card (counterpart of
 tpurt's ``bench.py``, on the port's engines: ``"wide8"`` for tpurt's
-``"pallas8"``, ``"binary"`` for its ``"pallas"``).
+``"pallas8"``, ``"binary"`` for its ``"pallas"``; ``"packet"`` and
+``"wave"`` are tpurt's own).
 
     python -m tpurt_torch.bench                     # on the card: 1M and 5M rows
     python -m tpurt_torch.bench --parity --staged   # plus the kernel parity and staged rows
@@ -26,7 +27,7 @@ Rows, each with its scene's own camera and its rays in Morton pixel order:
   a 6-step fit through InverseRenderer; one JSON row each on stderr.
 - ``--parity``: each kernel against its twin on the same inputs: closest8,
   occluded8 and knear8 on rays spread over the headline frame, the binary
-  kernels on the bunny; any differing ray fails the row.
+  and the packet kernels on the bunny; any differing ray fails the row.
 
 Each call is timed on the card by CUDA events around batches of ``--iters``
 calls, at least ``--iters`` calls and half a second in all, after a first
@@ -56,6 +57,7 @@ from tpurt_torch.api.inverse import InverseRenderer, refit_tracer
 from tpurt_torch.core.geometry import T_MAX, Rays
 from tpurt_torch.core.scene import get_scene
 from tpurt_torch.dist.collectives import chunked_grad
+from tpurt_torch.kernels import packet as kp
 from tpurt_torch.kernels import traverse as kb
 from tpurt_torch.kernels import traverse8 as k8
 from tpurt_torch.obs.trace import profile_to
@@ -76,7 +78,8 @@ FIT_RES, FIT_PERTURB = 64, 1.02
 FIT = dict(steps=6, lr=1e-3, grad_chunks=2)
 FIT_METHOD = "bvh"
 # --parity: at most PARITY_RAYS rays, evenly strided over the headline frame
-# and over the bunny's (PARITY_BUNNY, its 512x512 camera).
+# and over the bunny's (PARITY_BUNNY, its 512x512 camera); for the packet
+# kernels the bunny frame's first PARITY_RAYS.
 PARITY_RAYS = 65_536
 PARITY_BUNNY = dict(num_tris=70_000)
 # --parity's kernels of each engine: the module of their wrappers, then
@@ -86,7 +89,9 @@ PARITY_CALLS = {
     "wide8": (k8, (("closest8", "traverse_wide8"), ("occluded8", "occluded_wide8"),
                    ("knear8", "k_nearest_wide8"))),
     "binary": (kb, (("closest_bin", "traverse_packed"), ("occluded_bin", "occluded_packed"),
-                    ("knear_bin", "k_nearest_ids_packed")))}
+                    ("knear_bin", "k_nearest_ids_packed"))),
+    "packet": (kp, (("packet_closest", "traverse_packet"), ("packet_occluded", "occluded_packet"),
+                    ("packet_knear", "k_nearest_ids_packet")))}
 
 
 def log(msg: str) -> None:
@@ -322,6 +327,13 @@ def _strided(o: torch.Tensor, d: torch.Tensor) -> Rays:
     return Rays(o=o[::step][:PARITY_RAYS].contiguous(), d=d[::step][:PARITY_RAYS].contiguous())
 
 
+def _leading(o: torch.Tensor, d: torch.Tensor) -> Rays:
+    """The frame's first PARITY_RAYS rays: whole packets of the Morton
+    frame, as the packet engine walks them (which rays share a packet is
+    part of its result, and strided rays make packets no caller makes)."""
+    return Rays(o=o[:PARITY_RAYS].contiguous(), d=d[:PARITY_RAYS].contiguous())
+
+
 def _hits_differ(a, b) -> int:
     """Rays whose closest hit differs in id or in any bit of t, u, v."""
     bits = lambda h: torch.stack([h.t.view(torch.int32), h.u.view(torch.int32),  # noqa: E731
@@ -357,16 +369,17 @@ def parity_counts(engine: str, scene, rays: Rays) -> dict:
 
 def run_parity(scene, cam, dev: torch.device) -> dict:
     """--parity: the wide8 kernels on the headline frame's rays, the binary
-    kernels on the bunny's, against their twins on the same device; the
-    row on stderr; raises on any differing ray."""
+    and the packet kernels on the bunny's, against their twins on the same
+    device; the row on stderr; raises on any differing ray."""
     bscene, bcam = get_scene("bunny", device=dev, **PARITY_BUNNY)
     out = {"parity": dev.type}
-    for engine, sc, cm in (("wide8", scene, cam), ("binary", bscene, bcam)):
-        rays = _strided(*frame_rays(cm))
+    for engine, sc, cm in (("wide8", scene, cam), ("binary", bscene, bcam),
+                           ("packet", bscene, bcam)):
+        rays = _leading(*frame_rays(cm)) if engine == "packet" else _strided(*frame_rays(cm))
         out[f"rays_{engine}"] = rays.o.shape[0]
         out.update(parity_counts(engine, sc, rays))
     emit_row(sys.stderr, **out)
-    bad = {k: v for k, v in out.items() if k in k8.LAUNCHES | kb.LAUNCHES and v}
+    bad = {k: v for k, v in out.items() if k in k8.LAUNCHES | kb.LAUNCHES | kp.LAUNCHES and v}
     if bad:
         raise RuntimeError(f"kernels differ from their twins: {bad}")
     return out
@@ -383,7 +396,7 @@ def build_parser() -> argparse.ArgumentParser:
     ap.add_argument("--tris", type=int, default=1_000_000)
     ap.add_argument("--width", type=int, default=1920)
     ap.add_argument("--height", type=int, default=1088)
-    ap.add_argument("--method", default="auto", help="auto (wide8)|wide8|binary|bvh|brute")
+    ap.add_argument("--method", default="auto", help="auto (wide8)|wide8|binary|packet|wave|bvh|brute")
     ap.add_argument("--iters", type=int, default=5)
     ap.add_argument("--warmup", type=int, default=1)
     ap.add_argument("--device", default="cuda", help="cuda (the card) or cpu")

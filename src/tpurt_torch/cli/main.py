@@ -211,7 +211,7 @@ def build_parser() -> argparse.ArgumentParser:
         sp.add_argument("--tris", type=int, default=0)
         sp.add_argument("--width", type=int, default=0)
         sp.add_argument("--height", type=int, default=0)
-        sp.add_argument("--method", default="bvh", help="brute|bvh|binary|wide8")
+        sp.add_argument("--method", default="bvh", help="brute|bvh|binary|wide8|packet|wave")
 
     sp = sub.add_parser("render", help="render a scene to an image")
     common(sp)

@@ -136,6 +136,16 @@ def load() -> ctypes.CDLL:
             _P, _P, _P, _P, _P, _P, _P, ctypes.c_int, ctypes.c_float, ctypes.c_int,
             ctypes.c_float, ctypes.c_float, _P, _P]
         lib.tpurt_knear_bin.restype = ctypes.c_int
+        lib.tpurt_packet_closest.argtypes = [
+            _P, _P, _P, _P, _P, _P, ctypes.c_int, ctypes.c_float, _P, _P, _P, _P, _P]
+        lib.tpurt_packet_closest.restype = ctypes.c_int
+        lib.tpurt_packet_occluded.argtypes = [
+            _P, _P, _P, _P, _P, _P, _P, ctypes.c_int, ctypes.c_float, _P, _P]
+        lib.tpurt_packet_occluded.restype = ctypes.c_int
+        lib.tpurt_packet_knear.argtypes = [
+            _P, _P, _P, _P, _P, _P, _P, ctypes.c_int, ctypes.c_float, ctypes.c_int,
+            ctypes.c_float, ctypes.c_float, _P, _P]
+        lib.tpurt_packet_knear.restype = ctypes.c_int
         lib.tpurt_morton.argtypes = [_P, _P, _P, ctypes.c_float, ctypes.c_int, _P, _P]
         lib.tpurt_morton.restype = ctypes.c_int
         lib.tpurt_radix.argtypes = [_P, ctypes.c_int, _P, _P, _P, _P, _P, _P]

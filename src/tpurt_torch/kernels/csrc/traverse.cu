@@ -75,23 +75,6 @@
 
 namespace {
 
-// tpurt kernels/traverse.py _slab for one ray: a = (lo.x, lo.y, lo.z, hi.x),
-// b = (hi.y, hi.z, 0, 0), the node's node_f32 row; its NaN-propagating
-// min/max as nmin/nmax, the same decision as jmin/jmax in fewer
-// instructions.
-__device__ __forceinline__ bool slab_bin_n(const float4& a, const float4& b,
-                                           const Ray& r, float t_min,
-                                           float t_upper) {
-  float tx0 = (a.x - r.ox) * r.ix, tx1 = (a.w - r.ox) * r.ix;
-  float ty0 = (a.y - r.oy) * r.iy, ty1 = (b.x - r.oy) * r.iy;
-  float tz0 = (a.z - r.oz) * r.iz, tz1 = (b.y - r.oz) * r.iz;
-  float t_near = nmax(nmax(nmin(tx0, tx1), nmin(ty0, ty1)),
-                      nmax(nmin(tz0, tz1), t_min));
-  float t_far = nmin(nmin(nmax(tx0, tx1), nmax(ty0, ty1)),
-                     nmin(nmax(tz0, tz1), t_upper));
-  return t_near <= t_far;
-}
-
 // One ray's k-nearest walk down the escape chain.  Per ray it visits and
 // tests leaves in the twin's order (accel/traverse_ref.py knear_walk): a node is slab-tested
 // against the bound at the start of its visit, a passing leaf's 8 slots are

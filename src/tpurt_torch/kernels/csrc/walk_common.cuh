@@ -1,8 +1,9 @@
-// Device helpers shared by the BVH walks (traverse8.cu, traverse.cu): the
-// ray record, tpurt's _safe_inv, NaN-propagating min/max and Möller–Trumbore
-// in tpurt's op order; for the two k-nearest kernels, the sorted k-list and
-// their half-row test; for the two any-hit kernels, theirs.  Everything here
-// has internal linkage, so each source that includes it gets its own copy.
+// Device helpers shared by the BVH walks (traverse8.cu, traverse.cu,
+// packet.cu): the ray record, tpurt's _safe_inv, NaN-propagating min/max, the
+// binary slab test and Möller–Trumbore in tpurt's op order; for the two
+// k-nearest kernels, the sorted k-list and their half-row test; for the two
+// any-hit kernels, theirs.  Everything here has internal linkage, so each
+// source that includes it gets its own copy.
 
 #pragma once
 
@@ -62,6 +63,23 @@ __device__ __forceinline__ Ray load_ray(const float* o, const float* d, int i) {
   r.ix = safe_inv(r.dx); r.iy = safe_inv(r.dy); r.iz = safe_inv(r.dz);
   r.oix = r.ox * r.ix; r.oiy = r.oy * r.iy; r.oiz = r.oz * r.iz;
   return r;
+}
+
+// tpurt's binary slab test (kernels/traverse.py _slab, accel/packet.py
+// _slab) for one ray: a = (lo.x, lo.y, lo.z, hi.x), b = (hi.y, hi.z, 0, 0),
+// the node's node_f32 row; its NaN-propagating min/max as nmin/nmax, the
+// same decision as jmin/jmax in fewer instructions.
+__device__ __forceinline__ bool slab_bin_n(const float4& a, const float4& b,
+                                           const Ray& r, float t_min,
+                                           float t_upper) {
+  float tx0 = (a.x - r.ox) * r.ix, tx1 = (a.w - r.ox) * r.ix;
+  float ty0 = (a.y - r.oy) * r.iy, ty1 = (b.x - r.oy) * r.iy;
+  float tz0 = (a.z - r.oz) * r.iz, tz1 = (b.y - r.oz) * r.iz;
+  float t_near = nmax(nmax(nmin(tx0, tx1), nmin(ty0, ty1)),
+                      nmax(nmin(tz0, tz1), t_min));
+  float t_far = nmin(nmin(nmax(tx0, tx1), nmax(ty0, ty1)),
+                     nmin(nmax(tz0, tz1), t_upper));
+  return t_near <= t_far;
 }
 
 // tpurt _mt_scalar_tri: triangle j of a row holds (v0, e1, e2) at 9j..9j+8.

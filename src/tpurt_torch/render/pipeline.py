@@ -21,6 +21,14 @@ Engines (``Tracer.method``):
 - ``"wide8"``: the 8-wide BVH walks (kernels/traverse8.py), the counterpart
   of tpurt's ``"pallas8"``: CUDA kernels on the GPU, their plain-torch twins
   on the CPU;
+- ``"packet"``: tpurt's packet engine over the packed tree
+  (kernels/packet.py): 1,024 consecutive rays walk the union of their
+  subtrees with one cursor and every ray of the packet is tested at each
+  wanted leaf, so its hits are its own; CUDA kernels on the GPU, their
+  plain-torch twins on the CPU.  Its primary rays are traced in row-major
+  pixel order, as tpurt traces them, so each packet holds tpurt's rays;
+- ``"wave"``: tpurt's wavefront engine (accel/wavefront.py), the
+  lockstep escape walk of ``"bvh"`` over the same flat tree;
 - ``"ring"``: the scene Morton-partitioned over a DeviceMesh, one chunk a
   rank, the rays rotated around the ranks (dist/ring.py), each chunk walked
   by the wide8 kernels or the binary ones (``ring_engine``, tpurt's
@@ -54,6 +62,7 @@ from tpurt_torch.accel.lbvh import BVH, build_lbvh
 from tpurt_torch.accel.packet import PackedBVH, max_cut_leaves, pack_bvh
 from tpurt_torch.accel.traverse_ref import (
     k_nearest_ref, occluded_ref, occluder_ids_ref, traverse_ref)
+from tpurt_torch.accel.wavefront import wave_closest, wave_k_ids, wave_occluded
 from tpurt_torch.core.geometry import Camera, Hit, KHits, Rays, T_MAX
 from tpurt_torch.core.math import cross, sample_square
 from tpurt_torch.core.scene import Scene
@@ -65,6 +74,7 @@ from tpurt_torch.diff.softvis import (
 from tpurt_torch.dist.ring import ring_k_nearest, ring_occluded, ring_trace
 from tpurt_torch.dist.scene_partition import (
     ScenePartition, build_partition_bvhs, build_partition_wides, partition_scene)
+from tpurt_torch.kernels.packet import k_nearest_ids_packet, occluded_packet, traverse_packet
 from tpurt_torch.kernels.traverse import (
     k_nearest_ids_packed, occluded_packed, traverse_packed)
 from tpurt_torch.kernels.traverse8 import (
@@ -75,7 +85,7 @@ from tpurt_torch.render.shade import (
 
 SHADOW_EPS = 1e-3  # offset shadow-ray origins off the surface
 SHADOW_T_FRAC = 1.0 - 1e-3  # stop shadow rays just before the light
-METHODS = ("brute", "bvh", "binary", "wide8", "ring")
+METHODS = ("brute", "bvh", "binary", "wide8", "packet", "wave", "ring")
 RING_ENGINES = ("wide8", "binary")
 
 
@@ -132,6 +142,10 @@ class Tracer:
             return traverse_wide8(rays, self.wide, shade_out=True)
         if self.method == "binary":
             return traverse_packed(rays, self.packed), None
+        if self.method == "packet":
+            return traverse_packet(rays, self.packed), None
+        if self.method == "wave":
+            return wave_closest(rays, self.scene.tris, self.bvh), None
         if self.method == "bvh":
             return traverse_ref(rays, self.scene.tris, self.bvh), None
         return intersect_brute(rays, self.scene.tris), None
@@ -144,6 +158,10 @@ class Tracer:
             occ = occluded_ref(rays, self.scene.tris, self.bvh, t_max)
         elif self.method == "binary":
             occ = occluded_packed(rays, self.packed, t_max)
+        elif self.method == "packet":
+            occ = occluded_packet(rays, self.packed, t_max)
+        elif self.method == "wave":
+            occ = wave_occluded(rays, self.scene.tris, self.bvh, t_max)
         elif self.method == "ring":
             flat, n, (tm,) = self._ring_pad(rays, t_max)
             occ = ring_occluded(self.mesh, flat, self.part, tm,
@@ -163,6 +181,10 @@ class Tracer:
             return k_nearest_ref(rays, self.scene.tris, self.bvh, k=k, band=band)
         if self.method == "binary":
             ids = k_nearest_ids_packed(rays, self.packed, k, band, t_max=T_MAX)
+        elif self.method == "packet":
+            ids = k_nearest_ids_packet(rays, self.packed, k, band, t_max=T_MAX)
+        elif self.method == "wave":
+            ids = wave_k_ids(rays, self.scene.tris, self.bvh, k, band, t_max=T_MAX)
         elif self.method == "ring":
             flat, n, _ = self._ring_pad(rays)
             ids = ring_k_nearest(self.mesh, flat, self.part, self.table, k, band,
@@ -190,6 +212,10 @@ class Tracer:
                                     DEFAULT_T_MIN, 2.0 * tm)
         if self.method == "binary":
             return k_nearest_ids_packed(flat, self.packed, k_occ, band, t_max=2.0 * tm)
+        if self.method == "packet":
+            return k_nearest_ids_packet(flat, self.packed, k_occ, band, t_max=2.0 * tm)
+        if self.method == "wave":
+            return wave_k_ids(flat, self.scene.tris, self.bvh, k_occ, band, t_max=2.0 * tm)
         if self.method == "ring":
             flat, n, (tm,) = self._ring_pad(flat, tm)
             return ring_k_nearest(self.mesh, flat, self.part, self.table, k_occ, band,
@@ -202,9 +228,9 @@ def make_tracer(scene: Scene, method: str = "brute", band: float = 0.0,
     """Build a Tracer for `scene` on the scene's device: the table, and for
     the BVH engines the LBVH with its DFS thread at `leaf_size` (boxes
     inflated by `band`, which the soft path needs so near-miss band hits are
-    not culled); for "binary" its packed layout, with rows for the static
-    bound max_cut_leaves as tpurt packs it; for "wide8" its 8-wide
-    collapse.  "ring" (needs `mesh`, a DeviceMesh): the scene
+    not culled); for "binary" and "packet" its packed layout, with rows for
+    the static bound max_cut_leaves as tpurt packs it; for "wide8" its
+    8-wide collapse ("bvh" and "wave" walk the LBVH's flat tree).  "ring" (needs `mesh`, a DeviceMesh): the scene
     Morton-partitioned into one chunk a rank, and this rank's chunk's tree
     for `ring_engine` ("wide8": a WideBVH; "binary": a PackedBVH)."""
     if method not in METHODS:
@@ -228,7 +254,7 @@ def make_tracer(scene: Scene, method: str = "brute", band: float = 0.0,
     packed = wide = None
     with torch.no_grad():
         bvh = build_lbvh(scene.tris, leaf_size=leaf_size, band=band)
-        if method == "binary":
+        if method in ("binary", "packet"):
             packed = pack_bvh(scene.tris, bvh, max_cut_leaves(scene.num_tris, leaf_size))
         elif method == "wide8":
             wide = build_wide(scene.tris, bvh)
@@ -476,15 +502,20 @@ def render_image(tracer: Tracer, cam: Camera, spp: int = 1,
 
     Primary rays are traced in Morton pixel order (neighbouring rays on
     neighbouring pixels) and the image is put back in row-major order; the
-    per-ray engines give the same pixels in any order.  With spp > 1 and a
+    per-ray engines give the same pixels in any order.  The "packet"
+    engine's rays stay in row-major order, tpurt's: its packets are runs of
+    1,024 consecutive rays, and which rays share one is part of its
+    result.  With spp > 1 and a
     generator, the mean of spp samples, each with its own sub-pixel jitter
     from sample_square(generator); otherwise one sample at pixel centres,
     as tpurt's render does without a key.  The generator also draws each
     sample's emitter points when kw asks for light_samples."""
-    perm, inv = (torch.as_tensor(x, device=cam.eye.device)
-                 for x in pixel_morton_perm(cam.height, cam.width))
-
     run = trace or functools.partial(render_rays, tracer)
+    if tracer.method == "packet":
+        perm = inv = slice(None)
+    else:
+        perm, inv = (torch.as_tensor(x, device=cam.eye.device)
+                     for x in pixel_morton_perm(cam.height, cam.width))
 
     def one(jitter):
         rays = gen_primary_rays(cam, jitter)

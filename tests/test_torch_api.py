@@ -46,7 +46,7 @@ def _cornell(res=RES):
 
 
 # -- Renderer --------------------------------------------------------------
-@pytest.mark.parametrize("method", ["bvh", "wide8"])
+@pytest.mark.parametrize("method", ["bvh", "wide8", "packet", "wave"])
 def test_renderer_matches_tpurt(tpurt_cornell, method):
     """The port's Renderer against tpurt's at its engine golden threshold
     (tests/golden/test_golden.py: 0.3% of pixels off by more than 2e-3)."""

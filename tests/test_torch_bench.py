@@ -17,6 +17,12 @@ gradients atol 1e-5 of the largest (measured 1.7e-7).  tpurt's own step
 (bench.py run_one, captured) and this file's copy of it, both jitted,
 agree to 1e-6 of the largest gradient: the copy takes a chunk that
 bench.py cannot set, so the frame can be padded.
+
+The rows' tests time nothing they assert: bench.main runs with one call a
+row (--iters 1 --warmup 0, MIN_SECONDS 0), the parity test with its rows
+stubbed, and every test with one intra-op thread (the benchmark's small
+tensor ops run many times slower when other test processes' threads
+compete for the cores).
 """
 
 import json
@@ -39,6 +45,7 @@ from tpurt_torch import bench
 from tpurt_torch.cli.main import main as cli_main
 from tpurt_torch.core.convert import camera_from_numpy, scene_from_numpy
 from tpurt_torch.core.scene import get_scene
+from tpurt_torch.kernels import packet as kp
 from tpurt_torch.kernels import traverse as kb
 from tpurt_torch.kernels import traverse8 as k8
 from tpurt_torch.render.pipeline import make_tracer
@@ -51,6 +58,22 @@ HEADLINE = {"metric", "value", "unit", "method", "engine_ran", "scene", "tris", 
             "build_s", "compile_s", "value_fwd_bwd", "method_fwd_bwd", "engine_ran_fwd_bwd",
             "ms_per_call_fwd_bwd", "bench_rays_fwd_bwd", "grad_params", "device"}
 NOT_PORTED = {"vs_baseline", "vs_baseline_fwd_bwd", "timing_suspect", "fwd_bwd_error"}
+# one call a row: the first (compile_s) and one timed batch of one
+ONE_CALL = ["--iters", "1", "--warmup", "0"]
+
+
+@pytest.fixture(scope="module", autouse=True)
+def one_thread():
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
+@pytest.fixture
+def one_call(monkeypatch):
+    """time_calls stops after its first batch."""
+    monkeypatch.setattr(bench, "MIN_SECONDS", 0.0)
 
 
 def _plain(verts, idx, grad_cols=None):
@@ -195,8 +218,8 @@ def _last_row(out: str) -> dict:
     return json.loads(out.strip().splitlines()[-1])
 
 
-def test_headline_row_on_the_cpu(capsys):
-    assert bench.main(SMALL) == 0
+def test_headline_row_on_the_cpu(one_call, capsys):
+    assert bench.main(SMALL + ONE_CALL) == 0
     row = _last_row(capsys.readouterr().out)
     assert HEADLINE <= set(row) and not NOT_PORTED & set(row) and "error" not in row
     assert row["engine_ran"] == row["engine_ran_fwd_bwd"] == row["method"] == "wide8"
@@ -204,6 +227,17 @@ def test_headline_row_on_the_cpu(capsys):
     assert row["bench_rays"] == row["bench_rays_fwd_bwd"] == RES * RES
     assert np.isfinite(row["loss_fwd_bwd"]) and row["loss_fwd_bwd"] > 0
     assert not any(k.endswith("_5m") for k in row)  # the 5M rows run on the card only
+
+
+@pytest.mark.parametrize("method", ["packet", "wave"])
+def test_headline_row_through_tpurts_own_engines(method, one_call, capsys):
+    """--method packet and wave (tpurt's packet and wavefront engines) run
+    both rows through the engine they name."""
+    assert bench.main(SMALL + ONE_CALL + ["--method", method]) == 0
+    row = _last_row(capsys.readouterr().out)
+    assert "error" not in row and row["value"] > 0 and row["value_fwd_bwd"] > 0
+    assert row["engine_ran"] == row["engine_ran_fwd_bwd"] == row["method"] == method
+    assert np.isfinite(row["loss_fwd_bwd"]) and row["loss_fwd_bwd"] > 0
 
 
 @pytest.mark.parametrize("argv,error", [
@@ -219,20 +253,24 @@ def test_a_failing_row_prints_error_and_returns_1(argv, error, capsys):
 def test_a_row_whose_colors_are_not_finite_fails(monkeypatch, capsys):
     monkeypatch.setattr(bench, "render_rays",
                         lambda tracer, rays, **kw: torch.full_like(rays.o, float("nan")))
-    assert bench.main(SMALL) == 1
+    assert bench.main(SMALL + ONE_CALL) == 1
     assert "FloatingPointError: fwd" in _last_row(capsys.readouterr().out)["error"]
 
 
 def test_a_kernel_that_differs_from_its_twin_fails_parity(monkeypatch, capsys):
     """--parity on the CPU (each wrapper runs its twin, so nothing differs)
-    reports every kernel; an any-hit wrapper that flips a flag fails it."""
+    reports every kernel; an any-hit wrapper that flips a flag fails it.
+    The fwd and fwd_bwd rows, which this does not read, are stubbed."""
     monkeypatch.setattr(bench, "PARITY_BUNNY", dict(num_tris=2000))
     monkeypatch.setattr(bench, "PARITY_RAYS", 256)
+    monkeypatch.setattr(bench, "run_one", lambda scene, cam, method, mode, *a, **kw: dict(
+        rays_per_s=1.0, engine_ran=method, bench_rays=1, build_s=0.0, compile_s=0.0,
+        ms_per_call=1.0, loss=1.0, peak_bytes=0))
     assert bench.main(SMALL + ["--parity"]) == 0
     row = _last_row(capsys.readouterr().out)
-    kernels = set(k8.LAUNCHES) | set(kb.LAUNCHES)
+    kernels = set(k8.LAUNCHES) | set(kb.LAUNCHES) | set(kp.LAUNCHES)
     assert {k: row["parity"][k] for k in kernels} == dict.fromkeys(kernels, 0)
-    assert row["parity"]["rays_wide8"] == 256 and row["parity"]["rays_binary"] == 256
+    assert all(row["parity"][f"rays_{e}"] == 256 for e in ("wide8", "binary", "packet"))
 
     flip = k8.occluded_wide8
     monkeypatch.setattr(k8, "occluded_wide8", lambda *a, **kw: ~flip(*a, **kw))

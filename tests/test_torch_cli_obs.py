@@ -23,6 +23,17 @@ from tpurt_torch.obs import (Meter, blocking_span, compiled_cost, emit, get_logg
                              profile_to, trace_span)
 
 
+@pytest.fixture(scope="module", autouse=True)
+def one_thread():
+    """One intra-op thread: the verbs' engines run as lockstep loops of
+    small tensor ops, which other test processes' threads slow down many
+    times over."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 def _verbs(parser):
     sub = next(a for a in parser._actions if a.dest == "cmd")
     return {name: {o for a in sp._actions for o in a.option_strings}
@@ -48,6 +59,24 @@ def test_render_writes_the_renderers_image(tmp_path):
     cam = dataclasses.replace(cam, width=20, height=20)
     ref = Renderer(scene, RenderConfig(method="wide8")).render(cam)
     assert np.array_equal(np.load(out), ref.numpy())
+
+
+@pytest.mark.parametrize("method", ["packet", "wave"])
+def test_verbs_run_tpurts_own_engines(method, tmp_path):
+    """render, fit and check-grads take tpurt's packet and wavefront
+    engines: render writes the Renderer's image, fit lowers the loss and
+    check-grads passes its gate through the engine."""
+    out = tmp_path / "img.npy"
+    assert main(["render", "--scene", "cornell", "--width", "16", "--method", method,
+                 "-o", str(out)], device="cpu") == 0
+    scene, cam = get_scene("cornell", device="cpu")
+    cam = dataclasses.replace(cam, width=16, height=16)
+    ref = Renderer(scene, RenderConfig(method=method)).render(cam)
+    assert np.array_equal(np.load(out), ref.numpy())
+    assert main(["fit", "--scene", "cornell", "--width", "8", "--method", method,
+                 "--steps", "2"], device="cpu") == 0  # the loss fell
+    assert main(["check-grads", "--scene", "cornell", "--width", "8", "--method", method,
+                 "--probes", "1"], device="cpu") == 0  # the gate passed
 
 
 def test_render_png_and_ppm_fallback(tmp_path, monkeypatch):

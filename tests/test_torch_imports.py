@@ -26,6 +26,7 @@ def _imported_roots(path: pathlib.Path) -> set[str]:
 def test_the_scan_sees_the_package():
     names = {p.relative_to(ROOT).as_posix() for p in FILES}
     assert "src/tpurt_torch/kernels/traverse8.py" in names
+    assert {"src/tpurt_torch/kernels/packet.py", "src/tpurt_torch/accel/wavefront.py"} <= names
     assert "torch" in _imported_roots(ROOT / "src/tpurt_torch/kernels/traverse8.py")
 
 

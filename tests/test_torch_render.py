@@ -2,8 +2,10 @@
 
 The goldens in tests/golden are tpurt's renders; tpurt's own tests hold its
 engines to them with tests/golden/test_golden.py's _check, which this file
-imports: frac 0.0 for brute, 0.003 for the BVH engines (wide8, bvh, binary)
-and for the bunny image (itself a packet-engine render).
+imports: frac 0.0 for brute, 0.003 for the BVH engines (wide8, bvh, binary,
+packet, wave) and for the bunny image (itself a packet-engine render; the
+port's "packet" engine meets it at tpurt's own frac 0.0 in
+tests/test_torch_packet.py).
 """
 
 import dataclasses
@@ -18,12 +20,35 @@ from tpurt_torch.render.camera import gen_primary_rays
 from tpurt_torch.render.pipeline import make_tracer, render, render_rays
 
 
+@pytest.fixture(scope="module", autouse=True)
+def one_thread():
+    """One intra-op thread: the engines' walks are lockstep loops of small
+    tensor ops, which other test processes' threads slow down many times
+    over."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 @pytest.mark.parametrize("method,frac", [("brute", 0.0), ("wide8", 0.003), ("bvh", 0.003),
-                                         ("binary", 0.003)])
+                                         ("binary", 0.003), ("packet", 0.003),
+                                         ("wave", 0.003)])
 def test_golden_cornell(method, frac):
     scene, cam = make_cornell_box(device="cpu")
     img = render(scene, dataclasses.replace(cam, width=64, height=64), method=method)
     _check(img, "cornell_brute_64.npy", frac=frac)
+
+
+@pytest.mark.parametrize("method", ["packet", "wave"])
+def test_golden_cornell_soft(method):
+    """tpurt's soft golden through tpurt's own packet and wavefront engines,
+    at its engine threshold (test_golden.py's test_golden_cornell_soft_engines;
+    the other engines' soft goldens are in tests/test_torch_fit.py)."""
+    scene, cam = make_cornell_box(device="cpu")
+    img = render(scene, dataclasses.replace(cam, width=48, height=48), method=method,
+                 soft=True, k_layers=4, sharpness=40.0, band=0.08)
+    _check(img, "cornell_soft_48.npy", frac=0.003)
 
 
 @pytest.mark.parametrize("method", ["brute", "wide8", "bvh", "binary"])
@@ -89,3 +114,26 @@ def test_render_rays_soft_raises_and_method_checked():
     assert float(color.max()) > 0.0
     with pytest.raises(ValueError):
         make_tracer(scene, "pallas8")
+
+
+def test_packet_engine_traces_row_major_packets(monkeypatch):
+    """The packet engine's primary rays reach it in row-major pixel order,
+    as tpurt traces them (its packets are runs of 1,024 consecutive rays);
+    every other engine's in Morton order."""
+    import tpurt_torch.render.pipeline as pipeline
+
+    scene, cam = make_cornell_box(device="cpu")
+    cam = dataclasses.replace(cam, width=8, height=4)
+    row_major = gen_primary_rays(cam).d
+    seen = {}
+
+    def spy(tracer, rays, **kw):
+        seen[tracer.method] = rays.d.clone()
+        return torch.zeros_like(rays.d)
+
+    monkeypatch.setattr(pipeline, "render_rays", spy)
+    for method in ("packet", "binary"):
+        render(scene, cam, method=method)
+    assert torch.equal(seen["packet"], row_major)
+    assert not torch.equal(seen["binary"], row_major)
+    assert torch.equal(seen["binary"].sort(dim=0).values, row_major.sort(dim=0).values)
