@@ -466,7 +466,11 @@ HARD_KERNELS = {
     "wide8": (("closest8", "occluded8"),
               lambda rays, tr: k8.traverse_wide8(rays, tr.wide, shade_out=True)),
     "binary": (("closest_bin", "occluded_bin"),
-               lambda rays, tr: kb.traverse_packed(rays, tr.packed))}
+               lambda rays, tr: kb.traverse_packed(rays, tr.packed)),
+    "packet": (("packet_closest", "packet_occluded"),
+               lambda rays, tr: kp.traverse_packet(rays, tr.packed))}
+# Each ring engine's k-nearest kernel.
+KNEAR_KERNEL = {"wide8": "knear8", "binary": "knear_bin", "packet": "packet_knear"}
 
 
 def ptxas_report(log_path: str) -> dict:
@@ -2193,7 +2197,9 @@ def renderer_phase(scene, cam: Camera, ref: torch.Tensor) -> dict:
 TWINS = {"traverse_wide8": k8.traverse_wide8_ref, "occluded_wide8": k8.occluded_wide8_ref,
          "k_nearest_wide8": k8.k_nearest_wide8_ref, "traverse_packed": kb.traverse_packed_ref,
          "occluded_packed": kb.occluded_packed_ref,
-         "k_nearest_ids_packed": kb.k_nearest_ids_packed_ref}
+         "k_nearest_ids_packed": kb.k_nearest_ids_packed_ref,
+         "traverse_packet": kp.traverse_packet_ref, "occluded_packet": kp.occluded_packet_ref,
+         "k_nearest_ids_packet": kp.k_nearest_ids_packet_ref}
 # Each engine's any-hit and k-nearest wrapper names in the pipeline.
 ANY_HIT = {"wide8": "occluded_wide8", "binary": "occluded_packed"}
 
@@ -2592,9 +2598,14 @@ def bench_phase() -> dict:
 # [dist_fold]: the scene split into this many partitions on the one card,
 # each walked and folded in the order rank 0's rays meet them; the bunny
 # (69,940 triangles) into 3, whose last chunk then holds 2 padding rows, so
-# the binary kernels meet -1 slots and zero rows (the 1M sponza's 999,968
-# split into 4 have none).
+# the binary and packet kernels meet -1 slots and zero rows (the 1M
+# sponza's 999,968 split into 4 have none).
 FOLD_PARTS, FOLD_PARTS_BUNNY = 4, 3
+# Whole packets of a block held to the twins where the twins of every ray
+# would take minutes (the packet walk's twin took 38,793 ms on the 1M main
+# view): packets are independent, so a sample of whole packets checks what
+# the whole block would.
+SAMPLE_PACKETS = 64
 
 
 def dist_setup():
@@ -2644,27 +2655,34 @@ def recording(module, names, record: dict, timed: bool = False):
 class FoldTracer(Tracer):
     """The ring's local steps (dist/ring.py closest_step, occluded_step,
     knear_step) over several partitions' trees on one card, in the order
-    rank 0's rays meet them: the render pipeline's engine calls, each folded
-    partition by partition.  log: each call's folded output, by call."""
+    rank 0's rays meet them, each walked by the ring engine `engine`: the
+    render pipeline's engine calls, each folded partition by partition.
+    log: each call's folded output, by call; inputs: each hard call's rays
+    (and t_max), by call."""
 
     parts: list = dataclasses.field(default_factory=list)
+    engine: str | None = None
     log: dict = dataclasses.field(default_factory=dict)
+    inputs: dict = dataclasses.field(default_factory=dict)
 
     def closest_shaded(self, rays: Rays):
         o, d = rays.o.reshape(-1, 3), rays.d.reshape(-1, 3)
         best = ring_mod.closest_init(o.shape[0], o.device)
         for p in self.parts:
-            best = ring_mod.closest_step(o, d, best, p)
+            best = ring_mod.closest_step(o, d, best, p, engine=self.engine)
         self.log.setdefault("closest", []).append(best)
+        self.inputs.setdefault("closest", []).append((o, d))
         return Hit(**{k: v.reshape(rays.shape) for k, v in best.items()}), None
 
     def visibility(self, rays: Rays, t_max) -> torch.Tensor:
         o, d = rays.o.reshape(-1, 3), rays.d.reshape(-1, 3)
         tm = torch.as_tensor(t_max, dtype=torch.float32, device=o.device).expand(rays.shape)
+        tm = tm.reshape(-1)
         blocked = torch.zeros(o.shape[0], dtype=torch.bool, device=o.device)
         for p in self.parts:
-            blocked = ring_mod.occluded_step(o, d, tm.reshape(-1), blocked, p)
+            blocked = ring_mod.occluded_step(o, d, tm, blocked, p, engine=self.engine)
         self.log.setdefault("occluded", []).append(blocked)
+        self.inputs.setdefault("occluded", []).append((o, d, tm))
         return 1.0 - blocked.reshape(rays.shape).float()
 
     def _knear(self, rays: Rays, t_max, k: int, band: float, call: str) -> torch.Tensor:
@@ -2674,7 +2692,7 @@ class FoldTracer(Tracer):
         with torch.no_grad():
             for p in self.parts:
                 ts, ids = ring_mod.knear_step(o, d, tm.reshape(-1), ts, ids, p, self.table,
-                                              k, band)
+                                              k, band, engine=self.engine)
         ids = torch.where(ids == BIG_ID, -1, ids)
         self.log.setdefault(call, []).append(ids)
         return ids
@@ -2709,42 +2727,84 @@ def fold_logs_equal(view: str, kernel_log: dict, twin_log: dict) -> dict:
     return out
 
 
-def fold_tracers(scene, parts: list) -> tuple:
-    """A FoldTracer over `parts` and its twin-route copy (its own log)."""
+def fold_tracers(scene, parts: list, engine: str) -> tuple:
+    """A FoldTracer over `parts` walked by `engine` and its twin-route copy
+    (its own log)."""
     table = tri_table(scene.tris)
-    return (FoldTracer(scene=scene, table=table, method="fold", parts=parts),
-            FoldTracer(scene=scene, table=table, method="fold", parts=parts))
+    return tuple(FoldTracer(scene=scene, table=table, method="fold", parts=parts, engine=engine)
+                 for _ in range(2))
+
+
+def packet_sample(n: int, count: int = SAMPLE_PACKETS) -> torch.Tensor:
+    """Ray indices of `count` whole packets of an n-ray block (packet p is
+    rays [1024 p, 1024 p + 1024)), spread evenly over it, in order, the
+    last one included: laid end to end they keep each packet's rays
+    together, and a partial last packet stays last."""
+    p = -(-n // kp.PACKET_RAYS)
+    pk = torch.unique(torch.linspace(0, p - 1, min(count, p)).round().long())
+    idx = (pk[:, None] * kp.PACKET_RAYS + torch.arange(kp.PACKET_RAYS)).reshape(-1)
+    return idx[idx < n]
+
+
+def sampled_fold(fold: FoldTracer, twin: FoldTracer) -> tuple[dict, dict]:
+    """The twin fold (twin_route) of the hard calls that `fold` made, on
+    SAMPLE_PACKETS whole packets of each call's rays: (the kernel fold's
+    outputs on those rays, the twins'), as logs for fold_logs_equal."""
+    got = {}
+    for call, ((o, d, *tm),) in ((c, x[:1]) for c, x in fold.inputs.items()):
+        idx = packet_sample(o.shape[0]).to(o.device)
+        rays = Rays(o=o[idx], d=d[idx])
+        with twin_route():
+            if call == "closest":
+                twin.closest_shaded(rays)
+            else:
+                twin.visibility(rays, tm[0][idx])
+        out = fold.log[call][0]
+        got[call] = [{k: v[idx] for k, v in out.items()} if call == "closest" else out[idx]]
+    return got, {call: twin.log[call][:1] for call in got}
 
 
 def fold_view(view: str, scene, frame: Rays, ref_tracer: Tracer, parts: list,
               soft_rays: Rays | None = None, soft_ref: Tracer | None = None,
-              soft_parts: list | None = None) -> dict:
+              soft_parts: list | None = None, engine: str = "wide8",
+              sample: bool = False) -> dict:
     """[dist_fold] on one view: the hard frame through the ring's local
-    steps over `parts` (closest and any hit), its launches, the same fold
-    through the twins on the card (0 differing ids and flags), its image
-    against ref_tracer's replicated render (IMAGE_ATOL on at most 0.3% of
-    pixels) and its ms; with soft_rays, the soft render (SOFT) of those rays
-    over soft_parts (band trees; the k-nearest calls k 4 and k_occ 8), its
-    k-lists against the twins' fold and its image against soft_ref's."""
-    fold, twin = fold_tracers(scene, parts)
+    steps over `parts` walked by `engine` (closest and any hit), its
+    launches, the same fold through the twins on the card (0 differing ids
+    and flags; sample: on SAMPLE_PACKETS whole packets of each call, not on
+    every ray), its image against ref_tracer's replicated render
+    (IMAGE_ATOL on at most 0.3% of pixels) and its ms; with soft_rays, the
+    soft render (SOFT) of those rays over soft_parts (band trees; the
+    k-nearest calls k 4 and k_occ 8), its k-lists against the twins' fold
+    and its image against soft_ref's."""
+    fold, twin = fold_tracers(scene, parts, engine)
     with torch.no_grad():
         reset_launches()
         img = render_rays(fold, frame)
         launches = launch_counts()
-        with twin_route():
-            render_rays(twin, frame)
+        t0 = time.perf_counter()
+        if sample:
+            kernel_log, twin_log = sampled_fold(fold, twin)
+        else:
+            with twin_route():
+                render_rays(twin, frame)
+            kernel_log = {k: fold.log[k][:1] for k in fold.log}
+            twin_log = {k: twin.log[k][:1] for k in twin.log}
+        s_twin = time.perf_counter() - t0
         ref = render_rays(ref_tracer, frame)
         ms = cuda_ms(lambda: render_rays(fold, frame), iters=3, warmup=1)
         ref_ms = cuda_ms(lambda: render_rays(ref_tracer, frame), iters=3, warmup=1)
     diff = image_diff(img, ref)
-    eq = fold_logs_equal(view, {k: fold.log[k][:1] for k in fold.log},
-                         {k: twin.log[k][:1] for k in twin.log})
-    names, _ = HARD_KERNELS["wide8" if isinstance(parts[0], WideBVH) else "binary"]
+    eq = fold_logs_equal(view, kernel_log, twin_log)
+    names, _ = HARD_KERNELS[engine]
     out = {"launches": launches}
-    phase("dist_fold", view=view, path="hard", parts=len(parts), rays=frame.o.shape[0],
-          launches=json.dumps(launches), **eq, vs_replicated_max_abs=diff["max_abs"],
-          vs_replicated_off_frac=diff["off_frac"], fold_frame_ms=f"{ms:.4f}",
-          replicated_frame_ms=f"{ref_ms:.4f}")
+    held = ({call: int(x[0].shape[0] if call != "closest" else x[0]["tri"].shape[0])
+             for call, x in kernel_log.items()})
+    phase("dist_fold", view=view, engine=engine, path="hard", parts=len(parts),
+          rays=frame.o.shape[0], launches=json.dumps(launches),
+          twin_rays=json.dumps(held), twin_s=f"{s_twin:.1f}", **eq,
+          vs_replicated_max_abs=diff["max_abs"], vs_replicated_off_frac=diff["off_frac"],
+          fold_frame_ms=f"{ms:.4f}", replicated_frame_ms=f"{ref_ms:.4f}")
     if diff["off_frac"] > IMAGE_OFF_FRAC:
         fail(f"dist_fold ({view}): the fold's image differs on {diff['off_frac']} of pixels")
     for k in names:
@@ -2752,20 +2812,23 @@ def fold_view(view: str, scene, frame: Rays, ref_tracer: Tracer, parts: list,
             fail(f"dist_fold ({view}): {k} launched {launches[k]} times, not {len(parts)}")
     if soft_rays is None:
         return out
-    fold, twin = fold_tracers(scene, soft_parts)
+    fold, twin = fold_tracers(scene, soft_parts, engine)
     with torch.no_grad():
         reset_launches()
         color = render_rays(fold, soft_rays, **SOFT)
         out["soft_launches"] = launch_counts()
+        t0 = time.perf_counter()
         with twin_route():
             render_rays(twin, soft_rays, **SOFT)
+        s_twin = time.perf_counter() - t0
         ref = render_rays(soft_ref, soft_rays, **SOFT)
         ms = cuda_ms(lambda: render_rays(fold, soft_rays, **SOFT), iters=3, warmup=1)
     diff = image_diff(color, ref)
     eq = fold_logs_equal(view, fold.log, twin.log)
-    kn = knear_kernel(soft_parts[0])
-    phase("dist_fold", view=view, path="soft", parts=len(soft_parts), rays=soft_rays.o.shape[0],
-          launches=json.dumps(out["soft_launches"]), **eq,
+    kn = KNEAR_KERNEL[engine]
+    phase("dist_fold", view=view, engine=engine, path="soft", parts=len(soft_parts),
+          rays=soft_rays.o.shape[0], launches=json.dumps(out["soft_launches"]),
+          twin_s=f"{s_twin:.1f}", **eq,
           nonempty_layer_lists=int((fold.log["layers"][0][:, 0] >= 0).sum()),
           vs_replicated_max_abs=diff["max_abs"], vs_replicated_off_frac=diff["off_frac"],
           fold_soft_ms=f"{ms:.4f}")
@@ -2781,10 +2844,16 @@ def dist_fold(scene, cam: Camera, bscene, bcam: Camera) -> dict:
     on the one card, each with its WideBVH (band 0 and band BAND), folded
     through the ring's local steps: the main view's and the overview's hard
     frames (closest8, occluded8), one fit chunk of the main view soft
-    (knear8, k 4 and k_occ 8); the bunny the same through its PackedBVHs
-    in FOLD_PARTS_BUNNY (closest_bin, occluded_bin; knear_bin on its whole
-    frame).  This is where the kernels meet several partitions' trees, their
-    -1 padding slots and zeroed rows included, on the card."""
+    (knear8, k 4 and k_occ 8); then its PackedBVHs through the ring's
+    "packet" engine, the main view's row-major hard frame (packet_closest,
+    packet_occluded; the twins' fold on sampled whole packets).  The bunny
+    the same through its PackedBVHs in FOLD_PARTS_BUNNY, hard and soft on
+    its whole frame, through the "binary" engine (closest_bin,
+    occluded_bin, knear_bin; Morton order) and the "packet" engine
+    (packet_closest, packet_occluded, packet_knear; row-major, as the
+    ring's packet tracer traces it).  This is where the kernels meet several
+    partitions' trees, their -1 padding slots and zeroed rows included, on
+    the card."""
     t0 = time.perf_counter()
     part = partition_scene(scene.tris, FOLD_PARTS)
     hard = build_partition_wides(part, scene.tris)
@@ -2801,14 +2870,30 @@ def dist_fold(scene, cam: Camera, bscene, bcam: Camera) -> dict:
     out = {"main": fold_view("main", scene, frame, rep, hard, chunk, rep_soft, soft),
            "overview": fold_view("overview", scene, morton_rays(over), rep, hard)}
     del hard, soft, rep, rep_soft
+    t0 = t_pk = time.perf_counter()
+    packed = build_partition_bvhs(part)
+    torch.cuda.synchronize()
+    phase("dist_fold", scene="sponza1m", engine="packet", parts=FOLD_PARTS,
+          build_s=f"{time.perf_counter() - t0:.3f}", leaf_rows=[p.num_leaves for p in packed])
+    out["main_packet"] = fold_view("main", scene, gen_primary_rays(cam),
+                                   make_tracer(scene, "packet"), packed, engine="packet",
+                                   sample=True)
+    del packed
+    s_packet = time.perf_counter() - t_pk
     bpart = partition_scene(bscene.tris, FOLD_PARTS_BUNNY)
     phase("dist_fold", scene="bunny", parts=FOLD_PARTS_BUNNY, chunk=bpart.chunk,
           padding_rows=int((bpart.gid < 0).sum()))
+    bhard, bsoft = build_partition_bvhs(bpart), build_partition_bvhs(bpart, band=BAND)
     bframe = morton_rays(bcam)
     out["bunny"] = fold_view(
-        "bunny", bscene, bframe, make_tracer(bscene, "binary"), build_partition_bvhs(bpart),
-        bframe, make_tracer(bscene, "binary", band=BAND),
-        build_partition_bvhs(bpart, band=BAND))
+        "bunny", bscene, bframe, make_tracer(bscene, "binary"), bhard, bframe,
+        make_tracer(bscene, "binary", band=BAND), bsoft, engine="binary")
+    t_pk = time.perf_counter()
+    brow = gen_primary_rays(bcam)
+    out["bunny_packet"] = fold_view(
+        "bunny", bscene, brow, make_tracer(bscene, "packet"), bhard, brow,
+        make_tracer(bscene, "packet", band=BAND), bsoft, engine="packet")
+    phase("dist_fold", engine="packet", seconds=f"{s_packet + time.perf_counter() - t_pk:.1f}")
     return out
 
 
@@ -3015,6 +3100,119 @@ def dist_ring(mesh, scene, cam: Camera) -> dict:
           vs_replicated_max_abs=diff["max_abs"], vs_replicated_off_frac=diff["off_frac"])
     if diff["off_frac"] > IMAGE_OFF_FRAC:
         fail(f"dist_ring: the ring's image differs on {diff['off_frac']} of pixels")
+    out["ratio"] = ratio
+    return out
+
+
+def sampled_twin(kernel: str, tree, rays: Rays, got, t_max=None) -> dict:
+    """A packet kernel's output `got` on `rays` (one call of the wrapper on
+    the whole block) against its twin on SAMPLE_PACKETS whole packets of
+    the block: differing ids, flags and t/u/v bits (must be 0)."""
+    idx = packet_sample(rays.o.shape[0]).to(rays.o.device)
+    sub = Rays(o=rays.o[idx], d=rays.d[idx])
+    t0 = time.perf_counter()
+    if kernel == "packet_closest":
+        ref = kp.traverse_packet_ref(sub, tree)
+        differ = (hit_bits(Hit(**{f: getattr(got, f)[idx] for f in ("t", "u", "v", "tri")}))
+                  != hit_bits(ref)).any(dim=-1)
+    else:
+        ref = kp.occluded_packet_ref(sub, tree, t_max[idx])
+        differ = got[idx] != ref
+    torch.cuda.synchronize()
+    return {f"{kernel}_sampled_rays": int(idx.numel()),
+            f"{kernel}_differing": int(differ.sum()),
+            f"{kernel}_twin_s": round(time.perf_counter() - t0, 3)}
+
+
+def dist_ring_packet(mesh, scene, cam: Camera, wide8_ms: dict) -> dict:
+    """[dist_ring]'s packet row: the 5M sponza at 3840x2160 through
+    make_tracer(method="ring", ring_engine="packet") over the world-1 mesh
+    (the one partition's PackedBVH, walked by the packet kernels) against
+    the replicated make_tracer(method="packet") frame: init seconds split
+    into partition and build, peak bytes, the row-major hard frame (the
+    order render() traces a packet ring in) by CUDA events, split into
+    packet_closest, packet_occluded, the ring functions' own time and glue,
+    rays/s; the images by the image rule; the ring frame's packet_closest
+    and packet_occluded calls against their twins on SAMPLE_PACKETS whole
+    packets of each call (0 differing ids, flags or t/u/v bits).
+    wide8_ms: the wide8 ring's and replicated frames' ms, printed beside."""
+    frame = gen_primary_rays(cam)
+    n = frame.o.shape[0]
+    builds = ("partition_scene", "build_partition_bvhs", "build_lbvh", "pack_bvh",
+              "tri_table")
+    out = {}
+    for name, kw in (("replicated_packet", dict(method="packet")),
+                     ("ring_packet", dict(method="ring", mesh=mesh, ring_engine="packet"))):
+        torch.cuda.empty_cache()
+        base = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        reset_launches()
+        rec = {}
+        with recording(pipeline_mod, builds, rec, timed=True):
+            tracer, s_init = sync_time(lambda: make_tracer(scene, **kw))
+        init_launches = launch_counts()
+        if not tracer.packets:
+            fail(f"dist_ring ({name}): the tracer does not trace in packets")
+        img, s_render = sync_time(lambda: render(scene, cam, tracer=tracer))
+        peak = torch.cuda.max_memory_allocated() - base
+        calls = {}
+        reset_launches()
+        with torch.no_grad(), recording(ring_mod if name == "ring_packet" else pipeline_mod,
+                                        ("traverse_packet", "occluded_packet"), calls):
+            render_rays(tracer, frame)
+        launches = launch_counts()
+        (c_args, _, hit), (o_args, _, blk) = (calls["traverse_packet"][0],
+                                              calls["occluded_packet"][0])
+        with torch.no_grad():
+            ms = {"frame": cuda_ms(lambda: render_rays(tracer, frame), iters=3, warmup=1),
+                  "packet_closest": cuda_ms(lambda: kp.traverse_packet(*c_args), iters=3,
+                                            warmup=1),
+                  "packet_occluded": cuda_ms(lambda: kp.occluded_packet(*o_args), iters=3,
+                                             warmup=1)}
+            if name == "ring_packet":
+                ms["ring_trace"] = cuda_ms(lambda: ring_mod.ring_trace(
+                    mesh, frame, tracer.part, pbvh=tracer.pbvh, engine="packet"),
+                    iters=3, warmup=1)
+                ms["ring_occluded"] = cuda_ms(lambda: ring_mod.ring_occluded(
+                    mesh, o_args[0], tracer.part, o_args[2], pbvh=tracer.pbvh,
+                    engine="packet"), iters=3, warmup=1)
+                ms["ring_own"] = (ms["ring_trace"] - ms["packet_closest"] + ms["ring_occluded"]
+                                  - ms["packet_occluded"])
+                ms["glue"] = ms["frame"] - ms["ring_trace"] - ms["ring_occluded"]
+            else:
+                ms["glue"] = ms["frame"] - ms["packet_closest"] - ms["packet_occluded"]
+        twin = {}
+        if name == "ring_packet":
+            with torch.no_grad():
+                twin.update(sampled_twin("packet_closest", c_args[1], c_args[0], hit))
+                twin.update(sampled_twin("packet_occluded", o_args[1], o_args[0], blk,
+                                         o_args[2]))
+            for k in ("packet_closest", "packet_occluded"):
+                if twin[f"{k}_differing"]:
+                    FAILURES.append(f"dist_ring ({name}): {k} differs from its twin on "
+                                    f"{twin[f'{k}_differing']} sampled rays")
+        s = {k[:-2]: round(v, 3) for k, v in rec.items() if k.endswith("_s")}
+        phase("dist_ring", engine=name, tris=scene.num_tris, rays=n, init_s=f"{s_init:.3f}",
+              init_split_s=json.dumps(s), render_s=f"{s_render:.3f}", peak_bytes=peak,
+              init_launches=json.dumps(init_launches), launches=json.dumps(launches),
+              shadow_rays=o_args[0].o.shape[0], packets=-(-n // kp.PACKET_RAYS), **twin,
+              **{f"{k}_ms": f"{v:.4f}" for k, v in ms.items()},
+              rays_per_s=f"{n / (ms['frame'] * 1e-3):.1f}",
+              hit_frac=f"{float((hit.tri >= 0).float().mean()):.4f}",
+              blocked_frac=f"{float(blk.float().mean()):.4f}")
+        for k in ("packet_closest", "packet_occluded"):
+            if launches[k] != 1:
+                fail(f"dist_ring ({name}): {k} launched {launches[k]} times in a frame")
+        out[name] = dict(img=img, ms=ms, launches=launches, init_launches=init_launches,
+                         peak=peak, init_s=s_init, split=s, twin=twin)
+        del tracer, calls, c_args, o_args, hit, blk
+    diff = image_diff(out["ring_packet"].pop("img"), out["replicated_packet"].pop("img"))
+    ratio = out["ring_packet"]["ms"]["frame"] / out["replicated_packet"]["ms"]["frame"]
+    phase("dist_ring", engine="packet", ring_over_replicated=f"{ratio:.4f}",
+          vs_replicated_max_abs=diff["max_abs"], vs_replicated_off_frac=diff["off_frac"],
+          **{f"{k}_frame_ms": f"{v:.4f}" for k, v in wide8_ms.items()})
+    if diff["off_frac"] > IMAGE_OFF_FRAC:
+        fail(f"dist_ring (packet): the ring's image differs on {diff['off_frac']} of pixels")
     out["ratio"] = ratio
     return out
 
@@ -3774,6 +3972,11 @@ def main() -> None:
     torch.cuda.empty_cache()
     # -- the partitioned ring on the 5M sponza against the replicated frame --
     ring5 = dist_ring(mesh, scene5, cam5)
+    t_ringp = time.perf_counter()
+    ring5p = dist_ring_packet(mesh, scene5, cam5, {
+        "wide8_ring": ring5["ring"]["ms"]["frame"],
+        "wide8_replicated": ring5["replicated"]["ms"]["frame"]})
+    phase("dist_ring", engine="packet", seconds=f"{time.perf_counter() - t_ringp:.1f}")
     del scene5
     torch.cuda.empty_cache()
     t_cli = time.perf_counter()
@@ -3849,7 +4052,16 @@ def main() -> None:
             "ms": round(one["ms"], 4), "plain_ms": round(one["plain_ms"], 4),
             "bound_ms": round(one["bound"]["bound_ms"], 6), "bound_by": one["bound"]["bound_by"],
             "library_ms": None, "device_ms": round(one["device_ms"], 4),
-            "view": f"{view}_{call}", "calls": calls})
+            "view": f"{view}_{call}", "calls": calls,
+            # launches on the ring's packet engine, each read from its run
+            "dist_launches": {cell: counts[name] for cell, counts in {
+                "ring_frame_5m": ring5p["ring_packet"]["launches"],
+                "fold_frame_1m": fold["main_packet"]["launches"],
+                "fold_frame_bunny": fold["bunny_packet"]["launches"],
+                "fold_soft_bunny": fold["bunny_packet"]["soft_launches"]}.items()
+                if counts[name]},
+            **({f"ring_frame_5m_{k}": v for k, v in ring5p["ring_packet"]["twin"].items()
+                if k.startswith(name)} if name != "packet_knear" else {})})
     # segsum: the soft_surface gather of [fit]'s first chunk (K x R rows,
     # 12 of 15 columns) as ms (the three kernels' device ms by bare
     # launches), plain_ms the twin's, library_ms index_add_'s (atomic);

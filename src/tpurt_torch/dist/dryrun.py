@@ -12,8 +12,9 @@ each runs:
   replicated render of the same sponza scene (at most 0.3% of pixels off
   by more than 2e-3, tpurt's rule);
 - one partitioned fit step on the bunny, the partition and this rank's
-  binary tree rebuilt in the step from the current vertices: a finite loss,
-  finite non-zero gradients, vertices moved.
+  packed tree rebuilt in the step from the current vertices, once through
+  the ring's "packet" engine (tpurt's dryrun) and once through "binary":
+  a finite loss, finite non-zero gradients, vertices moved.
 """
 
 from __future__ import annotations
@@ -121,12 +122,13 @@ def partitioned_ring(mesh, device: str, tris: int, width: int, height: int) -> d
     return {"off_frac": off}
 
 
-def partitioned_fit(mesh, device: str) -> dict:
+def partitioned_fit(mesh, device: str, engine: str = "packet") -> dict:
     """One differentiable fit step over the partitioned scene: the soft
-    render through ring_k_nearest, the partition and this rank's binary
-    tree rebuilt in the step from the current vertices (no gradient through
-    the structure), d(loss)/d(verts, albedo) through the replicated table,
-    one Adam step."""
+    render through ring_k_nearest, the partition and this rank's PackedBVH
+    rebuilt in the step from the current vertices (no gradient through the
+    structure) and walked by the ring engine `engine` ("packet", as tpurt's
+    dryrun, or "binary"), d(loss)/d(verts, albedo) through the replicated
+    table, one Adam step."""
     from tpurt_torch.core.geometry import Rays
     from tpurt_torch.core.scene import make_bunny_scene
     from tpurt_torch.dist.scene_partition import build_partition_bvhs, partition_scene
@@ -137,7 +139,7 @@ def partitioned_fit(mesh, device: str) -> dict:
     cam = dataclasses.replace(cam, width=16, height=16)
     band = 0.15
     rkw = dict(soft=True, k_layers=2, sharpness=40.0, band=band, k_occ=4)
-    tracer0 = make_tracer(scene, "ring", band=band, mesh=mesh, ring_engine="binary")
+    tracer0 = make_tracer(scene, "ring", band=band, mesh=mesh, ring_engine=engine)
     rays = gen_primary_rays(cam)
     with torch.no_grad():
         target = render_rays(tracer0, rays, **rkw)
@@ -160,14 +162,16 @@ def partitioned_fit(mesh, device: str) -> dict:
     moved = float((params["verts"].detach() - before).abs().max())
     loss = float(loss.detach())
     if not (math.isfinite(loss) and loss > 0 and 0 < gsum < math.inf and moved > 0):
-        raise RuntimeError(f"partitioned fit: loss {loss}, |grad| {gsum}, moved {moved}")
+        raise RuntimeError(f"partitioned fit ({engine}): loss {loss}, |grad| {gsum}, "
+                           f"moved {moved}")
     return {"loss": loss, "grad_abs_sum": gsum, "moved": moved}
 
 
 def dryrun(mesh, device: str, tris: int, width: int, height: int) -> dict:
     return {"dp_fit": dp_fit_step(mesh, device),
             "ring": partitioned_ring(mesh, device, tris, width, height),
-            "partitioned_fit": partitioned_fit(mesh, device)}
+            "partitioned_fit": {e: partitioned_fit(mesh, device, e)
+                                for e in ("packet", "binary")}}
 
 
 def main(argv=None) -> int:

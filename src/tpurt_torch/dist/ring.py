@@ -11,14 +11,28 @@ the order 0, 1, ..., W - 1.  At world 1 the rotation is the identity and
 no point-to-point op is issued (collectives.ppermute_tree).
 
 The local scene is the brute tuple (v0, v1, v2, gid) of the rank's chunk,
-its PackedBVH (the binary kernels: closest_bin, occluded_bin, knear_bin) or
-its WideBVH (closest8, occluded8, knear8), their ids already global.  The
-closest fold is tpurt's lexicographic (t, gid) one and the k-nearest merge
-its two-key sort of (t, id), the t of each candidate recomputed from the
-replicated (T, 15) table, so the results do not depend on the order in which
-a ray meets the chunks.  The local steps are plain functions
-(closest_step, occluded_step, knear_step): the ring body calls them, and a
-caller can fold several chunks through them on one card.
+its WideBVH or its PackedBVH, their ids already global, and a local engine
+walks it (ENGINES):
+- "brute": the tuple, all pairs;
+- "wide8": the WideBVH, the wide8 kernels (closest8, occluded8, knear8);
+- "packet": the PackedBVH, tpurt's packet engine (kernels/packet.py:
+  packet_closest, packet_occluded, packet_knear).  A local step hands the
+  rank's whole resident block to the wrapper in one call, so packet p is
+  the block's rays [1024 p, 1024 p + 1024), its end zero-padded, as tpurt's
+  packet engine groups the block shard_map gives it; every resident ray is
+  walked at every step, hit or blocked or not.  A ray can be hit through
+  its packet (ROADMAP P1, P3), so the grouping is part of the result;
+- "binary": the PackedBVH, the binary per-ray kernels (closest_bin,
+  occluded_bin, knear_bin), tpurt's "pallas" walk, which tpurt's ring
+  never runs: only a caller that names it gets it.
+Without an engine, the tree picks tpurt's (engine_of): a tuple is brute, a
+WideBVH wide8 and a PackedBVH packet.  The closest fold is tpurt's
+lexicographic (t, gid) one and the k-nearest merge its two-key sort of
+(t, id), the t of each candidate recomputed from the replicated (T, 15)
+table, so the results do not depend on the order in which a ray meets the
+chunks.  The local steps are plain functions (closest_step, occluded_step,
+knear_step): the ring body calls them, and a caller can fold several chunks
+through them on one card.
 """
 
 from __future__ import annotations
@@ -31,14 +45,36 @@ from tpurt_torch.accel.intersect import DEFAULT_T_MIN, DET_EPS, intersect_tri
 from tpurt_torch.core.geometry import T_MAX, Hit, Rays
 from tpurt_torch.core.math import cross, dot
 from tpurt_torch.dist.collectives import all_gather_tree, ppermute_tree, rank_rows
+from tpurt_torch.accel.packet import PackedBVH
 from tpurt_torch.dist.scene_partition import BIG_ID, ScenePartition
+from tpurt_torch.kernels.packet import k_nearest_ids_packet, occluded_packet, traverse_packet
 from tpurt_torch.kernels.traverse import k_nearest_ids_packed, occluded_packed, traverse_packed
 from tpurt_torch.kernels.traverse8 import (
     _lexsort, k_nearest_wide8, occluded_wide8, traverse_wide8)
 
 
+# The local engines, and the tree each walks.
+ENGINES = ("brute", "wide8", "binary", "packet")
+_TREE = {"brute": tuple, "wide8": WideBVH, "binary": PackedBVH, "packet": PackedBVH}
+
+
+def engine_of(scene_local, engine: str | None = None) -> str:
+    """The local engine for scene_local: `engine` when given (checked
+    against the tree), else tpurt's choice from the tree: a tuple is brute,
+    a WideBVH wide8, a PackedBVH packet."""
+    if engine is None:
+        engine = next((e for e in ("brute", "wide8", "packet")
+                       if isinstance(scene_local, _TREE[e])), None)
+    if engine not in ENGINES:
+        raise ValueError(f"engine {engine!r} not in {ENGINES}")
+    if not isinstance(scene_local, _TREE[engine]):
+        raise ValueError(f"engine {engine!r} walks a {_TREE[engine].__name__}, "
+                         f"not a {type(scene_local).__name__}")
+    return engine
+
+
 # ---------------------------------------------------------------------------
-# The local walks: brute tuple, PackedBVH or WideBVH
+# The local walks: brute tuple, WideBVH or PackedBVH
 # ---------------------------------------------------------------------------
 def _local_closest(o, d, v0, v1, v2, gid, t_min):
     """Closest hit of rays (R, 3) against a raw chunk, ties to the lowest
@@ -55,29 +91,32 @@ def _local_closest(o, d, v0, v1, v2, gid, t_min):
             torch.where(ok, gid[j], -1))
 
 
-def _local_closest_any(o, d, scene_local, t_min):
-    if isinstance(scene_local, tuple):
+def _local_closest_any(o, d, scene_local, t_min, engine: str):
+    if engine == "brute":
         return _local_closest(o, d, *scene_local, t_min)
-    walk = traverse_wide8 if isinstance(scene_local, WideBVH) else traverse_packed
+    walk = {"wide8": traverse_wide8, "binary": traverse_packed,
+            "packet": traverse_packet}[engine]
     hit = walk(Rays(o=o, d=d), scene_local, t_min)
     return hit.t, hit.u, hit.v, hit.tri
 
 
-def _local_blocked(o, d, tmax, scene_local, t_min):
-    if isinstance(scene_local, tuple):
+def _local_blocked(o, d, tmax, scene_local, t_min, engine: str):
+    if engine == "brute":
         v0, v1, v2, gid = scene_local
         t, _, _, hit = intersect_tri(o[:, None, :], d[:, None, :], v0[None], v1[None],
                                      v2[None], t_min)
         return (hit & (gid >= 0)[None, :] & (t < tmax[:, None])).any(dim=1)
-    walk = occluded_wide8 if isinstance(scene_local, WideBVH) else occluded_packed
+    walk = {"wide8": occluded_wide8, "binary": occluded_packed,
+            "packet": occluded_packet}[engine]
     return walk(Rays(o=o, d=d), scene_local, tmax, t_min)
 
 
-def _local_k_ids(o, d, tmax, scene_local, k, band, t_min):
+def _local_k_ids(o, d, tmax, scene_local, k, band, t_min, engine: str):
     """The chunk's k nearest band candidates per ray, global ids (R, k), -1
     padded."""
-    if not isinstance(scene_local, tuple):
-        walk = k_nearest_wide8 if isinstance(scene_local, WideBVH) else k_nearest_ids_packed
+    if engine != "brute":
+        walk = {"wide8": k_nearest_wide8, "binary": k_nearest_ids_packed,
+                "packet": k_nearest_ids_packet}[engine]
         return walk(Rays(o=o, d=d), scene_local, k, band, t_min, tmax)
     v0, v1, v2, gid = scene_local
     e1, e2 = v1 - v0, v2 - v0
@@ -122,19 +161,26 @@ def closest_init(n: int, device) -> dict:
             "tri": torch.full((n,), -1, dtype=torch.int32, device=device)}
 
 
-def closest_step(o, d, best: dict, scene_local, t_min: float = DEFAULT_T_MIN) -> dict:
+def closest_step(o, d, best: dict, scene_local, t_min: float = DEFAULT_T_MIN,
+                 engine: str | None = None) -> dict:
     """Fold the chunk's closest hit into `best` (t, u, v, tri): the
-    lexicographic (t, global id) winner."""
-    t, u, v, g = _local_closest_any(o, d, scene_local, t_min)
+    lexicographic (t, global id) winner.  engine: the local engine
+    (ENGINES; None: engine_of the tree), as for occluded_step and
+    knear_step."""
+    engine = engine_of(scene_local, engine)
+    t, u, v, g = _local_closest_any(o, d, scene_local, t_min, engine)
     bt, bg = best["t"], best["tri"]
     better = (t < bt) | ((t == bt) & (g < bg) & (bg >= 0))
     return {"t": torch.where(better, t, bt), "u": torch.where(better, u, best["u"]),
             "v": torch.where(better, v, best["v"]), "tri": torch.where(better, g, bg)}
 
 
-def occluded_step(o, d, tmax, blocked, scene_local, t_min: float = DEFAULT_T_MIN):
-    """blocked | any hit of the chunk in (t_min, tmax)."""
-    return blocked | _local_blocked(o, d, tmax, scene_local, t_min)
+def occluded_step(o, d, tmax, blocked, scene_local, t_min: float = DEFAULT_T_MIN,
+                  engine: str | None = None):
+    """blocked | any hit of the chunk in (t_min, tmax); every ray is walked,
+    blocked already or not."""
+    engine = engine_of(scene_local, engine)
+    return blocked | _local_blocked(o, d, tmax, scene_local, t_min, engine)
 
 
 def knear_init(n: int, k: int, device) -> tuple:
@@ -143,10 +189,13 @@ def knear_init(n: int, k: int, device) -> tuple:
 
 
 def knear_step(o, d, tmax, ts, ids, scene_local, table, k: int, band: float,
-               t_min: float = DEFAULT_T_MIN):
+               t_min: float = DEFAULT_T_MIN, engine: str | None = None):
     """Merge the chunk's k nearest candidates into the sorted (t, id)
-    k-lists (ts, ids; BIG_ID pads): chunks are disjoint, so no dedup."""
-    lids = _local_k_ids(o, d, tmax, scene_local, k, band, t_min)
+    k-lists (ts, ids; BIG_ID pads): chunks are disjoint, so no dedup.  The
+    local lists' -1 pads (the packet engine's empty slots, tpurt's (T_MAX,
+    -1)) become BIG_ID before the merge."""
+    engine = engine_of(scene_local, engine)
+    lids = _local_k_ids(o, d, tmax, scene_local, k, band, t_min, engine)
     lts = _table_t(o, d, lids, table, t_min)
     lids = torch.where(lids >= 0, lids, BIG_ID)
     t2, i2 = _lexsort(torch.cat([ts, lts], dim=1), torch.cat([ids, lids], dim=1))
@@ -176,15 +225,18 @@ def _rotate(mesh: DeviceMesh, state: dict, step) -> dict:
 
 @torch.no_grad()
 def ring_trace(mesh: DeviceMesh, rays: Rays, part: ScenePartition,
-               t_min: float = DEFAULT_T_MIN, pbvh=None) -> Hit:
+               t_min: float = DEFAULT_T_MIN, pbvh=None, engine: str | None = None) -> Hit:
     """Global closest hit (original triangle ids) of the flat rays, whose
     count must divide by the mesh (pad with dist.shard.pad_rays), over the
     partitioned scene; the whole Hit on every rank.  pbvh: this rank's
-    PackedBVH or WideBVH (build_partition_bvhs / _wides), else brute."""
+    WideBVH or PackedBVH (build_partition_wides / _bvhs), else brute.
+    engine: the local engine (ENGINES; None: tpurt's for the tree, so a
+    PackedBVH gets "packet"), as for ring_occluded and ring_k_nearest."""
     o, d, _, scene = _home(mesh, rays, part, pbvh)
+    engine = engine_of(scene, engine)
 
     def step(s):
-        return {**s, **closest_step(s["o"], s["d"], s, scene, t_min)}
+        return {**s, **closest_step(s["o"], s["d"], s, scene, t_min, engine)}
 
     s = _rotate(mesh, {"o": o, "d": d, **closest_init(o.shape[0], o.device)}, step)
     full = all_gather_tree({k: s[k] for k in ("t", "u", "v", "tri")}, mesh)
@@ -193,15 +245,17 @@ def ring_trace(mesh: DeviceMesh, rays: Rays, part: ScenePartition,
 
 @torch.no_grad()
 def ring_occluded(mesh: DeviceMesh, rays: Rays, part: ScenePartition, t_max,
-                  t_min: float = DEFAULT_T_MIN, pbvh=None) -> torch.Tensor:
+                  t_min: float = DEFAULT_T_MIN, pbvh=None,
+                  engine: str | None = None) -> torch.Tensor:
     """Any hit in (t_min, t_max) over every partition -> bool shaped as the
     rays, on every rank.  t_max: a scalar or per ray."""
     tm = torch.as_tensor(t_max, dtype=torch.float32, device=rays.o.device).expand(rays.shape)
     o, d, (tm,), scene = _home(mesh, rays, part, pbvh, tm)
+    engine = engine_of(scene, engine)
 
     def step(s):
         return {**s, "blocked": occluded_step(s["o"], s["d"], s["tm"], s["blocked"], scene,
-                                              t_min)}
+                                              t_min, engine)}
 
     s = _rotate(mesh, {"o": o, "d": d, "tm": tm,
                        "blocked": torch.zeros(o.shape[0], dtype=torch.bool, device=o.device)},
@@ -212,18 +266,19 @@ def ring_occluded(mesh: DeviceMesh, rays: Rays, part: ScenePartition, t_max,
 @torch.no_grad()
 def ring_k_nearest(mesh: DeviceMesh, rays: Rays, part: ScenePartition, table: torch.Tensor,
                    k: int, band: float, t_max=T_MAX, t_min: float = DEFAULT_T_MIN,
-                   pbvh=None) -> torch.Tensor:
+                   pbvh=None, engine: str | None = None) -> torch.Tensor:
     """The k nearest band candidates over the partitioned scene -> (N, k)
     int32 global ids over the flat rays, -1 padded, on every rank: each ray
     carries its sorted (t, id) k-list around the ring.  table: the
     replicated (T, 15) tri_table the candidates' t come from."""
     tm = torch.as_tensor(t_max, dtype=torch.float32, device=rays.o.device).expand(rays.shape)
     o, d, (tm,), scene = _home(mesh, rays, part, pbvh, tm)
+    engine = engine_of(scene, engine)
     ts, ids = knear_init(o.shape[0], k, o.device)
 
     def step(s):
         ts, ids = knear_step(s["o"], s["d"], s["tm"], s["ts"], s["ids"], scene, table, k,
-                             band, t_min)
+                             band, t_min, engine)
         return {**s, "ts": ts, "ids": ids}
 
     s = _rotate(mesh, {"o": o, "d": d, "tm": tm, "ts": ts, "ids": ids}, step)

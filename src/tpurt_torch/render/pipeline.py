@@ -31,9 +31,13 @@ Engines (``Tracer.method``):
   lockstep escape walk of ``"bvh"`` over the same flat tree;
 - ``"ring"``: the scene Morton-partitioned over a DeviceMesh, one chunk a
   rank, the rays rotated around the ranks (dist/ring.py), each chunk walked
-  by the wide8 kernels or the binary ones (``ring_engine``, tpurt's
-  ``"pallas8"`` and ``"packet"``).  Hard and soft; the hits come back to
-  every rank, and the shading reads the replicated table.
+  by ``ring_engine``: ``"wide8"`` (tpurt's ``"pallas8"`` ring, its
+  WideBVH), ``"packet"`` (tpurt's ``"packet"`` ring: the packet kernels
+  over its PackedBVH, each rank's resident block in 1,024-ray packets; its
+  primary rays in row-major order, as for ``"packet"``) or ``"binary"``
+  (the binary per-ray kernels over the same PackedBVH, which tpurt's ring
+  does not offer).  Hard and soft; the hits come back to every rank, and
+  the shading reads the replicated table.
 
 Area lights: with light_samples > 0 and a torch.Generator, each render
 draws light_samples points on the scene's emissive triangles
@@ -86,7 +90,7 @@ from tpurt_torch.render.shade import (
 SHADOW_EPS = 1e-3  # offset shadow-ray origins off the surface
 SHADOW_T_FRAC = 1.0 - 1e-3  # stop shadow rays just before the light
 METHODS = ("brute", "bvh", "binary", "wide8", "packet", "wave", "ring")
-RING_ENGINES = ("wide8", "binary")
+RING_ENGINES = ("wide8", "binary", "packet")
 
 
 def tri_table(tris) -> torch.Tensor:
@@ -104,7 +108,9 @@ class Tracer:
     """Traversal engine bound to a scene.  ``table`` is tri_table of
     ``scene.tris`` and must track it.  The "ring" engine's state: the Morton
     partition ``part``, this rank's own chunk's tree ``pbvh`` (a WideBVH or
-    a PackedBVH) and the DeviceMesh ``mesh`` the rays rotate over."""
+    a PackedBVH), the local engine ``ring_engine`` that walks it (one of
+    RING_ENGINES: "binary" and "packet" both walk a PackedBVH) and the
+    DeviceMesh ``mesh`` the rays rotate over."""
 
     scene: Scene
     bvh: BVH | None = None
@@ -115,6 +121,14 @@ class Tracer:
     part: ScenePartition | None = None
     pbvh: WideBVH | PackedBVH | None = None
     mesh: DeviceMesh | None = None
+    ring_engine: str | None = None
+
+    @property
+    def packets(self) -> bool:
+        """Whether the closest-hit walk runs tpurt's packet engine, whose
+        results depend on which rays share a 1,024-ray packet."""
+        return self.method == "packet" or (self.method == "ring"
+                                           and self.ring_engine == "packet")
 
     def _ring_pad(self, rays: Rays, *extra):
         """Flat rays (and per-ray tensors) padded to a multiple of the mesh
@@ -135,7 +149,8 @@ class Tracer:
         other engines (the hard render then reads the table)."""
         if self.method == "ring":
             flat, n, _ = self._ring_pad(rays)
-            hit = ring_trace(self.mesh, flat, self.part, pbvh=self.pbvh)
+            hit = ring_trace(self.mesh, flat, self.part, pbvh=self.pbvh,
+                             engine=self.ring_engine)
             return Hit(**{f: getattr(hit, f)[:n].reshape(rays.shape)
                           for f in ("t", "u", "v", "tri")}), None
         if self.method == "wide8":
@@ -164,8 +179,8 @@ class Tracer:
             occ = wave_occluded(rays, self.scene.tris, self.bvh, t_max)
         elif self.method == "ring":
             flat, n, (tm,) = self._ring_pad(rays, t_max)
-            occ = ring_occluded(self.mesh, flat, self.part, tm,
-                                pbvh=self.pbvh)[:n].reshape(rays.shape)
+            occ = ring_occluded(self.mesh, flat, self.part, tm, pbvh=self.pbvh,
+                                engine=self.ring_engine)[:n].reshape(rays.shape)
         else:
             occ = occluded_wide8(rays, self.wide, t_max)
         return 1.0 - occ.to(torch.float32)
@@ -188,7 +203,7 @@ class Tracer:
         elif self.method == "ring":
             flat, n, _ = self._ring_pad(rays)
             ids = ring_k_nearest(self.mesh, flat, self.part, self.table, k, band,
-                                 pbvh=self.pbvh)[:n]
+                                 pbvh=self.pbvh, engine=self.ring_engine)[:n]
         else:
             ids = k_nearest_wide8(rays, self.wide, k, band, t_max=T_MAX)
         z = torch.zeros(ids.shape, dtype=torch.float32, device=ids.device)
@@ -219,7 +234,8 @@ class Tracer:
         if self.method == "ring":
             flat, n, (tm,) = self._ring_pad(flat, tm)
             return ring_k_nearest(self.mesh, flat, self.part, self.table, k_occ, band,
-                                  t_max=2.0 * tm, pbvh=self.pbvh)[:n]
+                                  t_max=2.0 * tm, pbvh=self.pbvh,
+                                  engine=self.ring_engine)[:n]
         return k_nearest_wide8(flat, self.wide, k_occ, band, t_max=2.0 * tm)
 
 
@@ -230,9 +246,12 @@ def make_tracer(scene: Scene, method: str = "brute", band: float = 0.0,
     inflated by `band`, which the soft path needs so near-miss band hits are
     not culled); for "binary" and "packet" its packed layout, with rows for
     the static bound max_cut_leaves as tpurt packs it; for "wide8" its
-    8-wide collapse ("bvh" and "wave" walk the LBVH's flat tree).  "ring" (needs `mesh`, a DeviceMesh): the scene
-    Morton-partitioned into one chunk a rank, and this rank's chunk's tree
-    for `ring_engine` ("wide8": a WideBVH; "binary": a PackedBVH)."""
+    8-wide collapse ("bvh" and "wave" walk the LBVH's flat tree).  "ring"
+    (needs `mesh`, a DeviceMesh): the scene Morton-partitioned into one
+    chunk a rank, and this rank's chunk's tree for `ring_engine` ("wide8":
+    a WideBVH; "packet", tpurt's other ring engine, and "binary": a
+    PackedBVH built as build_partition_bvhs builds it), which the Tracer
+    records, so that every ring call walks the tree with that engine."""
     if method not in METHODS:
         raise ValueError(f"method {method!r} not in {METHODS}")
     table = tri_table(scene.tris)
@@ -248,7 +267,7 @@ def make_tracer(scene: Scene, method: str = "brute", band: float = 0.0,
                     if ring_engine == "wide8" else
                     build_partition_bvhs(part, leaf_size=leaf_size, band=band, index=rank))
         return Tracer(scene=scene, method=method, table=table, part=part, pbvh=pbvh,
-                      mesh=mesh)
+                      mesh=mesh, ring_engine=ring_engine)
     if method == "brute":
         return Tracer(scene=scene, method=method, table=table)
     packed = wide = None
@@ -502,16 +521,18 @@ def render_image(tracer: Tracer, cam: Camera, spp: int = 1,
 
     Primary rays are traced in Morton pixel order (neighbouring rays on
     neighbouring pixels) and the image is put back in row-major order; the
-    per-ray engines give the same pixels in any order.  The "packet"
-    engine's rays stay in row-major order, tpurt's: its packets are runs of
-    1,024 consecutive rays, and which rays share one is part of its
-    result.  With spp > 1 and a
+    per-ray engines give the same pixels in any order.  The packet
+    engine's rays stay in row-major order, tpurt's (``"packet"``, and
+    ``"ring"`` with ring_engine ``"packet"``; Tracer.packets): its packets
+    are runs of 1,024 consecutive rays, and which rays share one is part of
+    its result.  The shadow rays and the soft render's occluder queries
+    follow from the primary rays' order, light-major, as tpurt's do.  With spp > 1 and a
     generator, the mean of spp samples, each with its own sub-pixel jitter
     from sample_square(generator); otherwise one sample at pixel centres,
     as tpurt's render does without a key.  The generator also draws each
     sample's emitter points when kw asks for light_samples."""
     run = trace or functools.partial(render_rays, tracer)
-    if tracer.method == "packet":
+    if tracer.packets:
         perm = inv = slice(None)
     else:
         perm, inv = (torch.as_tensor(x, device=cam.eye.device)

@@ -5,6 +5,7 @@ only, because every spawned rank imports it by name."""
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 
 import torch
@@ -20,8 +21,22 @@ from tpurt_torch.dist.runtime import gather_film, is_coordinator
 from tpurt_torch.dist.scene_partition import (
     alltoall_trace, build_partition_bvhs, build_partition_wides, partition_scene)
 from tpurt_torch.dist.shard import shard_render, shard_render_rays
+from tpurt_torch.render import pipeline
 from tpurt_torch.render.camera import gen_primary_rays
 from tpurt_torch.render.pipeline import make_tracer, render, render_rays, tri_table
+
+
+@contextlib.contextmanager
+def one_thread():
+    """torch's intra-op threads set to 1 for the duration: the packet
+    engine's twins are lockstep small-op loops, which other processes'
+    threads slow down many times over."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    try:
+        yield
+    finally:
+        torch.set_num_threads(n)
 
 
 def _tris(t: dict) -> Triangles:
@@ -36,26 +51,64 @@ def _hit(h) -> dict:
     return {"t": h.t, "u": h.u, "v": h.v, "tri": h.tri}
 
 
-def ring_cases(mesh, tris: dict, o, d, tmax, k: int, band: float) -> dict:
+def ring_cases(mesh, tris: dict, o, d, tmax, k: int, band: float,
+               engines=("brute", "wide8", "binary")) -> dict:
     """ring_trace, ring_occluded and ring_k_nearest through each local
-    engine (brute tuple, this rank's WideBVH, its PackedBVH): band-0 trees
-    for the first two, band trees for the k-nearest."""
+    engine named (the brute tuple; this rank's WideBVH for "wide8"; its
+    PackedBVH for "binary" and "packet"), each engine passed by name:
+    band-0 trees for the first two, band trees for the k-nearest."""
     scene_tris, rays = _tris(tris), _rays(o, d)
     tm = torch.from_numpy(tmax)
     part = partition_scene(scene_tris, mesh.size())
     r = mesh.get_local_rank()
     table = tri_table(scene_tris)
-    trees = {"brute": (None, None),
-             "wide8": (build_partition_wides(part, scene_tris, index=r),
-                       build_partition_wides(part, scene_tris, band=band, index=r)),
-             "binary": (build_partition_bvhs(part, index=r),
-                        build_partition_bvhs(part, band=band, index=r))}
+
+    def trees(engine):
+        if engine == "brute":
+            return None, None
+        if engine == "wide8":
+            return (build_partition_wides(part, scene_tris, index=r),
+                    build_partition_wides(part, scene_tris, band=band, index=r))
+        return build_partition_bvhs(part, index=r), build_partition_bvhs(part, band=band, index=r)
+
     out = {}
-    for name, (hard, soft) in trees.items():
-        out[name] = {"trace": _hit(ring_trace(mesh, rays, part, pbvh=hard)),
-                     "occluded": ring_occluded(mesh, rays, part, tm, pbvh=hard),
-                     "knear": ring_k_nearest(mesh, rays, part, table, k, band, pbvh=soft)}
+    for name in engines:
+        hard, soft = trees(name)
+        out[name] = {"trace": _hit(ring_trace(mesh, rays, part, pbvh=hard, engine=name)),
+                     "occluded": ring_occluded(mesh, rays, part, tm, pbvh=hard, engine=name),
+                     "knear": ring_k_nearest(mesh, rays, part, table, k, band, pbvh=soft,
+                                             engine=name)}
     return out
+
+
+def packet_ring_render_cases(mesh, scene: dict, cam: dict) -> dict:
+    """render() through make_tracer(method="ring", ring_engine="packet"),
+    hard, with the rays each ring call receives: ring_trace's (the primary
+    rays) and ring_occluded's (the shadow rays)."""
+    sc, cm = scene_from_numpy(**scene, device="cpu"), camera_from_numpy(**cam, device="cpu")
+    tracer = make_tracer(sc, "ring", mesh=mesh, ring_engine="packet")
+    seen = {}
+
+    def recorded(name, fn):
+        def run(mesh_, rays, *a, **kw):
+            out = fn(mesh_, rays, *a, **kw)
+            seen[name] = {"o": rays.o.clone(), "d": rays.d.clone(),
+                          "engine": kw.get("engine"),
+                          "hit": out.tri >= 0 if name == "trace" else out}
+            return out
+        return run
+
+    saved = pipeline.ring_trace, pipeline.ring_occluded
+    pipeline.ring_trace = recorded("trace", saved[0])
+    pipeline.ring_occluded = recorded("occluded", saved[1])
+    try:
+        with one_thread():
+            img = render(sc, cm, tracer=tracer)
+    finally:
+        pipeline.ring_trace, pipeline.ring_occluded = saved
+    prim = gen_primary_rays(cm)
+    return {"img": img, "seen": seen, "ring_engine": tracer.ring_engine,
+            "primary": {"o": prim.o.reshape(-1, 3), "d": prim.d.reshape(-1, 3)}}
 
 
 def alltoall_cases(mesh, tris: dict, o, d) -> dict:

@@ -1,5 +1,6 @@
 """The dist paths at world 4: test_torch_dist_ring.py's ring and
-alltoall cases against tpurt's ring on make_mesh(jax.devices()[:4]), and
+alltoall cases against tpurt's ring on make_mesh(jax.devices()[:4]) (the
+packet ring on its groups input, 1 packet a rank here), and
 Renderer(mesh=...) in spawned gloo ranks against the port's render in this
 process: the replicated render (rays sharded) bitwise, the ring by tpurt's
 image rule (tests/dist/test_api_partition.py: at most 0.3% of pixels off by
@@ -12,9 +13,10 @@ import pytest
 from tests.dist_ranks import alltoall_cases, np_tree, renderer_cases, ring_cases
 from tests.test_torch_dist_partition import np_cam, np_scene, np_tris
 from tests.test_torch_dist_ring import (  # noqa: F401  (collected here at world 4)
-    BAND, K, SPAWN_TIMEOUT, inputs, test_alltoall_overflow_left_unresolved,
-    test_alltoall_trace_resolved_rays, test_ring_k_nearest, test_ring_occluded,
-    test_ring_trace, tpurt_ring)
+    BAND, K, SPAWN_TIMEOUT, group_cases, groups, inputs,
+    test_alltoall_overflow_left_unresolved, test_alltoall_trace_resolved_rays,
+    test_p10_binary_ring_misses_p1_rays_packet_ring_does_not, test_ring_k_nearest,
+    test_ring_occluded, test_ring_trace, tpurt_ring)
 from tpurt.core.scene import make_bunny_scene as j_make_bunny_scene
 from tpurt.core.scene import make_cornell_box as j_make_cornell_box
 
@@ -40,17 +42,19 @@ def scenes():
             np_scene(cs), np_cam(cc.replace(width=12, height=12)))
 
 
-def _cases(mesh, tris, o, d, tmax, scenes):
+def _cases(mesh, tris, o, d, tmax, group_input, scenes):
     return {"ring": ring_cases(mesh, tris, o, d, tmax, K, BAND),
+            "groups": group_cases(mesh, group_input),
             "alltoall": alltoall_cases(mesh, tris, o, d),
             "renderer": renderer_cases(mesh, *scenes, SOFT)}
 
 
 @pytest.fixture(scope="module")
-def port(world, inputs, scenes):
+def port(world, inputs, groups, scenes):
     jt, o, d, tmax = inputs
-    out = run_ranks(_cases, world, np_tris(jt), o, d, tmax, scenes, device="cpu",
-                    timeout=SPAWN_TIMEOUT)
+    gt, go, gd, gtmax, _ = groups
+    out = run_ranks(_cases, world, np_tris(jt), o, d, tmax, (np_tris(gt), go, gd, gtmax),
+                    scenes, device="cpu", timeout=SPAWN_TIMEOUT)
     return [np_tree(x) for x in out]
 
 

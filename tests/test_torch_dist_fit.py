@@ -12,7 +12,8 @@ gloo ranks), against the port in this process; and the dry run.
 - init_distributed through a file:// rendezvous, is_coordinator,
   psum_tree, pmean_tree, all_gather_tree, ppermute_tree and gather_film
   (tpurt's tests/dist/test_multihost.py).
-- python -m tpurt_torch.dist.dryrun at 2 ranks.
+- python -m tpurt_torch.dist.dryrun at 2 ranks (its partitioned fit step
+  through the ring's "packet" and "binary" engines).
 """
 
 import dataclasses
@@ -155,4 +156,6 @@ def test_dryrun_two_ranks():
     out = dryrun.run_ranks(dryrun.dryrun, 2, "cpu", 20_000, 32, 16, device="cpu",
                            timeout=SPAWN_TIMEOUT)
     assert len(out) == 2 and out[0] == out[1]
-    assert out[0]["ring"]["off_frac"] <= 0.003 and out[0]["partitioned_fit"]["moved"] > 0
+    assert out[0]["ring"]["off_frac"] <= 0.003
+    fits = out[0]["partitioned_fit"]
+    assert set(fits) == {"packet", "binary"} and all(f["moved"] > 0 for f in fits.values())

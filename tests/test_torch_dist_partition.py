@@ -20,6 +20,7 @@ import pytest
 import torch
 import torch.distributed as dist
 
+from tests.dist_ranks import one_thread
 from tpurt.core.geometry import Triangles as JTriangles
 from tpurt.core.scene import make_bunny_scene as j_make_bunny_scene
 from tpurt.dist import scene_partition as jsp
@@ -256,12 +257,13 @@ def test_world_1_renderer_and_fit_take_the_mesh(mesh1):
     assert torch.equal(fits[0].params["verts"], fits[1].params["verts"])
 
 
-@pytest.mark.parametrize("engine", ["wide8", "binary"])
+@pytest.mark.parametrize("engine", ["wide8", "binary", "packet"])
 def test_fold_over_a_padded_partition_matches_brute(bunny, engine):
     """The ring's local steps (closest, any hit, k nearest) over 4
     partitions of bunny-2K (1,986 triangles) in rank 0's order, through the
-    kernels' twins: the last partition holds 2 padding rows, so a leaf
-    holds -1 slots and zero rows.  Closest ids and blocked flags equal the same fold over the
+    kernels' twins of the engine named to each step ("binary" and "packet"
+    walk the same PackedBVHs; 960 rays, one packet): the last partition
+    holds 2 padding rows, so a leaf holds -1 slots and zero rows.  Closest ids and blocked flags equal the same fold over the
     brute tuples bitwise; no k-list holds a padding id, and each is sorted
     by (t, id); t within 1e-4."""
     from tpurt_torch.dist import ring
@@ -280,15 +282,16 @@ def test_fold_over_a_padded_partition_matches_brute(bunny, engine):
     assert (hard[-1].row_tids if engine == "wide8" else hard[-1].tri_ids).min() == -1
     brute = [part.local(p) for p in range(4)]
 
-    def fold(trees):
+    def fold(trees, eng):
         best = ring.closest_init(960, "cpu")
         blocked = torch.zeros(960, dtype=torch.bool)
         for t in trees:
-            best = ring.closest_step(o, d, best, t)
-            blocked = ring.occluded_step(o, d, tmax, blocked, t)
+            best = ring.closest_step(o, d, best, t, engine=eng)
+            blocked = ring.occluded_step(o, d, tmax, blocked, t, engine=eng)
         return best, blocked
 
-    (got, got_blk), (ref, ref_blk) = fold(hard), fold(brute)
+    with one_thread():  # the packet twins' lockstep loops
+        (got, got_blk), (ref, ref_blk) = fold(hard, engine), fold(brute, "brute")
     assert torch.equal(got["tri"], ref["tri"]) and (ref["tri"] >= 0).sum() > 100
     # the walks' Möller–Trumbore reads (v0, e1, e2) rows and sums in the
     # kernels' order, brute force in its own: t within the ring tests' 1e-4
@@ -296,8 +299,10 @@ def test_fold_over_a_padded_partition_matches_brute(bunny, engine):
     assert torch.equal(got_blk, ref_blk) and 0 < int(ref_blk.sum()) < 960
     table = tri_table(tt)
     ts, ids = ring.knear_init(960, 4, "cpu")
-    for t in soft:
-        ts, ids = ring.knear_step(o, d, torch.full((960,), 1e30), ts, ids, t, table, 4, 0.08)
+    with one_thread():
+        for t in soft:
+            ts, ids = ring.knear_step(o, d, torch.full((960,), 1e30), ts, ids, t, table, 4,
+                                      0.08, engine=engine)
     valid = ids != tsp.BIG_ID
     assert valid[:, 0].sum() > 100 and (ids[valid] >= 0).all()
     assert (ts[:, 1:] >= ts[:, :-1]).all()

@@ -76,6 +76,7 @@ from tpurt_torch.api.inverse import InverseRenderer
 from tpurt_torch.core.convert import camera_from_numpy, scene_from_numpy
 from tpurt_torch.core.geometry import T_MAX, Rays, Triangles
 from tpurt_torch.core.scene import make_bunny_scene
+from tpurt_torch.dist import ring as ring_mod
 from tpurt_torch.kernels import packet as kp
 from tpurt_torch.kernels import traverse as kb
 from tpurt_torch.render.pipeline import render
@@ -434,9 +435,34 @@ def test_every_launch_is_made_on_its_tensors_card():
     assert not any(isinstance(n, ast.Try) for n in ast.walk(tree))
 
 
+def test_the_rings_packet_route_reaches_only_the_wrappers():
+    """dist/ring.py's packet engine calls the three wrappers, which launch
+    their kernels on a CUDA tensor (above), and no twin: neither a packet
+    twin nor any other *_ref walk is named there, nothing launches a
+    kernel outside a wrapper, and no try swallows a failed launch.  A
+    PackedBVH gets "packet" unless "binary" is named; an engine that does
+    not walk the tree is refused."""
+    path = pathlib.Path(ring_mod.__file__)
+    tree = ast.parse(path.read_text())
+    names = {n.id for n in ast.walk(tree) if isinstance(n, ast.Name)}
+    names |= {n.attr for n in ast.walk(tree) if isinstance(n, ast.Attribute)}
+    assert {"traverse_packet", "occluded_packet", "k_nearest_ids_packet"} <= names
+    assert not {n for n in names if n.endswith("_ref") or n.startswith("tpurt_")}
+    assert launches_outside_on_device(path) == []
+    assert not any(isinstance(n, ast.Try) for n in ast.walk(tree))
+    packed = _case("cornell64")["packed"]
+    assert ring_mod.engine_of(packed) == "packet"
+    assert ring_mod.engine_of(packed, "binary") == "binary"
+    for engine in ("wide8", "brute", "pallas"):
+        with pytest.raises(ValueError):
+            ring_mod.engine_of(packed, engine)
+
+
 def test_a_tensor_off_the_cpu_never_reaches_a_twin(monkeypatch):
     """A meta tensor (neither CPU nor CUDA) is refused before any twin or
-    kernel runs; k outside [1, KMAX] is refused."""
+    kernel runs, through the wrappers and through the ring's local steps
+    over a PackedBVH (engine "packet", named or by default); k outside
+    [1, KMAX] is refused."""
     case = _case("cornell64")
     for name in ("traverse_packet_ref", "occluded_packet_ref", "k_nearest_ids_packet_ref"):
         monkeypatch.setattr(kp, name, lambda *a, **kw: pytest.fail("a twin ran"))
@@ -445,9 +471,20 @@ def test_a_tensor_off_the_cpu_never_reaches_a_twin(monkeypatch):
     on_meta = dataclasses.replace(pk, **{f: getattr(pk, f).to("meta") for f in (
         "node_f32", "node_i32", "tri_rows", "tri_ids")})
     kp.reset_launches()
-    for call in (lambda: kp.traverse_packet(meta, on_meta),
+    o, d = meta.o, meta.d
+    tm = torch.ones(4, device="meta")
+    ring_calls = [
+        call for engine in (None, "packet") for call in (
+            lambda e=engine: ring_mod.closest_step(o, d, ring_mod.closest_init(4, "meta"),
+                                                   on_meta, engine=e),
+            lambda e=engine: ring_mod.occluded_step(
+                o, d, tm, torch.zeros(4, dtype=torch.bool, device="meta"), on_meta, engine=e),
+            lambda e=engine: ring_mod.knear_step(o, d, tm, *ring_mod.knear_init(4, 4, "meta"),
+                                                 on_meta, torch.zeros(1, 15, device="meta"),
+                                                 4, BAND, engine=e))]
+    for call in [lambda: kp.traverse_packet(meta, on_meta),
                  lambda: kp.occluded_packet(meta, on_meta, 1.0),
-                 lambda: kp.k_nearest_ids_packet(meta, on_meta, 4, BAND)):
+                 lambda: kp.k_nearest_ids_packet(meta, on_meta, 4, BAND)] + ring_calls:
         with pytest.raises(ValueError):
             call()
     assert kp.LAUNCHES == dict.fromkeys(kp.LAUNCHES, 0)
