@@ -7,6 +7,11 @@ Renderer, area lights (hard and soft), the distributed paths (dist/, at
 world 1 on NCCL), the CLI and the benchmark.
 
     python3 chip_smoke.py [--parent DIR] [--parent NAME=DIR ...]
+    python3 chip_smoke.py --packet-ab --parent DIR [--parent NAME=DIR ...]
+
+--packet-ab runs [device], [build] and then only [walk_ab]'s packet cells
+(below), with the shadow rays from this build's hits, and prints no result
+line: the quick A/B of the packet kernels against other trees.
 
 Phases, one line each (any failure exits non-zero and prints no result):
   device   torch.cuda must be available; the card's name and power limit.
@@ -47,9 +52,13 @@ Phases, one line each (any failure exits non-zero and prints no result):
   walk_ab  the walk kernels against each other tree's (--parent): closest8
            and occluded8 on both views' frames and shadow rays; later
            closest_bin and occluded_bin on the 1M main view, the overview's
-           first rays and the bunny.  Ids or flags equal (a differing flag
-           fails the script at its end, a differing closest_bin id unless
-           ROADMAP P6 explains it), t, u, v and shading lanes bitwise, then
+           first rays and the bunny; in [packet], packet_closest on the 1M
+           main view's and overview's row-major frames and the bunny 512^2,
+           packet_occluded on their shadow rays, each held bitwise (any ray
+           whose id, flag or t/u/v bits differ fails).  Ids or flags equal
+           (a differing flag fails the script at its end, a differing
+           closest_bin id unless ROADMAP P6 explains it), t, u, v and
+           shading lanes bitwise, then
            in turns other, new, new, other the call's ms (CUDA events) and
            the kernel's device ms (bare launches); without other trees, this
            build's alone.
@@ -220,7 +229,7 @@ engine (method="wave"):
            ray (any differing id, flag, list entry or t/u/v bit fails the
            script at its end), the wrapper's ms (CUDA events), the kernel's
            device ms (bare launches), the twin's ms and the bound from its
-           packet walk counts.
+           packet walk counts.  With --parent, [walk_ab]'s packet cells.
   packet_frame
            each hard frame's ms by CUDA events split into closest, occluded
            and glue, rays/s, beside this run's wide8 and binary frames; the
@@ -398,10 +407,16 @@ IMAGE_OFF_FRAC = 1.0 - IMAGE_MIN_FRAC
 # in another order and CUDA's exp, sqrt and division round differently, so
 # they agree to this fraction of the largest gradient.
 GRAD_DEVICE_RTOL = 1e-4
-# The card's peak rates (NVIDIA's H100 SXM data sheet, 700 W): f32 outside
-# the tensor cores and HBM bandwidth.  A bound is the larger of bytes over
-# the rate and operations over the peak.
-PEAK_F32_FLOPS, PEAK_BYTES_S = 67e12, 3.35e12
+# The card's peak rates at 700 W: HBM bandwidth (NVIDIA's H100 SXM data
+# sheet) and f32 instructions outside the tensor cores: 128 f32 add,
+# multiply or multiply-add results a clock on each of 132 SMs at 1.98 GHz
+# (NVIDIA's CUDA C++ Programming Guide, arithmetic instruction throughput,
+# compute capability 9.0).  The data sheet's 67 TFLOP/s counts an FMA as two
+# operations; the walk counts below are instructions, and the kernels are
+# built with -fmad=false, so nothing fuses and an instruction is one
+# operation.  A bound is the larger of bytes over the rate and operations
+# over the peak.
+PEAK_F32_OPS, PEAK_BYTES_S = 128 * 132 * 1.98e9, 3.35e12
 # Operations per test, read off traverse8.cu: a child slab test is 6 mul,
 # 6 sub, 6 min/max per axis pair, 3 max, 3 min and a compare; a
 # Möller–Trumbore test is 47 adds, multiplies and one division.
@@ -457,6 +472,8 @@ KERNEL_NAMES = ("closest8_kernel", "occluded8_kernel", "knear8_kernel",
                 "segsum_carry_pass", "segsum_ends_kernel", "packet_closest_kernel",
                 "packet_occluded_kernel", "packet_knear_kernel")
 WALK_KERNELS = ("closest8", "occluded8", "knear8", "closest_bin", "occluded_bin", "knear_bin")
+# The packet engine's hard-frame kernels, which [walk_ab] also times.
+PACKET_WALKS = ("packet_closest", "packet_occluded")
 # The redesigned kernels, which [build] fails on if ptxas reports a spill.
 NO_SPILL = ("knear8", "knear_bin", "closest8", "closest_bin", "occluded8", "occluded_bin",
             "radix", "morton", "segsum", "packet")
@@ -778,7 +795,7 @@ def bound(counts: dict, n_rays: int, in_bytes: int, out_bytes: int,
     """The least time the card could take for a walk kernel's work on this
     run's data: the larger of its bytes over PEAK_BYTES_S (each ray's inputs
     read and outputs written once, each distinct node and leaf row the walks
-    touch read once) and its operations over PEAK_F32_FLOPS (layout's slab
+    touch read once) and its operations over PEAK_F32_OPS (layout's slab
     tests per node visit and Möller–Trumbore tests per counted row), from the
     twin's walk counts (the twins walk in the kernels' order)."""
     nbytes = (n_rays * (in_bytes + out_bytes)
@@ -786,7 +803,7 @@ def bound(counts: dict, n_rays: int, in_bytes: int, out_bytes: int,
               + layout["row_bytes"] * counts["distinct_rows"])
     ops = (layout["slabs"] * SLAB_OPS * counts["visits"]
            + layout["row_tests"] * MT_OPS * counts["rows"])
-    t_bytes, t_ops = nbytes / PEAK_BYTES_S * 1e3, ops / PEAK_F32_FLOPS * 1e3
+    t_bytes, t_ops = nbytes / PEAK_BYTES_S * 1e3, ops / PEAK_F32_OPS * 1e3
     return dict(counts, bytes=nbytes, ops=ops, bound_ms=max(t_bytes, t_ops),
                 bound_by="bytes" if t_bytes >= t_ops else "operations")
 
@@ -956,16 +973,20 @@ def bind_tree(root: str, path: str) -> ctypes.CDLL:
     with its walk entry points bound for bare launches by the tree's own
     interface: each with a ray counter before the stream where its source
     takes one (persistent warps), none where it does not (one thread a ray,
-    as in earlier commits or variants)."""
+    as in earlier commits or variants); a packet walk also with the node
+    count before it where its source takes one."""
     csrc = tree_csrc("tree", root)
     lib = ctypes.CDLL(path)
-    lib.counter = {}
-    for kernel in WALK_KERNELS:
-        src = "traverse.cu" if kernel.endswith("_bin") else "traverse8.cu"
+    lib.counter, lib.nodes = {}, {}
+    for kernel in WALK_KERNELS + PACKET_WALKS:
+        src = ("traverse.cu" if kernel.endswith("_bin") else
+               "packet.cu" if kernel.startswith("packet") else "traverse8.cu")
         with open(os.path.join(csrc, src)) as f:
             text = f.read()
         fn = f"tpurt_{kernel}"
-        lib.counter[fn] = "int* next" in text[text.index(f"int {fn}("):].split("{", 1)[0]
+        sig = text[text.index(f"int {fn}("):].split("{", 1)[0]
+        lib.counter[fn] = "int* next" in sig
+        lib.nodes[fn] = "int num_nodes" in sig
     ptr, i32, f32 = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
     # each entry point's arguments up to its outputs, the outputs' count
     head = {"knear8": ([ptr] * 5 + [i32, i32, f32, i32, f32, f32], 1),
@@ -973,10 +994,13 @@ def bind_tree(root: str, path: str) -> ctypes.CDLL:
             "closest8": ([ptr] * 4 + [i32, i32, f32], 7),
             "occluded8": ([ptr] * 5 + [i32, i32, f32], 1),
             "closest_bin": ([ptr] * 6 + [i32, f32], 4),
-            "occluded_bin": ([ptr] * 7 + [i32, f32], 1)}
+            "occluded_bin": ([ptr] * 7 + [i32, f32], 1),
+            "packet_closest": ([ptr] * 6 + [i32, f32], 4),
+            "packet_occluded": ([ptr] * 7 + [i32, f32], 1)}
     for kernel, (args, outs) in head.items():
         fn = getattr(lib, f"tpurt_{kernel}")
-        fn.argtypes = args + [ptr] * (outs + lib.counter[f"tpurt_{kernel}"] + 1)
+        fn.argtypes = (args + [ptr] * outs + [i32] * lib.nodes[f"tpurt_{kernel}"]
+                       + [ptr] * (lib.counter[f"tpurt_{kernel}"] + 1))
         fn.restype = i32
     lib.tpurt_morton.argtypes = [ptr, ptr, ptr, f32, i32, ptr, ptr]
     lib.tpurt_radix.argtypes = [ptr, i32] + [ptr] * 6
@@ -997,7 +1021,7 @@ def parent_library(name: str, root: str, path: str) -> ctypes.CDLL:
     ptxas report."""
     lib = bind_tree(root, path)
     report = {k: v for k, v in ptxas_report(path[:-3] + ".log").items()
-              if k.startswith(WALK_KERNELS + ("radix",))}
+              if k.startswith(WALK_KERNELS + PACKET_WALKS + ("radix",))}
     phase("tree", tree=name, root=root, lib=os.path.relpath(path, HERE),
           counter=json.dumps(lib.counter), ptxas=json.dumps(report, separators=(",", ":")))
     return lib
@@ -1006,7 +1030,8 @@ def parent_library(name: str, root: str, path: str) -> ctypes.CDLL:
 def walk_launch(lib: ctypes.CDLL, kernel: str, tree, rays: Rays, t_max=None,
                 k: int | None = None):
     """lib's walk kernel (closest8, occluded8, knear8 over a WideBVH;
-    closest_bin, occluded_bin, knear_bin over a PackedBVH) on `rays` (t_max:
+    closest_bin, occluded_bin, knear_bin, packet_closest, packet_occluded
+    over a PackedBVH) on `rays` (t_max:
     the any-hit and k-nearest kernels' window, k: the k-nearest list
     length), its arguments and outputs made as the wrappers make them:
     (launch, out), where launch(counter) enqueues the kernel on the current
@@ -1020,18 +1045,21 @@ def walk_launch(lib: ctypes.CDLL, kernel: str, tree, rays: Rays, t_max=None,
     o, d = rays.o.reshape(-1, 3), rays.d.reshape(-1, 3)
     n, dev = o.shape[0], o.device
     wide = isinstance(tree, WideBVH)
+    tm = None
     head = ((ptr(tree.wrow), ptr(tree.tri_rows)) if wide else
             (ptr(tree.node_f32), ptr(tree.node_i32), ptr(tree.tri_rows), ptr(tree.tri_ids)))
     rows = (tree.max_rows,) if wide else ()
     t_min = ctypes.c_float(DEFAULT_T_MIN)
-    if kernel.startswith("closest"):
+    fn = getattr(lib, f"tpurt_{kernel}")
+    nodes = (tree.num_nodes,) if lib.nodes.get(f"tpurt_{kernel}") else ()
+    if "closest" in kernel:
         f32 = dict(dtype=torch.float32, device=dev)
         t, u, v = (torch.empty(n, **f32) for _ in range(3))
         tri = torch.empty(n, dtype=torch.int32, device=dev)
         sh = [torch.empty((n, 3), **f32) for _ in range(3)] if wide else []
         out = (tri, t, u, v, *sh)
         args = (*head, ptr(o), ptr(d), n, *rows, t_min, ptr(t), ptr(u), ptr(v), ptr(tri),
-                *(ptr(x) for x in sh))
+                *(ptr(x) for x in sh), *nodes)
     else:
         tm = torch.as_tensor(t_max, dtype=torch.float32, device=dev).expand(n).contiguous()
         if kernel.startswith("knear"):
@@ -1040,8 +1068,7 @@ def walk_launch(lib: ctypes.CDLL, kernel: str, tree, rays: Rays, t_max=None,
         else:
             out = (torch.empty(n, dtype=torch.uint8, device=dev),)
             tail = ()
-        args = (*head, ptr(o), ptr(d), ptr(tm), n, *rows, t_min, *tail, ptr(out[0]))
-    fn = getattr(lib, f"tpurt_{kernel}")
+        args = (*head, ptr(o), ptr(d), ptr(tm), n, *rows, t_min, *tail, ptr(out[0]), *nodes)
     counted = lib.counter.get(f"tpurt_{kernel}", False)
     stream = ctypes.c_void_p(torch.cuda.current_stream().cuda_stream)
 
@@ -1052,7 +1079,7 @@ def walk_launch(lib: ctypes.CDLL, kernel: str, tree, rays: Rays, t_max=None,
         if err:
             fail(f"{kernel} failed to launch: {err}")
 
-    launch.keep = (o, d, args)  # what the kernel reads lives as long
+    launch.keep = (o, d, tm, out, args)  # what the kernel reads and writes lives as long
     return launch, out
 
 
@@ -1160,7 +1187,9 @@ def wrapper_call(kernel: str, tree, rays: Rays, t_max=None):
     return {"closest8": lambda: k8.traverse_wide8(rays, tree, shade_out=True),
             "occluded8": lambda: k8.occluded_wide8(rays, tree, t_max),
             "closest_bin": lambda: kb.traverse_packed(rays, tree),
-            "occluded_bin": lambda: kb.occluded_packed(rays, tree, t_max)}[kernel]
+            "occluded_bin": lambda: kb.occluded_packed(rays, tree, t_max),
+            "packet_closest": lambda: kp.traverse_packet(rays, tree),
+            "packet_occluded": lambda: kp.occluded_packet(rays, tree, t_max)}[kernel]
 
 
 @torch.no_grad()
@@ -1175,7 +1204,9 @@ def walk_ab(libs: dict, cells: dict) -> dict:
     Then in turns other, new, new, other for each other tree, the call's ms
     by CUDA events (this build through its wrapper, the others with their
     outputs made a call, as a wrapper makes them) and the kernel's device ms
-    from bare launches (launch_ms).  Without other trees, this build's alone."""
+    from bare launches (launch_ms).  Without other trees, this build's alone.
+    A packet kernel's cell is held bitwise: a packet's hits are its own, so
+    every ray whose id, flag or t/u/v bits differ fails, none explained."""
     out = {}
     for cell, (kernel, tree, rays, t_max) in cells.items():
         got = {}
@@ -1191,6 +1222,8 @@ def walk_ab(libs: dict, cells: dict) -> dict:
         err = {name: max([0.0] + [max_abs(a[res[0] == ref[0]], b[res[0] == ref[0]])
                                   for a, b in zip(res[1:], ref[1:])])
                for name, res in got.items()}
+        packet = kernel in PACKET_WALKS
+        bits = {name: differing_bits(ref, res) for name, res in got.items()} if packet else {}
         del got, ref
 
         def call(name):
@@ -1208,14 +1241,29 @@ def walk_ab(libs: dict, cells: dict) -> dict:
                      for name in libs}
         phase("walk_ab", kernel=kernel, cell=cell, rays=rays.o.reshape(-1, 3).shape[0],
               mismatches=json.dumps(bad), max_abs_err=json.dumps(err),
+              **({"differing_bits": json.dumps(bits)} if packet else {}),
               **{f"{name}_ms": f"{v['ms']:.4f}" for name, v in out[cell].items()},
               **{f"{name}_device_ms": f"{v['device_ms']:.4f}" for name, v in out[cell].items()},
               turns=json.dumps([[s, round(t, 4)] for s, t in turns]),
               device_turns=json.dumps([[s, round(t, 4)] for s, t in dev_turns]))
-        if any(unexplained.get(name) or err[name] > MAX_ABS_ERR for name in bad):
+        if any(unexplained.get(name) or err[name] > MAX_ABS_ERR or bits.get(name)
+               for name in bad):
             FAILURES.append(f"{kernel} ({cell}): outputs differ from a --parent tree's "
-                            f"kernel: {bad} ids ({unexplained} unexplained), {err}")
+                            f"kernel: {bad} ids ({unexplained} unexplained), {err}, "
+                            f"{bits} rays with differing bits")
     return out
+
+
+def differing_bits(ref: tuple, res: tuple) -> int:
+    """The rays on which any output of res (ids or flags, t, u, v) differs
+    from ref's in any bit."""
+    n = ref[0].shape[0]
+    differ = torch.zeros(n, dtype=torch.bool, device=ref[0].device)
+    for a, b in zip(ref, res):
+        if a.dtype == torch.float32:
+            a, b = a.view(torch.int32), b.view(torch.int32)
+        differ |= (a != b).reshape(n, -1).any(dim=1)
+    return int(differ.sum())
 
 
 # Failures that stop the script at its end, after every measurement.
@@ -3107,21 +3155,37 @@ def dist_ring(mesh, scene, cam: Camera) -> dict:
 def sampled_twin(kernel: str, tree, rays: Rays, got, t_max=None) -> dict:
     """A packet kernel's output `got` on `rays` (one call of the wrapper on
     the whole block) against its twin on SAMPLE_PACKETS whole packets of
-    the block: differing ids, flags and t/u/v bits (must be 0)."""
-    idx = packet_sample(rays.o.shape[0]).to(rays.o.device)
+    the block: differing ids, flags and t/u/v bits (must be 0); and an
+    estimate of the call's bound: the sampled packets' walk counts scaled
+    by the block's packets over the sampled ones (visits and leaf visits;
+    the distinct nodes and rows are the sample's)."""
+    n = rays.o.shape[0]
+    idx = packet_sample(n).to(rays.o.device)
     sub = Rays(o=rays.o[idx], d=rays.d[idx])
+    stats = {}
     t0 = time.perf_counter()
     if kernel == "packet_closest":
-        ref = kp.traverse_packet_ref(sub, tree)
+        ref = kp.traverse_packet_ref(sub, tree, stats=stats)
         differ = (hit_bits(Hit(**{f: getattr(got, f)[idx] for f in ("t", "u", "v", "tri")}))
                   != hit_bits(ref)).any(dim=-1)
+        in_bytes, out_bytes = 24, 16
     else:
-        ref = kp.occluded_packet_ref(sub, tree, t_max[idx])
+        ref = kp.occluded_packet_ref(sub, tree, t_max[idx], stats=stats)
         differ = got[idx] != ref
+        in_bytes, out_bytes = 28, 1
     torch.cuda.synchronize()
+    twin_s = time.perf_counter() - t0
+    counts = k8.walk_counts(stats)
+    scale = -(-n // kp.PACKET_RAYS) / -(-idx.numel() // kp.PACKET_RAYS)
+    est = bound(dict(counts, visits=round(counts["visits"] * scale),
+                     rows=round(counts["rows"] * scale)), n, in_bytes, out_bytes, PACKET)
     return {f"{kernel}_sampled_rays": int(idx.numel()),
             f"{kernel}_differing": int(differ.sum()),
-            f"{kernel}_twin_s": round(time.perf_counter() - t0, 3)}
+            f"{kernel}_twin_s": round(twin_s, 3),
+            f"{kernel}_sampled_visits": counts["visits"],
+            f"{kernel}_sampled_leaf_visits": counts["rows"],
+            f"{kernel}_bound_ms_estimate": round(est["bound_ms"], 6),
+            f"{kernel}_bound_by": est["bound_by"]}
 
 
 def dist_ring_packet(mesh, scene, cam: Camera, wide8_ms: dict) -> dict:
@@ -3382,27 +3446,19 @@ def segsum_rule(name: str, inv: InverseRenderer, target: torch.Tensor) -> dict:
 def packet_launch(kernel: str, packed, rays: Rays, t_max=None, k: int | None = None):
     """A bare launch of a packet kernel (packet_closest, packet_occluded,
     packet_knear) through the port's library: arguments and outputs made
-    here, once, as the wrapper makes them; launch() enqueues the kernel on
-    the current stream."""
+    here, once, as the wrapper makes them (the hard-frame walks through
+    walk_launch); launch() enqueues the kernel on the current stream."""
+    if kernel in PACKET_WALKS:
+        return walk_launch(this_library(), kernel, packed, rays, t_max)[0]
     lib = _build.load()
     o, d = rays.o.reshape(-1, 3), rays.d.reshape(-1, 3)
     n, dev = o.shape[0], o.device
     head = [_build.ptr(x) for x in (packed.node_f32, packed.node_i32, packed.tri_rows,
                                      packed.tri_ids, o, d)]
-    t_min = ctypes.c_float(DEFAULT_T_MIN)
-    if kernel == "packet_closest":
-        outs = [torch.empty(n, dtype=torch.float32, device=dev) for _ in range(3)]
-        outs.append(torch.empty(n, dtype=torch.int32, device=dev))
-        args = (*head, n, t_min, *(_build.ptr(x) for x in outs))
-    else:
-        tm = torch.as_tensor(t_max, dtype=torch.float32, device=dev).expand(n).contiguous()
-        if kernel == "packet_knear":
-            outs = [torch.empty((n, k), dtype=torch.int32, device=dev)]
-            tail = (k, ctypes.c_float(-BAND), ctypes.c_float(1.0 + BAND))
-        else:
-            outs, tail = [torch.empty(n, dtype=torch.uint8, device=dev)], ()
-        args = (*head, _build.ptr(tm), n, t_min, *tail, _build.ptr(outs[0]))
-        outs.append(tm)
+    tm = torch.as_tensor(t_max, dtype=torch.float32, device=dev).expand(n).contiguous()
+    outs = [torch.empty((n, k), dtype=torch.int32, device=dev), tm]
+    args = (*head, _build.ptr(tm), n, ctypes.c_float(DEFAULT_T_MIN), k,
+            ctypes.c_float(-BAND), ctypes.c_float(1.0 + BAND), _build.ptr(outs[0]))
     fn = getattr(lib, f"tpurt_{kernel}")
 
     def launch() -> None:
@@ -3475,9 +3531,39 @@ def packet_call(out: dict, view: str, call: str, kernel: str, packed, rays: Rays
     return ref
 
 
+def packet_cells(view: str, packed, frame: Rays, sh: Rays, t_sh: torch.Tensor) -> dict:
+    """[walk_ab]'s packet cells of one view: packet_closest on its row-major
+    frame, packet_occluded on the frame's shadow rays."""
+    return {f"packet_closest_{view}": ("packet_closest", packed, frame, None),
+            f"packet_occluded_{view}": ("packet_occluded", packed, sh, t_sh)}
+
+
+@torch.no_grad()
+def packet_ab(libs: dict, dev) -> None:
+    """--packet-ab: [walk_ab]'s packet cells alone, on the 1M main view's and
+    the overview's row-major frames and the bunny 512^2 (shadow rays from
+    this build's hits), against each other tree; no result line."""
+    scene, cam = make_sponza_scene(num_tris=NUM_TRIS, width=WIDTH, height=HEIGHT, device=dev)
+    over = Camera.create(eye=OVERVIEW_EYE, target=OVERVIEW_TARGET, fov_y_deg=50.0,
+                         width=WIDTH, height=HEIGHT, device=dev)
+    bscene, bcam = make_bunny_scene(device=dev)
+    for view, sc, c in (("main", scene, cam), ("overview", scene, over),
+                        ("bunny", bscene, bcam)):
+        tracer = make_tracer(sc, "packet")
+        frame = gen_primary_rays(c)
+        h = kp.traverse_packet(frame, tracer.packed)
+        p, nrm, _, _ = hit_surface(tracer, frame, h)
+        sh, t_sh = shadow_rays(sc, p, nrm, h.valid)
+        walk_ab(libs, packet_cells(view, tracer.packed, frame, sh, t_sh))
+        del tracer, frame, h, p, nrm, sh, t_sh
+    if FAILURES:
+        fail("; ".join(FAILURES))
+
+
 @torch.no_grad()
 def packet_view(view: str, tracer: Tracer, soft_packed, frame: Rays,
-                beside: dict | None = None, layers_twin: bool = True) -> dict:
+                beside: dict | None = None, layers_twin: bool = True,
+                libs: dict | None = None, ab: dict | None = None) -> dict:
     """The packet kernels on one frame (row-major primary rays, as the
     Renderer traces them for "packet"): packet_closest on the frame,
     packet_occluded on its shadow rays (per-ray t_max, built from the
@@ -3491,7 +3577,10 @@ def packet_view(view: str, tracer: Tracer, soft_packed, frame: Rays,
     layers_twin False: the k = 4 call runs the kernel alone (its device ms
     printed) and feeds the occluder call, which is held to its twin; the
     1M frames' k = 4 twin would take ~100 s each, and packet_fit_chunk
-    holds that call on the main view's first 255 packets."""
+    holds that call on the main view's first 255 packets.  libs (with
+    --parent): packet_closest and packet_occluded against each other
+    tree's on the frame and its shadow rays ([walk_ab], packet_cells),
+    their results into ab."""
     packed, scene, n = tracer.packed, tracer.scene, frame.o.shape[0]
     out = {}
     href = packet_call(out, view, "closest", "packet_closest", packed, frame,
@@ -3502,6 +3591,8 @@ def packet_view(view: str, tracer: Tracer, soft_packed, frame: Rays,
     bref = packet_call(out, view, "occluded", "packet_occluded", packed, sh,
                        lambda st: kp.occluded_packet_ref(sh, packed, t_sh, stats=st),
                        lambda: kp.occluded_packet(sh, packed, t_sh), 28, 1, t_max=t_sh)
+    if libs is not None and len(libs) > 1:
+        ab.update(walk_ab(libs, packet_cells(view, packed, frame, sh, t_sh)))
 
     def layers():
         return kp.k_nearest_ids_packet(frame, soft_packed, SOFT["k_layers"], BAND)
@@ -3567,7 +3658,8 @@ def packet_fit_chunk(scene, cam: Camera, soft_packed) -> dict:
     return out
 
 
-def packet_phase(scene, cam: Camera, bscene, bcam: Camera, beside: dict) -> dict:
+def packet_phase(scene, cam: Camera, bscene, bcam: Camera, beside: dict,
+                 libs: dict) -> dict:
     """tpurt's packet engine on the card ([packet]): Renderer(method=
     "packet") renders the 1M main view through the user's path (launch
     counts, the image against the wide8 frame by tpurt's image rule, the
@@ -3575,7 +3667,9 @@ def packet_phase(scene, cam: Camera, bscene, bcam: Camera, beside: dict) -> dict
     512^2; packet_fit_chunk; a 3-step InverseRenderer(method="packet") fit
     on the bunny ([fit_packet]); then tpurt's wavefront engine ([wave]):
     the bunny's hard frame through "wave", bitwise the "bvh" frame.
-    beside: {view: {name: ms}} of the wide8 and binary frames."""
+    beside: {view: {name: ms}} of the wide8 and binary frames; libs: the
+    walk libraries, with --parent the other trees' ([walk_ab]'s packet
+    cells on the 1M views and the bunny)."""
     t0 = time.perf_counter()
     dev = scene.tris.verts.device
     reset_launches()
@@ -3608,17 +3702,19 @@ def packet_phase(scene, cam: Camera, bscene, bcam: Camera, beside: dict) -> dict
             fail(f"Renderer(method='packet') never launched {name}")
     del img
     soft = make_tracer(scene, "packet", band=BAND).packed
+    ab = {}
     views = {"main": packet_view("main", r.tracer, soft, gen_primary_rays(cam), beside["main"],
-                                 layers_twin=False)}
+                                 layers_twin=False, libs=libs, ab=ab)}
     over = Camera.create(eye=OVERVIEW_EYE, target=OVERVIEW_TARGET, fov_y_deg=50.0,
                          width=WIDTH, height=HEIGHT, device=dev)
     views["overview"] = packet_view("overview", r.tracer, soft, gen_primary_rays(over),
-                                    beside["overview"], layers_twin=False)
+                                    beside["overview"], layers_twin=False, libs=libs, ab=ab)
     views["fit_chunk0"] = packet_fit_chunk(scene, cam, soft)
     del r, soft
     bt = make_tracer(bscene, "packet")
     bsoft = make_tracer(bscene, "packet", band=BAND).packed
-    views["bunny"] = packet_view("bunny", bt, bsoft, gen_primary_rays(bcam), beside["bunny"])
+    views["bunny"] = packet_view("bunny", bt, bsoft, gen_primary_rays(bcam), beside["bunny"],
+                                 libs=libs, ab=ab)
     del bt, bsoft
     fitp = fit_phase(bscene, bcam, method="packet", chunks=BIN_FIT_CHUNKS, steps=BIN_FIT_STEPS,
                      name="fit_packet", kernel="packet_knear")
@@ -3634,7 +3730,7 @@ def packet_phase(scene, cam: Camera, bscene, bcam: Camera, beside: dict) -> dict
     if not same:
         FAILURES.append("the wave frame differs from the bvh frame")
     phase("packet", seconds=f"{time.perf_counter() - t0:.1f}")
-    return dict(views=views, launches=launches, fit_launches=launches_fit)
+    return dict(views=views, launches=launches, fit_launches=launches_fit, ab=ab)
 
 
 def main() -> None:
@@ -3643,6 +3739,9 @@ def main() -> None:
                     help="a checkout of the parent commit (or, named, of a variant of "
                          "the kernels): time its k-nearest kernels against these in "
                          "turns ([knear_ab], [walk_ab]); repeatable")
+    ap.add_argument("--packet-ab", action="store_true",
+                    help="after [build], run only [walk_ab]'s packet cells against the "
+                         "--parent trees, and print no result line")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         fail("torch.cuda.is_available() is False: this script needs an NVIDIA GPU")
@@ -3674,6 +3773,9 @@ def main() -> None:
         fail(f"kernels that must not spill spill: {spills}")
     others = {name: parent_library(name, root, built[name]) for name, root in trees.items()}
     walk_libs = {"new": this_library(), **others}
+    if args.packet_ab:
+        packet_ab(walk_libs, dev)
+        return
 
     # -- scene and acceleration structure, stage by stage ----------------
     (scene, cam), s_scene = sync_time(lambda: make_sponza_scene(
@@ -3954,7 +4056,7 @@ def main() -> None:
     pk = packet_phase(scene, cam, bscene, bcam, beside={
         "main": {"wide8_frame": frame_ms["frame"], "binary_frame": bin_main["frame_ms"]},
         "overview": {"wide8_frame": over_ms["frame"]},
-        "bunny": {"binary_frame": bin_b["frame_ms"]}})
+        "bunny": {"binary_frame": bin_b["frame_ms"]}}, libs=walk_libs)
     del scene, img, fit_b
     torch.cuda.empty_cache()
     t5 = time.perf_counter()
@@ -4053,6 +4155,10 @@ def main() -> None:
             "bound_ms": round(one["bound"]["bound_ms"], 6), "bound_by": one["bound"]["bound_by"],
             "library_ms": None, "device_ms": round(one["device_ms"], 4),
             "view": f"{view}_{call}", "calls": calls,
+            # with --parent: [walk_ab]'s cells of this kernel, each tree's ms
+            # and device ms in turns (null without)
+            "parent": {cell: v for cell, v in pk["ab"].items() if cell.startswith(name)}
+            if pk["ab"] else None,
             # launches on the ring's packet engine, each read from its run
             "dist_launches": {cell: counts[name] for cell, counts in {
                 "ring_frame_5m": ring5p["ring_packet"]["launches"],

@@ -137,10 +137,11 @@ def load() -> ctypes.CDLL:
             ctypes.c_float, ctypes.c_float, _P, _P]
         lib.tpurt_knear_bin.restype = ctypes.c_int
         lib.tpurt_packet_closest.argtypes = [
-            _P, _P, _P, _P, _P, _P, ctypes.c_int, ctypes.c_float, _P, _P, _P, _P, _P]
+            _P, _P, _P, _P, _P, _P, ctypes.c_int, ctypes.c_float, _P, _P, _P, _P,
+            ctypes.c_int, _P]
         lib.tpurt_packet_closest.restype = ctypes.c_int
         lib.tpurt_packet_occluded.argtypes = [
-            _P, _P, _P, _P, _P, _P, _P, ctypes.c_int, ctypes.c_float, _P, _P]
+            _P, _P, _P, _P, _P, _P, _P, ctypes.c_int, ctypes.c_float, _P, ctypes.c_int, _P]
         lib.tpurt_packet_occluded.restype = ctypes.c_int
         lib.tpurt_packet_knear.argtypes = [
             _P, _P, _P, _P, _P, _P, _P, ctypes.c_int, ctypes.c_float, ctypes.c_int,

@@ -19,24 +19,33 @@
 // T_MAX, so they want every box that holds the origin; the any-hit and
 // k-nearest walks give them t_max = 0, so they never do.
 //
-// On this card the packet is a thread block: one CTA a packet, one thread a
-// ray (1,024 threads), the cursor uniform over the CTA.  `want` is
-// __syncthreads_or of the rays' slab tests; the any-hit walk ends once every
-// ray of the packet is blocked (__syncthreads_and, pad rays included, as
-// tpurt's `~all(blocked)`); a wanted leaf's 72 floats and 8 ids are staged
-// once in shared memory, from where every thread reads them as broadcasts.
-// A 1,024-thread CTA leaves each thread 64 registers, so the k-nearest lists
-// (up to 16 (t, id) pairs a ray) live in shared memory, slot-major, one bank
-// per thread; the closest hit and the flags live in registers.
-//
-// What bounds them is latency, not bytes or operations: a visit is one
-// dependent node load and one CTA-wide barrier around ~25 slab operations a
-// thread, and the cursor cannot move before every warp has voted.  The
-// operations the function needs (1,024 slab tests a visit, 8,192
-// Möller–Trumbore tests a leaf visit) bound it; the kernels run at a sixth
-// of that bound or less (PERF.md).  A design that fills the barrier's wait
-// (several packets a CTA, or the next node's record loaded before the vote)
-// is later work.
+// On this card a packet is a thread block, the cursor uniform over it.  A
+// visit is a chain no thread of the packet can run ahead of: the node's
+// record, ~25 slab operations a ray, a CTA-wide vote (`want`, a
+// __syncthreads_or), and under a wanted leaf its row's load, a barrier and
+// 8 Möller–Trumbore tests a ray.  With one 1,024-thread packet an SM the
+// SM idled through each record's dependent load and each barrier; the
+// hard-frame walks (closest hit, any hit) are built to fill those waits:
+//  - R = 2 rays a thread, 512 threads a packet, two packets resident on each
+//    SM (__launch_bounds__(512, 2): 64 registers a thread, no spill), so one
+//    packet's loads and barriers overlap the other's tests, and a vote
+//    gathers 16 warps, not 32.
+//  - The node records stream forward through shared memory.  In the packed
+//    layout the cursor only moves forward (node + 1 or an escape link past
+//    the node), so a packet keeps a window of the next kWindow records
+//    (48 bytes each, cp.async) and reads a visit's record there; only a
+//    cursor that lands past the window waits for a refill, from itself on.
+// Measured against other designs in turns (PERF.md): fetching both
+// successors' records and the leaf's row by cp.async before the vote, in
+// place of the window, lost (its waits are exposed every visit); so did the
+// leaf row fetched early beside the window, persistent CTAs on an atomic
+// counter, and 4 rays a thread (faster on the 1M closest-hit frames, slower
+// on the any-hit and bunny frames; 3 packets an SM spill).  At the card's
+// f32 instruction rate the closest-hit walk runs at ~60% of the operations
+// its function needs on the 1M frames, the any-hit walk at 30-45% (short
+// walks, a barrier at every leaf).  The k-nearest walk keeps one
+// 1,024-thread CTA a packet: its lists (up to 16 (t, id) pairs a ray) live
+// in shared memory, slot-major, one bank per thread.
 //
 // The arithmetic is tpurt's packet engine's: _safe_inv, the slab as
 // (lo - o) * inv with NaN-propagating min/max (slab_bin_n), and
@@ -44,9 +53,10 @@
 // is _mt_scalar_tri's: tpurt's _mt_packet matches intersect_tri bit for bit).
 // The closest hit keeps tpurt's (t, id) selection slot by slot, the k-lists
 // tpurt's insertion (position = the count of entries lexicographically below
-// the candidate, the rest shifted up, no dedup, -1 in empty slots).  Built
-// with -fmad=false, the kernels agree with their plain-torch twins
-// (kernels/packet.py) bit for bit.
+// the candidate, the rest shifted up, no dedup, -1 in empty slots).  Which
+// thread walks which ray changes no result: each ray's tests and selections
+// run in the same order.  Built with -fmad=false, the kernels agree with
+// their plain-torch twins (kernels/packet.py) bit for bit.
 
 #include "walk_common.cuh"
 
@@ -55,6 +65,11 @@ namespace {
 constexpr int kPacket = 1024;        // rays a packet: tpurt's PACKET_RAYS
 constexpr int kRowFloats = 72;       // LEAF_CAP x (v0, e1, e2)
 constexpr int kLeafCap = 8;
+constexpr int kRays = 2;             // rays a thread of the hard-frame walks
+constexpr int kThreads = 512;        // threads a packet: kPacket / kRays
+constexpr int kCtas = 2;             // packets resident on an SM
+constexpr int kWindow = 64;          // node records a packet keeps ahead
+static_assert(kThreads * kRays == kPacket, "a thread block walks one packet");
 
 // Ray i of the flat batch, or a pad ray (o = d = 0, so inv = 1e30) past n.
 __device__ __forceinline__ Ray packet_ray(const float* o, const float* d, size_t i,
@@ -68,8 +83,9 @@ __device__ __forceinline__ Ray packet_ray(const float* o, const float* d, size_t
 }
 
 // A wanted leaf's row (72 floats) and ids into shared memory, for the whole
-// CTA.  The caller's next barrier orders the reads of the previous leaf
-// before these writes; the __syncthreads here orders them before the tests.
+// CTA (at least 80 threads).  The caller's next barrier orders the reads of
+// the previous leaf before these writes; the __syncthreads here orders them
+// before the tests.
 __device__ __forceinline__ void stage_leaf(const float* __restrict__ rows,
                                            const int* __restrict__ ids, int leaf_row,
                                            float* s_tri, int* s_id) {
@@ -81,79 +97,157 @@ __device__ __forceinline__ void stage_leaf(const float* __restrict__ rows,
   __syncthreads();
 }
 
-__global__ void __launch_bounds__(kPacket, 1)
+// A node's record: its node_f32 row (two float4) and node_i32 row.
+struct __align__(16) NodeRec {
+  float4 a, b;
+  int4 r;
+};
+
+// A hard-frame walk's shared memory: the packet's window of node records and
+// the wanted leaf's staged row and ids.
+struct PacketShared {
+  NodeRec win[kWindow];
+  float tri[kRowFloats];
+  int id[kLeafCap];
+};
+
+// The record of the visit's node from the packet's window of records
+// [base, base + kWindow) in shared memory.  A cursor past the window (or
+// before it: base starts at -kWindow) refills it from itself on, 3 x 16
+// bytes of cp.async a record below num_nodes, each thread waiting for its
+// copies, then a barrier.  node and base are uniform over the CTA, so the
+// refill is too; the visit before read its record before its vote's
+// barrier, so nothing reads the window while it is rewritten.
+__device__ __forceinline__ NodeRec window_record(NodeRec* win, int& base, int node,
+                                                 const float4* __restrict__ nf,
+                                                 const int4* __restrict__ ni, int num_nodes) {
+  if ((unsigned)(node - base) >= (unsigned)kWindow) {
+    base = node;
+    for (int q = threadIdx.x; q < 3 * kWindow; q += kThreads) {
+      const int m = base + q / 3, part = q % 3;
+      if (m < num_nodes) {
+        const void* src = part < 2 ? static_cast<const void*>(nf + 2 * (size_t)m + part)
+                                   : static_cast<const void*>(ni + m);
+        const unsigned dst = (unsigned)__cvta_generic_to_shared(
+            reinterpret_cast<float4*>(win + q / 3) + part);
+        asm volatile("cp.async.ca.shared.global [%0], [%1], 16;\n" ::"r"(dst), "l"(src)
+                     : "memory");
+      }
+    }
+    asm volatile("cp.async.wait_all;\n" ::: "memory");
+    __syncthreads();
+  }
+  return win[node - base];
+}
+
+__global__ void __launch_bounds__(kThreads, kCtas)
 packet_closest_kernel(const float4* __restrict__ nf, const int4* __restrict__ ni,
                       const float* __restrict__ rows, const int* __restrict__ ids,
                       const float* __restrict__ o, const float* __restrict__ d, int n,
-                      float t_min, float* __restrict__ t_out, float* __restrict__ u_out,
-                      float* __restrict__ v_out, int* __restrict__ id_out) {
-  __shared__ float s_tri[kRowFloats];
-  __shared__ int s_id[kLeafCap];
-  const size_t i = (size_t)blockIdx.x * kPacket + threadIdx.x;
-  const Ray r = packet_ray(o, d, i, n);
-  float tb = kTMax, ub = 0.0f, vb = 0.0f;
-  int ib = -1;
-  int node = 0;
+                      int num_nodes, float t_min, float* __restrict__ t_out,
+                      float* __restrict__ u_out, float* __restrict__ v_out,
+                      int* __restrict__ id_out) {
+  __shared__ PacketShared s;
+  // ray j of this thread: i0 + j kThreads
+  const size_t i0 = (size_t)blockIdx.x * kPacket + threadIdx.x;
+  Ray r[kRays];
+  float tb[kRays], ub[kRays], vb[kRays];
+  int ib[kRays];
+#pragma unroll
+  for (int j = 0; j < kRays; ++j) {
+    r[j] = packet_ray(o, d, i0 + (size_t)j * kThreads, n);
+    tb[j] = kTMax; ub[j] = 0.0f; vb[j] = 0.0f; ib[j] = -1;
+  }
+  int node = 0, base = -kWindow;
   while (node >= 0) {
-    const float4 a = __ldg(nf + 2 * node), b = __ldg(nf + 2 * node + 1);
-    const int4 rec = __ldg(ni + node);
-    const bool want = __syncthreads_or(slab_bin_n(a, b, r, t_min, tb));
-    const bool leaf = rec.w > 0;
+    const NodeRec c = window_record(s.win, base, node, nf, ni, num_nodes);
+    bool any = false;
+#pragma unroll
+    for (int j = 0; j < kRays; ++j) any |= slab_bin_n(c.a, c.b, r[j], t_min, tb[j]);
+    const bool want = __syncthreads_or(any);
+    const bool leaf = c.r.w > 0;
     if (want && leaf) {
-      stage_leaf(rows, ids, rec.y, s_tri, s_id);
+      stage_leaf(rows, ids, c.r.y, s.tri, s.id);
 #pragma unroll 1
-      for (int j = 0; j < kLeafCap; ++j) {
-        float t, u, v, det;
-        mt(s_tri + 9 * j, r, t, u, v, det);
-        const int tid = s_id[j];
-        const bool better = (t < tb) || ((t == tb) && (tid < ib) && (ib >= 0));
-        if ((fabsf(det) > kDetEps) && (u >= 0.0f) && (v >= 0.0f) && (u + v <= 1.0f) &&
-            (t > t_min) && better && (tid >= 0)) {
-          tb = t; ub = u; vb = v; ib = tid;
+      for (int k = 0; k < kLeafCap; ++k) {
+        const int tid = s.id[k];
+#pragma unroll
+        for (int j = 0; j < kRays; ++j) {
+          float t, u, v, det;
+          mt(s.tri + 9 * k, r[j], t, u, v, det);
+          const bool better = (t < tb[j]) || ((t == tb[j]) && (tid < ib[j]) && (ib[j] >= 0));
+          if ((fabsf(det) > kDetEps) && (u >= 0.0f) && (v >= 0.0f) && (u + v <= 1.0f) &&
+              (t > t_min) && better && (tid >= 0)) {
+            tb[j] = t; ub[j] = u; vb[j] = v; ib[j] = tid;
+          }
         }
       }
     }
-    node = (want && !leaf) ? node + 1 : rec.x;
+    node = (want && !leaf) ? node + 1 : c.r.x;
   }
-  if (i < (size_t)n) {
-    t_out[i] = tb; u_out[i] = ub; v_out[i] = vb; id_out[i] = ib;
+#pragma unroll
+  for (int j = 0; j < kRays; ++j) {
+    const size_t i = i0 + (size_t)j * kThreads;
+    if (i < (size_t)n) {
+      t_out[i] = tb[j]; u_out[i] = ub[j]; v_out[i] = vb[j]; id_out[i] = ib[j];
+    }
   }
 }
 
-__global__ void __launch_bounds__(kPacket, 1)
+__global__ void __launch_bounds__(kThreads, kCtas)
 packet_occluded_kernel(const float4* __restrict__ nf, const int4* __restrict__ ni,
                        const float* __restrict__ rows, const int* __restrict__ ids,
                        const float* __restrict__ o, const float* __restrict__ d,
-                       const float* __restrict__ tm, int n, float t_min,
+                       const float* __restrict__ tm, int n, int num_nodes, float t_min,
                        unsigned char* __restrict__ blocked_out) {
-  __shared__ float s_tri[kRowFloats];
-  __shared__ int s_id[kLeafCap];
-  const size_t i = (size_t)blockIdx.x * kPacket + threadIdx.x;
-  const Ray r = packet_ray(o, d, i, n);
-  const float tmax = i < (size_t)n ? tm[i] : 0.0f;
-  bool blocked = false;
-  int node = 0;
+  __shared__ PacketShared s;
+  const size_t i0 = (size_t)blockIdx.x * kPacket + threadIdx.x;
+  Ray r[kRays];
+  float tmax[kRays];
+  bool blocked[kRays];
+#pragma unroll
+  for (int j = 0; j < kRays; ++j) {
+    const size_t i = i0 + (size_t)j * kThreads;
+    r[j] = packet_ray(o, d, i, n);
+    tmax[j] = i < (size_t)n ? tm[i] : 0.0f;
+    blocked[j] = false;
+  }
+  int node = 0, base = -kWindow;
   while (node >= 0) {
-    const float4 a = __ldg(nf + 2 * node), b = __ldg(nf + 2 * node + 1);
-    const int4 rec = __ldg(ni + node);
-    const bool want = __syncthreads_or(slab_bin_n(a, b, r, t_min, tmax) && !blocked);
-    const bool leaf = rec.w > 0;
-    node = (want && !leaf) ? node + 1 : rec.x;
+    const NodeRec c = window_record(s.win, base, node, nf, ni, num_nodes);
+    bool any = false;
+#pragma unroll
+    for (int j = 0; j < kRays; ++j)
+      any |= slab_bin_n(c.a, c.b, r[j], t_min, tmax[j]) && !blocked[j];
+    const bool want = __syncthreads_or(any);
+    const bool leaf = c.r.w > 0;
     if (want && leaf) {
-      stage_leaf(rows, ids, rec.y, s_tri, s_id);
+      stage_leaf(rows, ids, c.r.y, s.tri, s.id);
+      bool all = true;
 #pragma unroll 1
-      for (int j = 0; j < kLeafCap; ++j) {
-        float t, u, v, det;
-        mt(s_tri + 9 * j, r, t, u, v, det);
-        blocked |= (fabsf(det) > kDetEps) && (u >= 0.0f) && (v >= 0.0f) &&
-                   (u + v <= 1.0f) && (t > t_min) && (t < tmax) && (s_id[j] >= 0);
+      for (int k = 0; k < kLeafCap; ++k) {
+        const int tid = s.id[k];
+#pragma unroll
+        for (int j = 0; j < kRays; ++j) {
+          float t, u, v, det;
+          mt(s.tri + 9 * k, r[j], t, u, v, det);
+          blocked[j] |= (fabsf(det) > kDetEps) && (u >= 0.0f) && (v >= 0.0f) &&
+                        (u + v <= 1.0f) && (t > t_min) && (t < tmax[j]) && (tid >= 0);
+        }
       }
+#pragma unroll
+      for (int j = 0; j < kRays; ++j) all &= blocked[j];
       // tpurt's loop condition, ~all(blocked): the flags change only here.
       // The barrier also orders this leaf's reads before the next staging.
-      if (__syncthreads_and(blocked)) break;
+      if (__syncthreads_and(all)) break;
     }
+    node = (want && !leaf) ? node + 1 : c.r.x;
   }
-  if (i < (size_t)n) blocked_out[i] = blocked;
+#pragma unroll
+  for (int j = 0; j < kRays; ++j) {
+    const size_t i = i0 + (size_t)j * kThreads;
+    if (i < (size_t)n) blocked_out[i] = blocked[j];
+  }
 }
 
 // The k nearest band hits of each ray by (t, id), tpurt's insertion, the
@@ -243,30 +337,33 @@ int launch_knear(int grid, const float4* nf, const int4* ni, const float* rows,
 
 extern "C" {
 
-// Every entry point launches one CTA of 1,024 threads a packet on `stream`,
-// never synchronises, and returns cudaGetLastError() of the launch (0 on
-// success).  node_f32 is (M, 8) f32, node_i32 (M, 4) i32, rows (L, 128) f32
-// and ids (L, 8) i32, all contiguous, node rows 16-byte aligned (the wrapper
-// checks); o and d (n, 3) f32; tm (n,) f32.
+// Every entry point launches one CTA a packet on `stream` (the hard-frame
+// walks kThreads threads, the k-nearest walk 1,024), never synchronises, and
+// returns cudaGetLastError() of the launch (0 on success).  node_f32 is
+// (num_nodes, 8) f32, node_i32 (num_nodes, 4) i32, rows (L, 128) f32 and
+// ids (L, 8) i32, all contiguous and 16-byte aligned (the wrapper checks);
+// o and d (n, 3) f32; tm (n,) f32.
 int tpurt_packet_closest(const float* node_f32, const int* node_i32, const float* rows,
                          const int* ids, const float* o, const float* d, int n, float t_min,
-                         float* t, float* u, float* v, int* id, cudaStream_t stream) {
+                         float* t, float* u, float* v, int* id, int num_nodes,
+                         cudaStream_t stream) {
   if (n <= 0) return 0;
   const int grid = (n + kPacket - 1) / kPacket;
-  packet_closest_kernel<<<grid, kPacket, 0, stream>>>(
+  packet_closest_kernel<<<grid, kThreads, 0, stream>>>(
       reinterpret_cast<const float4*>(node_f32), reinterpret_cast<const int4*>(node_i32),
-      rows, ids, o, d, n, t_min, t, u, v, id);
+      rows, ids, o, d, n, num_nodes, t_min, t, u, v, id);
   return (int)cudaGetLastError();
 }
 
 int tpurt_packet_occluded(const float* node_f32, const int* node_i32, const float* rows,
                           const int* ids, const float* o, const float* d, const float* tm,
-                          int n, float t_min, unsigned char* blocked, cudaStream_t stream) {
+                          int n, float t_min, unsigned char* blocked, int num_nodes,
+                          cudaStream_t stream) {
   if (n <= 0) return 0;
   const int grid = (n + kPacket - 1) / kPacket;
-  packet_occluded_kernel<<<grid, kPacket, 0, stream>>>(
+  packet_occluded_kernel<<<grid, kThreads, 0, stream>>>(
       reinterpret_cast<const float4*>(node_f32), reinterpret_cast<const int4*>(node_i32),
-      rows, ids, o, d, tm, n, t_min, blocked);
+      rows, ids, o, d, tm, n, num_nodes, t_min, blocked);
   return (int)cudaGetLastError();
 }
 

@@ -55,8 +55,9 @@ from tpurt_torch.kernels.traverse import _check_inputs, _packed_args, _raise_on
 # Kernel launches per wrapper since the last reset_launches(); only a real
 # CUDA launch counts.
 LAUNCHES = {"packet_closest": 0, "packet_occluded": 0, "packet_knear": 0}
-# Rays a packet (tpurt's PACKET_RAYS: an (8, 128) tile on the TPU, a
-# 1,024-thread block here).
+# Rays a packet (tpurt's PACKET_RAYS: an (8, 128) tile on the TPU, a thread
+# block here: 512 threads of 2 rays for the closest-hit and any-hit walks,
+# 1,024 threads for the k-nearest walk).
 PACKET_RAYS = 1024
 # Largest k of the k-nearest kernel (its longest list).
 KMAX = 16
@@ -285,7 +286,7 @@ def traverse_packet(rays: Rays, packed: PackedBVH, t_min: float = DEFAULT_T_MIN)
     with _build.on_device(o):
         err = lib.tpurt_packet_closest(
             *_packed_args(packed), _ptr(o), _ptr(d), n, ctypes.c_float(t_min),
-            _ptr(t), _ptr(u), _ptr(v), _ptr(tri), _stream(o.device))
+            _ptr(t), _ptr(u), _ptr(v), _ptr(tri), packed.num_nodes, _stream(o.device))
     _raise_on(err, "packet_closest")
     LAUNCHES["packet_closest"] += 1
     s = rays.shape
@@ -306,7 +307,7 @@ def occluded_packet(rays: Rays, packed: PackedBVH, t_max,
     with _build.on_device(o):
         err = lib.tpurt_packet_occluded(
             *_packed_args(packed), _ptr(o), _ptr(d), _ptr(tmax), n,
-            ctypes.c_float(t_min), _ptr(blk), _stream(o.device))
+            ctypes.c_float(t_min), _ptr(blk), packed.num_nodes, _stream(o.device))
     _raise_on(err, "packet_occluded")
     LAUNCHES["packet_occluded"] += 1
     return blk.bool().reshape(rays.shape)
