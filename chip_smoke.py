@@ -10,8 +10,10 @@ world 1 on NCCL), the CLI and the benchmark.
     python3 chip_smoke.py --packet-ab --parent DIR [--parent NAME=DIR ...]
 
 --packet-ab runs [device], [build] and then only [walk_ab]'s packet cells
-(below), with the shadow rays from this build's hits, and prints no result
-line: the quick A/B of the packet kernels against other trees.
+(below), with the shadow rays from this build's hits, [knear_ab]'s packet
+cells and [segsum_ab] on [segsum]'s inputs but the bunny fit's, and prints
+no result line: the quick A/B of the packet and segsum kernels against
+other trees.
 
 Phases, one line each (any failure exits non-zero and prints no result):
   device   torch.cuda must be available; the card's name and power limit.
@@ -79,7 +81,10 @@ Phases, one line each (any failure exits non-zero and prints no result):
            new, other the calls' ms (CUDA events) and each tree's kernel
            device ms (bare launches), over the fit's 8 row-major chunks, one
            row-major launch and the Morton frame, both calls; knear_bin the
-           same on the bunny.
+           same on the bunny; in [packet], packet_knear (no Morton sort: the
+           packet is part of its function) on [fit]'s chunk 0 (layers,
+           occluders), the 1M main view's occluder call and the bunny
+           512^2's layers, occluders and a k = 16 call.
   dist_fit the data-parallel fit: InverseRenderer(mesh=...) (a world-1
            NCCL group, dist_setup) on [fit]'s problem against [fit]'s
            mesh-free fit and a second mesh-free run: losses within rtol
@@ -98,15 +103,23 @@ Phases, one line each (any failure exits non-zero and prints no result):
            real inputs of one [fit] step (chunk 0's soft_surface gather,
            K x R rows x 12 of 15 columns, and its soft_occlusion gather,
            L x k_occ x R rows (L lights) x 9; the step's corner gather, 3T
-           rows x 3), later of one [fit_bin] step and tpurt's five id
-           patterns at 2^20 rows:
-           the kernels against the twin on the card, every element (a
-           differing one fails the script at its end); device ms by CUDA
-           events of the sort, each kernel by bare launches, the wrapper
-           call, the twin, index_add_ and index_add_ under deterministic
-           algorithms; the kernels' bound from the bytes their function
-           moves on this input (sorted ids, permutation and the rows' `use`
-           columns in, the sums out), the design's bytes beside.
+           rows x 3), later of one [fit_bin] step, tpurt's five id
+           patterns at 2^20 rows, a 2^20-row input with inf, -inf, NaN and
+           -0 rows (non-finite carries) and one above the one-CTA carry's
+           size (15M rows x 3 into 5M, the 5M corner gather's shape):
+           the kernels against the twin on the card, every element equal as
+           floats, NaN where the twin's is NaN (a differing one fails the
+           script at its end); device ms by CUDA events of the sort, the
+           kernels by bare launches (the memset and the scan; all four,
+           the carry and the end rows being the difference), the wrapper
+           call, the twin, index_add_ and index_add_ under deterministic algorithms;
+           the kernel launches a call; the kernels' bound from the bytes
+           their function moves on this input (sorted ids, permutation and
+           the rows' `use` columns in, the sums out), the design's bytes
+           beside.  With --parent, [segsum_ab]: each tree's kernels (by its
+           own interface) on the same inputs, every output element equal to
+           this build's, then their device ms in turns other, new, new,
+           other (bare launches, the sort made before).
   segsum_rule
            the fit under 'scatter', 'segsum', 'segsum', 'scatter' in turns
            (later [fit_bin]'s too): step seconds, their ratio against
@@ -213,7 +226,7 @@ The LBVH build (morton and radix; every make_tracer above ran them):
            Renderer.render; alltoall_trace on cornell 32^2 against brute
            force.
 tpurt's packet engine (method="packet": packet_closest, packet_occluded and
-packet_knear, one 1,024-thread CTA a 1,024-ray packet) and its wavefront
+packet_knear, one CTA a 1,024-ray packet) and its wavefront
 engine (method="wave"):
   packet   Renderer(scene, RenderConfig(method="packet")) on the 1M main
            view: init and render seconds, launch counts (a kernel never
@@ -224,12 +237,14 @@ engine (method="wave"):
            them: packet_closest on the frame, packet_occluded on its shadow
            rays (per-ray t_max), packet_knear with k = 4 on the frame and
            k_occ = 8 on the candidates from layer 0 (2 x the segment as
-           t_max), on the band-0.08 tree; and packet_knear on chunk 0 of
+           t_max), on the band-0.08 tree (on the bunny also k = 16, the
+           longest list); and packet_knear on chunk 0 of
            [fit]'s problem (261,120 rays).  Each against its twin on every
            ray (any differing id, flag, list entry or t/u/v bit fails the
            script at its end), the wrapper's ms (CUDA events), the kernel's
            device ms (bare launches), the twin's ms and the bound from its
-           packet walk counts.  With --parent, [walk_ab]'s packet cells.
+           packet walk counts.  With --parent, [walk_ab]'s and [knear_ab]'s
+           packet cells.
   packet_frame
            each hard frame's ms by CUDA events split into closest, occluded
            and glue, rays/s, beside this run's wide8 and binary frames; the
@@ -237,7 +252,12 @@ engine (method="wave"):
            per-ray kernels' on the same tree, by group (a direction
            component in [-1e-30, 0), a zero component, the rest).
   fit_packet
-           as fit_bin, through method="packet" (packet_knear).
+           as fit_bin, through method="packet" (packet_knear); then
+           [profile_fit_packet], as profile_fit for one such step.  With
+           --parent, [fit_packet_ab]: the fit with each tree's packet_knear
+           in turns other, new, new, other (step seconds, parameter
+           elements that differ from this build's fit: any fails) and
+           one profiled step with each other tree's kernel.
   wave     render(method="wave") of the bunny's 512^2 hard frame, bitwise
            the "bvh" frame (a difference fails the script at its end).
   sponza5m the 5M scene's generation seconds and its phases' seconds.
@@ -464,11 +484,22 @@ AREA_EMITTERS, AREA_LE, AREA_SAMPLES, AREA_SEED = 64, 8.0, 4, 11
 # problems.
 SEGSUM_PATTERN_ROWS, SEGSUM_PATTERN_V, SEGSUM_PATTERN_SEED = 1 << 20, 257, 7
 SEGSUM_RULE = 1.03
+# The launches of one segment_accumulate call, the sort aside and the
+# memset included, on every [segsum] input but above_rule (the fits' block
+# counts: the carry in one CTA a column).
+SEGSUM_MAX_LAUNCHES = 4
+# device_launches: the profiler window's host waits on each side (s), tried
+# in turn until both marker kernels are seen, and the markers' length.  The
+# profiler places device events on the host's clock with an offset that
+# grows over a process's life, and drops those that land past its window's
+# end: profile_fit waits the last of these after its step too.
+LAUNCH_COUNT_WAITS = (0.01, 0.1, 1.0)
+LAUNCH_MARK_CYCLES = 1000
 
 
 KERNEL_NAMES = ("closest8_kernel", "occluded8_kernel", "knear8_kernel",
                 "closest_bin_kernel", "occluded_bin_kernel", "knear_bin_kernel",
-                "morton_kernel", "radix_kernel", "segsum_scan_kernel", "segsum_carry_init",
+                "morton_kernel", "radix_kernel", "segsum_scan_kernel", "segsum_carry_kernel",
                 "segsum_carry_pass", "segsum_ends_kernel", "packet_closest_kernel",
                 "packet_occluded_kernel", "packet_knear_kernel")
 WALK_KERNELS = ("closest8", "occluded8", "knear8", "closest_bin", "occluded_bin", "knear_bin")
@@ -747,6 +778,46 @@ def device_spans(prof):
     return events, busy, end - spans[0][0], sum(e - s for s, e in spans)
 
 
+def device_launches(fn) -> dict:
+    """The device work that one call of fn puts on the card, as
+    torch.profiler sees it: {kernel or memset name: count}, each a launch.
+    The call runs between two marker kernels (torch.cuda._sleep) in a
+    profiler window padded by host waits: the profiler keeps only the
+    device events that fall inside its window by its own clock, so the
+    count is taken only when both markers are seen, the window widening
+    over LAUNCH_COUNT_WAITS; empty if they never are."""
+    from torch.profiler import ProfilerActivity, profile
+
+    for wait in LAUNCH_COUNT_WAITS:
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            time.sleep(wait)
+            torch.cuda._sleep(LAUNCH_MARK_CYCLES)
+            fn()
+            torch.cuda._sleep(LAUNCH_MARK_CYCLES)
+            torch.cuda.synchronize()
+            time.sleep(wait)
+        counts = {}
+        for e in device_spans(prof)[0]:
+            name = re.split(r"[(<]", e.name.replace("(anonymous namespace)::", "")
+                            .removeprefix("void "))[0].strip()
+            counts[name] = counts.get(name, 0) + 1
+        marks = sum(c for name, c in counts.items() if name.endswith("spin_kernel"))
+        if marks == 2:
+            return {name: c for name, c in counts.items() if not name.endswith("spin_kernel")}
+    return {}
+
+
+def preceding_memsets(events: list, kernel: str) -> float:
+    """The device time (µs) of the memsets that run just before each of
+    `kernel`'s launches (one stream: the device event before it in start
+    order), as segment_accumulate's memset of its output runs just before
+    its scan."""
+    order = sorted(events, key=lambda e: e.time_range.start)
+    return sum(p.time_range.end - p.time_range.start for p, e in zip(order, order[1:])
+               if kernel in e.name and p.name.startswith("Memset"))
+
+
 def profile_frame(tracer: Tracer, cam: Camera, frame: Rays, frames: int = 5,
                   name: str = "profile") -> None:
     """Where a hard frame's device time goes (torch.profiler over `frames`
@@ -978,7 +1049,7 @@ def bind_tree(root: str, path: str) -> ctypes.CDLL:
     csrc = tree_csrc("tree", root)
     lib = ctypes.CDLL(path)
     lib.counter, lib.nodes = {}, {}
-    for kernel in WALK_KERNELS + PACKET_WALKS:
+    for kernel in WALK_KERNELS + PACKET_WALKS + ("packet_knear",):
         src = ("traverse.cu" if kernel.endswith("_bin") else
                "packet.cu" if kernel.startswith("packet") else "traverse8.cu")
         with open(os.path.join(csrc, src)) as f:
@@ -996,7 +1067,8 @@ def bind_tree(root: str, path: str) -> ctypes.CDLL:
             "closest_bin": ([ptr] * 6 + [i32, f32], 4),
             "occluded_bin": ([ptr] * 7 + [i32, f32], 1),
             "packet_closest": ([ptr] * 6 + [i32, f32], 4),
-            "packet_occluded": ([ptr] * 7 + [i32, f32], 1)}
+            "packet_occluded": ([ptr] * 7 + [i32, f32], 1),
+            "packet_knear": ([ptr] * 7 + [i32, f32, i32, f32, f32], 1)}
     for kernel, (args, outs) in head.items():
         fn = getattr(lib, f"tpurt_{kernel}")
         fn.argtypes = (args + [ptr] * outs + [i32] * lib.nodes[f"tpurt_{kernel}"]
@@ -1005,6 +1077,21 @@ def bind_tree(root: str, path: str) -> ctypes.CDLL:
     lib.tpurt_morton.argtypes = [ptr, ptr, ptr, f32, i32, ptr, ptr]
     lib.tpurt_radix.argtypes = [ptr, i32] + [ptr] * 6
     lib.tpurt_morton.restype = lib.tpurt_radix.restype = i32
+    # segsum: three entry points in a tree whose scan writes the scanned rows
+    # (scan, carry, ends), two in one whose scan writes the output (scan,
+    # carry with the ends)
+    with open(os.path.join(csrc, "segsum.cu")) as f:
+        lib.segsum_ends = "int tpurt_segsum_ends(" in f.read()
+    i64 = ctypes.c_longlong
+    if lib.segsum_ends:
+        lib.tpurt_segsum_scan.argtypes = [ptr] * 3 + [i64, i32, i32, i32] + [ptr] * 3
+        lib.tpurt_segsum_carry.argtypes = [ptr, ptr, i32, i32] + [ptr] * 5
+        lib.tpurt_segsum_ends.argtypes = [ptr] * 4 + [i32, i32, ptr, ptr]
+        lib.tpurt_segsum_ends.restype = i32
+    else:
+        lib.tpurt_segsum_scan.argtypes = [ptr] * 3 + [i64, i32, i32, i32] + [ptr] * 4
+        lib.tpurt_segsum_carry.argtypes = [ptr, i32, i32, i32] + [ptr] * 6
+    lib.tpurt_segsum_scan.restype = lib.tpurt_segsum_carry.restype = i32
     return lib
 
 
@@ -1030,8 +1117,8 @@ def parent_library(name: str, root: str, path: str) -> ctypes.CDLL:
 def walk_launch(lib: ctypes.CDLL, kernel: str, tree, rays: Rays, t_max=None,
                 k: int | None = None):
     """lib's walk kernel (closest8, occluded8, knear8 over a WideBVH;
-    closest_bin, occluded_bin, knear_bin, packet_closest, packet_occluded
-    over a PackedBVH) on `rays` (t_max:
+    closest_bin, occluded_bin, knear_bin, packet_closest, packet_occluded,
+    packet_knear over a PackedBVH) on `rays` (t_max:
     the any-hit and k-nearest kernels' window, k: the k-nearest list
     length), its arguments and outputs made as the wrappers make them:
     (launch, out), where launch(counter) enqueues the kernel on the current
@@ -1061,8 +1148,9 @@ def walk_launch(lib: ctypes.CDLL, kernel: str, tree, rays: Rays, t_max=None,
         args = (*head, ptr(o), ptr(d), n, *rows, t_min, ptr(t), ptr(u), ptr(v), ptr(tri),
                 *(ptr(x) for x in sh), *nodes)
     else:
-        tm = torch.as_tensor(t_max, dtype=torch.float32, device=dev).expand(n).contiguous()
-        if kernel.startswith("knear"):
+        tm = torch.as_tensor(t_max, dtype=torch.float32, device=dev).reshape(-1).expand(n)
+        tm = tm.contiguous()
+        if "knear" in kernel:
             out = (torch.empty((n, k), dtype=torch.int32, device=dev),)
             tail = (k, ctypes.c_float(-BAND), ctypes.c_float(1.0 + BAND))
         else:
@@ -1087,11 +1175,12 @@ def knear_kernel(tree) -> str:
     return "knear8" if isinstance(tree, WideBVH) else "knear_bin"
 
 
-def parent_knear(lib: ctypes.CDLL, tree):
-    """run(rays, k, t_max) through another tree's k-nearest kernel, a fresh
-    counter for every launch, as the wrappers call them."""
+def parent_knear(lib: ctypes.CDLL, tree, kernel: str | None = None):
+    """run(rays, k, t_max) through another tree's k-nearest kernel (default:
+    the per-ray one of tree's layout), a fresh counter for every launch, as
+    the wrappers call them."""
     def run(rays: Rays, k: int, t_max) -> torch.Tensor:
-        launch, (ids,) = walk_launch(lib, knear_kernel(tree), tree, rays, t_max, k)
+        launch, (ids,) = walk_launch(lib, kernel or knear_kernel(tree), tree, rays, t_max, k)
         launch()
         return ids
 
@@ -1481,18 +1570,25 @@ def launch_counts() -> dict:
     return {**k8.LAUNCHES, **kb.LAUNCHES, **kp.LAUNCHES, **tb.LAUNCHES, **ss.LAUNCHES}
 
 
-def fit_phase(scene, cam: Camera, method: str = "wide8", chunks: int = FIT_CHUNKS,
-              steps: int = FIT_STEPS, name: str = "fit", kernel: str = "knear8") -> dict:
-    """The fit step, through InverseRenderer.fit, with its launch counts:
-    `kernel` (the engine's k-nearest kernel) must run twice a chunk."""
-    rcfg = RenderConfig(method=method, **SOFT)
+def fit_problem(scene, cam: Camera, method: str = "wide8", chunks: int = FIT_CHUNKS,
+                steps: int = FIT_STEPS) -> tuple:
+    """The fit's InverseRenderer (soft, `method`) and its target, the
+    albedo x 0.8 render: (inv, target, init s, target s)."""
     inv, s_init = sync_time(lambda: InverseRenderer(
         scene, cam, fit=FitConfig(steps=steps, grad_chunks=chunks, lr=FIT_LR),
-        render=rcfg))
+        render=RenderConfig(method=method, **SOFT)))
     with torch.no_grad():
         dim = dataclasses.replace(scene, tris=dataclasses.replace(
             scene.tris, albedo=scene.tris.albedo * 0.8))
         target, s_target = sync_time(lambda: render(dim, cam, tracer=inv.tracer0, **SOFT))
+    return inv, target, s_init, s_target
+
+
+def fit_phase(scene, cam: Camera, method: str = "wide8", chunks: int = FIT_CHUNKS,
+              steps: int = FIT_STEPS, name: str = "fit", kernel: str = "knear8") -> dict:
+    """The fit step, through InverseRenderer.fit, with its launch counts:
+    `kernel` (the engine's k-nearest kernel) must run twice a chunk."""
+    inv, target, s_init, s_target = fit_problem(scene, cam, method, chunks, steps)
     torch.cuda.reset_peak_memory_stats()
     secs, t_last = [], [0.0]
 
@@ -1608,7 +1704,9 @@ def profile_fit(inv: InverseRenderer, target: torch.Tensor, name: str = "profile
     """Where one fit step's device time goes (torch.profiler): the engine's
     k-nearest kernel, the backward (autograd's evaluate_function ranges;
     within it the index_add_/scatter kernels, the segsum kernels and the
-    radix sorts before them), the refit (its record_function range) and the
+    radix sorts before them; segsum's share counts the memset of its output
+    before each scan, and prints it apart too), the refit (its
+    record_function range) and the
     rest, the forward glue; and the device's idle share."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
@@ -1618,6 +1716,7 @@ def profile_fit(inv: InverseRenderer, target: torch.Tensor, name: str = "profile
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         inv.fit(target, steps=1)
         torch.cuda.synchronize()
+        time.sleep(LAUNCH_COUNT_WAITS[-1])  # the step's last kernels inside the window
     dev_events, busy, window, total = device_spans(prof)
     if not dev_events:
         phase(name, device_time="not measured (the profiler saw no device event)")
@@ -1634,7 +1733,9 @@ def profile_fit(inv: InverseRenderer, target: torch.Tensor, name: str = "profile
 
     knear = kernel_time(f"{kernel}_kernel")
     scatter = kernel_time("indexFunc", "scatter")
-    segsum = kernel_time("segsum_")
+    # segsum's kernels and the memset of its output before each scan
+    segsum_memset = preceding_memsets(dev_events, "segsum_scan")
+    segsum = kernel_time("segsum_") + segsum_memset
     sort = kernel_time("RadixSort")
     backward = range_time(lambda k: k.startswith("autograd::engine::evaluate_function"))
     refit = range_time(lambda k: k == "tpurt::refit")
@@ -1647,7 +1748,9 @@ def profile_fit(inv: InverseRenderer, target: torch.Tensor, name: str = "profile
           device_busy_ms=f"{busy / 1e3:.3f}", idle_share=f"{1 - busy / window:.4f}",
           **{f"{kernel}_share": f"{knear / total:.4f}"}, backward_share=f"{backward / total:.4f}",
           index_add_scatter_share=f"{scatter / total:.4f}",
-          segsum_share=f"{segsum / total:.4f}", segsum_sort_share=f"{sort / total:.4f}",
+          segsum_share=f"{segsum / total:.4f}",
+          segsum_memset_share=f"{segsum_memset / total:.4f}",
+          segsum_sort_share=f"{sort / total:.4f}",
           grad_backend=gg_mod.get_grad_backend(),
           backward_rest_share=f"{(backward - scatter) / total:.4f}",
           refit_share=f"{refit / total:.4f}", refit_ms=f"{refit / 1e3:.4f}",
@@ -3327,43 +3430,127 @@ def segsum_patterns(dev) -> dict:
             for k, x in ids.items()}
 
 
+def segsum_nonfinite(dev) -> dict:
+    """A gather whose carries are not finite: 2^20 rows of 3 columns,
+    tpurt's uniform ids into 257 rows (every block continues its tail id,
+    so an inf or NaN in a block's last rows reaches the next block's carry,
+    and through the passes' a * g every later block's), inf, -inf and NaN
+    in column 0 of 6 seeded rows and -0 in a quarter of column 1's."""
+    rng = np.random.default_rng(SEGSUM_PATTERN_SEED + 1)
+    n, v = SEGSUM_PATTERN_ROWS, SEGSUM_PATTERN_V
+    cot = rng.normal(size=(n, 3)).astype(np.float32)
+    cot[rng.permutation(n)[:6], 0] = [np.inf, -np.inf, np.nan, np.inf, np.nan, -np.inf]
+    cot[rng.permutation(n)[:n // 4], 1] = -0.0
+    return {"nonfinite": (torch.tensor(rng.integers(0, v, n), dtype=torch.int64, device=dev),
+                          torch.tensor(cot, device=dev), v)}
+
+
+def segsum_above_rule(dev) -> dict:
+    """A gather above the one-CTA carry's size (csrc/segsum.cu's
+    kCarryMaxBlocks blocks, where the carry takes a launch a pass):
+    the 5M sponza's corner gather's shape, 3T = 15,000,000 rows of 3 columns
+    into 5M rows, ids seeded uniform."""
+    rng = np.random.default_rng(SEGSUM_PATTERN_SEED + 2)
+    n, v = 3 * NUM_TRIS_5M, NUM_TRIS_5M
+    return {"above_rule": (torch.tensor(rng.integers(0, v, n), dtype=torch.int64, device=dev),
+                           torch.tensor(rng.normal(size=(n, 3)), dtype=torch.float32,
+                                        device=dev), v)}
+
+
 def segsum_bytes(n: int, use: int, v: int) -> int:
-    """The least bytes of the three kernels' function: the sorted ids and
-    the permutation read (4 + 8 a row), the `use` columns of every row
-    read, (v, use) written."""
+    """The least bytes of the kernels' function: the sorted ids and the
+    permutation read (4 + 8 a row), the `use` columns of every row read,
+    (v, use) written."""
     return 12 * n + 4 * n * use + 4 * v * use
 
 
 def segsum_design_bytes(n: int, use: int, v: int, ends: int) -> int:
     """What this design moves besides (a diagnostic, not the bound): the
-    scanned rows written and the end rows read back."""
-    return segsum_bytes(n, use, v) + 4 * n * use + 4 * ends * use
+    output rows of the ends ids written twice (the memset, then the end
+    row), the sorted ids read again at the end rows, and the carry's g
+    written, read and written back, a read and each block's head row read
+    and written back, 24 bytes a block a column."""
+    return segsum_bytes(n, use, v) + 4 * ends * use + 4 * n + 24 * -(-n // ss.BLOCK) * use
+
+
+def float_differ(got: torch.Tensor, ref: torch.Tensor) -> int:
+    """Elements that differ as floats (+0 and -0 equal), a NaN equal to a
+    NaN."""
+    return int(((got != ref) & ~(got.isnan() & ref.isnan())).sum())
+
+
+def segsum_launch(lib: ctypes.CDLL, idx: torch.Tensor, cot: torch.Tensor, v: int):
+    """lib's segsum kernels on one input, by the tree's interface
+    (bind_tree): (launch, out), the sort and every buffer made once, as the
+    wrapper makes them; launch() enqueues the kernels, not the sort."""
+    n, use = cot.shape
+    sid, perm = torch.sort(idx.to(torch.int32), stable=True)
+    nb = -(-n // ss.BLOCK)
+    f32 = dict(dtype=torch.float32, device=cot.device)
+    out = torch.empty((v, use), **f32)
+    g, a = torch.empty((2, nb * use), **f32), torch.empty((2, nb), **f32)
+    stream = ctypes.c_void_p(torch.cuda.current_stream().cuda_stream)
+    p = lambda x: ctypes.c_void_p(x.data_ptr())  # noqa: E731
+    if lib.segsum_ends:
+        y = torch.empty((n, use), **f32)
+        end = torch.empty(v, dtype=torch.int32, device=cot.device)
+        calls = [(lib.tpurt_segsum_scan, (p(sid), p(perm), p(cot), cot.stride(0), n, use, v,
+                                          p(y), p(end))),
+                 (lib.tpurt_segsum_carry, (p(sid), p(y), n, use, p(g[0]), p(g[1]), p(a[0]),
+                                           p(a[1]))),
+                 (lib.tpurt_segsum_ends, (p(sid), p(end), p(y),
+                                          p(g[ss.carry_passes(nb) % 2]), v, use, p(out)))]
+        keep = (y, end)
+    else:
+        calls = [(lib.tpurt_segsum_scan, (p(sid), p(perm), p(cot), cot.stride(0), n, use, v,
+                                          p(out), p(g[0]), p(a[0]))),
+                 (lib.tpurt_segsum_carry, (p(sid), n, use, v, p(g[0]), p(g[1]), p(a[0]),
+                                           p(a[1]), p(out)))]
+        keep = ()
+
+    def launch() -> None:
+        for fn, args in calls:
+            err = fn(*args, stream)
+            if err:
+                fail(f"segsum failed to launch: {err}")
+
+    launch.keep = (sid, perm, g, a, keep, cot)
+    return launch, out
 
 
 def segsum_input(name: str, idx: torch.Tensor, cot: torch.Tensor, v: int) -> dict:
     """segment_accumulate's kernels against the twin on one input (every
-    element, 0 differing or the script fails at its end), then device ms
-    by CUDA events: the sort, each kernel by bare launches (scan, carry,
-    ends), the wrapper call, the twin, index_add_ (atomic) and index_add_
-    under torch.use_deterministic_algorithms (torch's deterministic
-    route); the kernels' bound from this input's bytes (segsum_bytes), the
-    call's from the ids as given instead of sorted (call_bound_ms), and the
-    design's bytes beside (design_bound_ms)."""
+    element equal as floats, NaN where the twin's is NaN; a differing one
+    fails the script at its end), then device ms by CUDA events: the sort,
+    the kernels by bare launches (scan: the memset and the scan; kernels:
+    those, the carry and the end rows; carry the difference), the wrapper call, the twin, index_add_ (atomic) and
+    index_add_ under torch.use_deterministic_algorithms (torch's
+    deterministic route); the kernels' bound from this input's bytes
+    (segsum_bytes), the call's from the ids as given instead of sorted
+    (call_bound_ms), and the design's bytes beside (design_bound_ms); the
+    launches of one call's kernels, the memset included (device_launches;
+    more than SEGSUM_MAX_LAUNCHES on an input but above_rule fails the
+    script at its end)."""
     n, use = cot.shape
     got = ss.segment_accumulate(idx, cot, v)
     ref = ss.segment_accumulate_ref(idx, cot, v)
-    differ, err = int((got != ref).sum()), max_abs(got, ref)
+    differ = float_differ(got, ref)
+    finite = got.isfinite() & ref.isfinite()
+    err = max_abs(got[finite], ref[finite])
     w = ss.prepare(idx, cot, v)
     ss.launch_scan(w)
     ss.launch_carry(w)
-    ss.launch_ends(w)
-    differ += int((w.out != ref).sum())
-    ends = int((w.end >= 0).sum())
+    differ += float_differ(w.out, ref)
+    ends = int(torch.unique_consecutive(w.sid).numel())
+    del got, ref, finite
     i32 = idx.to(torch.int32)
+    def kernels():
+        ss.launch_scan(w)
+        ss.launch_carry(w)
+
     ms = {"sort": cuda_ms(lambda: torch.sort(i32, stable=True)),
           "scan": cuda_ms(lambda: ss.launch_scan(w)),
-          "carry": cuda_ms(lambda: ss.launch_carry(w)),
-          "ends": cuda_ms(lambda: ss.launch_ends(w)),
+          "kernels": cuda_ms(kernels),
           "call": cuda_ms(lambda: ss.segment_accumulate(idx, cot, v)),
           "plain": cuda_ms(lambda: ss.segment_accumulate_ref(idx, cot, v), iters=3, warmup=1),
           "index_add": cuda_ms(lambda: cot.new_zeros((v, use)).index_add_(0, idx, cot))}
@@ -3373,20 +3560,60 @@ def segsum_input(name: str, idx: torch.Tensor, cot: torch.Tensor, v: int) -> dic
             lambda: cot.new_zeros((v, use)).index_add_(0, idx, cot), iters=3, warmup=1)
     finally:
         torch.use_deterministic_algorithms(False)
-    ms["kernels"] = ms["scan"] + ms["carry"] + ms["ends"]
+    # the carry rewrites g in place, so it is timed behind the scan that
+    # makes g: its ms is the difference
+    ms["carry"] = ms["kernels"] - ms["scan"]
     nbytes = segsum_bytes(n, use, v)
     bound = nbytes / PEAK_BYTES_S * 1e3
     call_bound = (idx.element_size() * n + 4 * n * use + 4 * v * use) / PEAK_BYTES_S * 1e3
     design_bound = segsum_design_bytes(n, use, v, ends) / PEAK_BYTES_S * 1e3
+    launched = device_launches(kernels)
+    launches = sum(launched.values()) or None
     phase("segsum", input=name, rows=n, use=use, num_rows=v, ends=ends, blocks=w.nb,
-          carry_passes=ss.carry_passes(w.nb), differing=differ, max_abs_err=err,
+          carry_passes=ss.carry_passes(w.nb),
+          launches=launches if launches else "not measured (the profiler missed a marker)",
+          launched=json.dumps(launched), differing=differ, max_abs_err=err,
           **{f"{k}_ms": f"{x:.4f}" for k, x in ms.items()},
           bytes=nbytes, bound_ms=f"{bound:.6f}", bound_share=f"{bound / ms['kernels']:.4f}",
           call_bound_ms=f"{call_bound:.6f}", design_bound_ms=f"{design_bound:.6f}")
     if differ:
         FAILURES.append(f"segsum {name}: {differ} elements differ from the twin")
+    if launches and name != "above_rule" and launches > SEGSUM_MAX_LAUNCHES:
+        FAILURES.append(f"segsum {name}: {launches} launches a call over {w.nb} blocks")
     return dict(ms=ms, err=err, differ=differ, bound_ms=bound, call_bound_ms=call_bound,
-                design_bound_ms=design_bound)
+                design_bound_ms=design_bound, launches=launches)
+
+
+@torch.no_grad()
+def segsum_ab(libs: dict, inputs: dict) -> dict:
+    """[segsum_ab]: the segsum kernels of this checkout ("new") against
+    other trees' (libs: {"new": lib, name: lib, ...}, each bound by its own
+    interface, segsum_launch) on each input (name -> (idx, cot, v)): every
+    tree's output equal to this one's as floats, NaN where it is NaN (a
+    differing element fails the script at its end); then in turns other,
+    new, new, other for each other tree, the kernels' device ms by CUDA
+    events over bare launches (the sort made before)."""
+    out = {}
+    for cell, (idx, cot, v) in inputs.items():
+        runs = {name: segsum_launch(lib, idx, cot, v) for name, lib in libs.items()}
+        for launch, _ in runs.values():
+            launch()
+        torch.cuda.synchronize()
+        ref = runs["new"][1]
+        bad = {name: float_differ(res, ref) for name, (_, res) in runs.items() if name != "new"}
+        order = [name for other in libs if other != "new"
+                 for name in (other, "new", "new", other)] or ["new"]
+        turns = [(name, events_ms(runs[name][0])) for name in order]
+        mean = lambda name: float(np.mean([t for s, t in turns if s == name]))  # noqa: E731
+        out[cell] = {name: dict(device_ms=mean(name)) for name in libs}
+        phase("segsum_ab", input=cell, rows=cot.shape[0], use=cot.shape[1], num_rows=v,
+              differing=json.dumps(bad),
+              **{f"{name}_device_ms": f"{mean(name):.4f}" for name in libs},
+              device_turns=json.dumps([[s, round(t, 4)] for s, t in turns]))
+        if any(bad.values()):
+            FAILURES.append(f"segsum ({cell}): outputs differ from a --parent tree's: {bad}")
+        del runs, ref
+    return out
 
 
 def segsum_rule(name: str, inv: InverseRenderer, target: torch.Tensor) -> dict:
@@ -3445,29 +3672,10 @@ def segsum_rule(name: str, inv: InverseRenderer, target: torch.Tensor) -> dict:
 # ---------------------------------------------------------------------------
 def packet_launch(kernel: str, packed, rays: Rays, t_max=None, k: int | None = None):
     """A bare launch of a packet kernel (packet_closest, packet_occluded,
-    packet_knear) through the port's library: arguments and outputs made
-    here, once, as the wrapper makes them (the hard-frame walks through
-    walk_launch); launch() enqueues the kernel on the current stream."""
-    if kernel in PACKET_WALKS:
-        return walk_launch(this_library(), kernel, packed, rays, t_max)[0]
-    lib = _build.load()
-    o, d = rays.o.reshape(-1, 3), rays.d.reshape(-1, 3)
-    n, dev = o.shape[0], o.device
-    head = [_build.ptr(x) for x in (packed.node_f32, packed.node_i32, packed.tri_rows,
-                                     packed.tri_ids, o, d)]
-    tm = torch.as_tensor(t_max, dtype=torch.float32, device=dev).expand(n).contiguous()
-    outs = [torch.empty((n, k), dtype=torch.int32, device=dev), tm]
-    args = (*head, _build.ptr(tm), n, ctypes.c_float(DEFAULT_T_MIN), k,
-            ctypes.c_float(-BAND), ctypes.c_float(1.0 + BAND), _build.ptr(outs[0]))
-    fn = getattr(lib, f"tpurt_{kernel}")
-
-    def launch() -> None:
-        err = fn(*args, ctypes.c_void_p(torch.cuda.current_stream().cuda_stream))
-        if err:
-            fail(f"{kernel} failed to launch: {_build.error_string(err)}")
-
-    launch.keep = (o, d, outs)  # what the kernel reads and writes lives as long
-    return launch
+    packet_knear) through the port's library, its arguments and outputs
+    made once, as the wrapper makes them (walk_launch); launch() enqueues
+    the kernel on the current stream."""
+    return walk_launch(this_library(), kernel, packed, rays, t_max, k)[0]
 
 
 def events(fn):
@@ -3539,10 +3747,51 @@ def packet_cells(view: str, packed, frame: Rays, sh: Rays, t_sh: torch.Tensor) -
 
 
 @torch.no_grad()
+def knear_packet_ab(libs: dict, scene, cam: Camera, bscene, bcam: Camera) -> dict:
+    """[knear_ab]'s packet cells: packet_knear against each other tree's on
+    the band-0.08 packed trees, row-major rays as the soft render calls it:
+    [fit]'s chunk 0 (k_layers, then k_occ on its candidates), the 1M main
+    view's occluder call (k_occ on the candidates from the whole frame's
+    layers), and the bunny 512^2's layers, occluders and one k = 16 call
+    (the KM 16 list)."""
+    kl, ko = SOFT["k_layers"], SOFT["k_occ"]
+    out = {}
+    for view, sc, c in (("sponza1m", scene, cam), ("bunny", bscene, bcam)):
+        soft = make_tracer(sc, "packet", band=BAND).packed
+        table = tri_table(sc.tris)
+        frame = gen_primary_rays(c)
+        cells = {}
+        if view == "sponza1m":
+            chunk = rays_slice(frame, slice(0, frame.o.shape[0] // FIT_CHUNKS))
+            cand, tm = occluder_call(table, sc, chunk, kp.k_nearest_ids_packet(chunk, soft, kl,
+                                                                               BAND))
+            cells["fit_chunk0_layers"] = [(chunk, kl, T_MAX)]
+            cells["fit_chunk0_occluders"] = [(cand, ko, tm)]
+            cand, tm = occluder_call(table, sc, frame, kp.k_nearest_ids_packet(frame, soft, kl,
+                                                                               BAND))
+            cells["main_occluders"] = [(cand, ko, tm)]
+        else:
+            cand, tm = occluder_call(table, sc, frame, kp.k_nearest_ids_packet(frame, soft, kl,
+                                                                               BAND))
+            cells.update(bunny_layers=[(frame, kl, T_MAX)], bunny_occluders=[(cand, ko, tm)],
+                         bunny_k16=[(frame, kp.KMAX, T_MAX)])
+        runs = {"new": lambda rays, k, t_max, soft=soft: kp.k_nearest_ids_packet(
+                    rays, soft, k, BAND, t_max=t_max),
+                **{name: parent_knear(lib, soft, "packet_knear")
+                   for name, lib in libs.items() if name != "new"}}
+        out.update(knear_ab("packet_knear", soft, runs, libs, cells))
+        del soft, table, frame, cells, cand, tm
+    return out
+
+
+@torch.no_grad()
 def packet_ab(libs: dict, dev) -> None:
     """--packet-ab: [walk_ab]'s packet cells alone, on the 1M main view's and
     the overview's row-major frames and the bunny 512^2 (shadow rays from
-    this build's hits), against each other tree; no result line."""
+    this build's hits), against each other tree; then [knear_ab]'s packet
+    cells (knear_packet_ab) and [segsum_ab] on [segsum]'s inputs but the
+    bunny fit's (the 1M fit's recorded gathers, tpurt's patterns, the
+    non-finite and the above-rule inputs); no result line."""
     scene, cam = make_sponza_scene(num_tris=NUM_TRIS, width=WIDTH, height=HEIGHT, device=dev)
     over = Camera.create(eye=OVERVIEW_EYE, target=OVERVIEW_TARGET, fov_y_deg=50.0,
                          width=WIDTH, height=HEIGHT, device=dev)
@@ -3556,6 +3805,15 @@ def packet_ab(libs: dict, dev) -> None:
         sh, t_sh = shadow_rays(sc, p, nrm, h.valid)
         walk_ab(libs, packet_cells(view, tracer.packed, frame, sh, t_sh))
         del tracer, frame, h, p, nrm, sh, t_sh
+    knear_packet_ab(libs, scene, cam, bscene, bcam)
+    with torch.enable_grad():
+        inv, target, _, _ = fit_problem(scene, cam)
+        inputs = record_segsum(inv, target, "fit")
+    del inv, target
+    inputs.update(segsum_patterns(dev))
+    inputs.update(segsum_nonfinite(dev))
+    inputs.update(segsum_above_rule(dev))
+    segsum_ab(libs, inputs)
     if FAILURES:
         fail("; ".join(FAILURES))
 
@@ -3569,7 +3827,8 @@ def packet_view(view: str, tracer: Tracer, soft_packed, frame: Rays,
     packet_occluded on its shadow rays (per-ray t_max, built from the
     twin's hits as _shade_layer builds them), packet_knear as the soft
     render calls it on the band tree (k = 4 on the frame, then k_occ = 8 on
-    the candidates from layer 0 with 2 x the segment as t_max), each
+    the candidates from layer 0 with 2 x the segment as t_max; with
+    layers_twin, k = 16 on the frame too), each
     against its twin (packet_call); the hard frame's ms split into closest,
     occluded and glue (CUDA events), beside the wide8 and binary frames of
     this run; the rays whose closest hit or flag differs from the binary
@@ -3615,6 +3874,12 @@ def packet_view(view: str, tracer: Tracer, soft_packed, frame: Rays,
                 lambda: kp.k_nearest_ids_packet(cand, soft_packed, SOFT["k_occ"], BAND, t_max=tm),
                 28, 4 * SOFT["k_occ"], t_max=tm, k=SOFT["k_occ"])
     del cand, tm, ids
+    if layers_twin:  # the longest list (KM 16) on the frame
+        packet_call(out, view, "k16", "packet_knear", soft_packed, frame,
+                    lambda st: kp.k_nearest_ids_packet_ref(frame, soft_packed, kp.KMAX, BAND,
+                                                           stats=st),
+                    lambda: kp.k_nearest_ids_packet(frame, soft_packed, kp.KMAX, BAND),
+                    24, 4 * kp.KMAX, t_max=T_MAX, k=kp.KMAX)
     # against the binary engine's per-ray kernels on the same tree
     hbin = kb.traverse_packed(frame, packed)
     bbin = kb.occluded_packed(sh, packed, t_sh)
@@ -3655,6 +3920,69 @@ def packet_fit_chunk(scene, cam: Camera, soft_packed) -> dict:
                                                        t_max=tm, stats=st),
                 lambda: kp.k_nearest_ids_packet(cand, soft_packed, SOFT["k_occ"], BAND, t_max=tm),
                 28, 4 * SOFT["k_occ"], t_max=tm, k=SOFT["k_occ"])
+    return out
+
+
+@contextlib.contextmanager
+def packet_knear_of(lib: ctypes.CDLL):
+    """The render pipeline's k_nearest_ids_packet through lib's packet_knear
+    (another tree's, bound by bind_tree) for the duration."""
+    saved = pipeline_mod.k_nearest_ids_packet
+
+    def run(rays: Rays, packed, k: int, band: float, t_min: float = DEFAULT_T_MIN,
+            t_max=T_MAX) -> torch.Tensor:
+        if band != BAND or t_min != DEFAULT_T_MIN:
+            fail(f"packet_knear_of takes band {BAND} and the default t_min only")
+        launch, (ids,) = walk_launch(lib, "packet_knear", packed, rays, t_max, k)
+        launch()
+        return ids
+
+    pipeline_mod.k_nearest_ids_packet = run
+    try:
+        yield
+    finally:
+        pipeline_mod.k_nearest_ids_packet = saved
+
+
+def fit_packet_ab(libs: dict, inv: InverseRenderer, target: torch.Tensor) -> dict:
+    """[fit_packet] with each tree's packet_knear (the pipeline's wrapper
+    swapped for the other trees', packet_knear_of) in turns other, new, new,
+    other: step seconds (host clock between synchronizes, the mean of
+    steps 2 on), the parameter elements that differ from the new kernel's
+    fit; then one profiled step with each other tree's kernel
+    (profile_fit_packet_<tree>, its packet_knear share)."""
+    order = [name for other in libs if other != "new" for name in (other, "new", "new", other)]
+    runs = []
+    for name in order:
+        secs, t_last = [], [0.0]
+
+        def on_step(i: int, loss: float) -> None:
+            torch.cuda.synchronize()
+            now = time.perf_counter()
+            secs.append(now - t_last[0])
+            t_last[0] = now
+
+        with packet_knear_of(libs[name]) if name != "new" else contextlib.nullcontext():
+            torch.cuda.synchronize()
+            t_last[0] = time.perf_counter()
+            res = inv.fit(target, callback=on_step)
+        runs.append((name, float(np.mean(secs[1:])), res))
+    new = next(r for n, _, r in runs if n == "new")
+    out = {}
+    for name in libs:
+        step = float(np.mean([t for n, t, _ in runs if n == name]))
+        differ = sum(int((r.params[k] != new.params[k]).sum()) for n, _, r in runs if n == name
+                     for k in r.params)
+        out[name] = dict(step_s=step, differing=differ)
+    phase("fit_packet_ab", turns=json.dumps([(n, round(t, 5)) for n, t, _ in runs]),
+          **{f"{n}_step_s": f"{v['step_s']:.5f}" for n, v in out.items()},
+          differing=json.dumps({n: v["differing"] for n, v in out.items()}))
+    if any(v["differing"] for v in out.values()):
+        FAILURES.append(f"fit_packet: a --parent tree's fit differs: {out}")
+    for name in libs:
+        if name != "new":
+            with packet_knear_of(libs[name]):
+                profile_fit(inv, target, name=f"profile_fit_packet_{name}", kernel="packet_knear")
     return out
 
 
@@ -3718,8 +4046,12 @@ def packet_phase(scene, cam: Camera, bscene, bcam: Camera, beside: dict,
     del bt, bsoft
     fitp = fit_phase(bscene, bcam, method="packet", chunks=BIN_FIT_CHUNKS, steps=BIN_FIT_STEPS,
                      name="fit_packet", kernel="packet_knear")
+    profile_fit(fitp["inv"], fitp["target"], name="profile_fit_packet", kernel="packet_knear")
     launches_fit = fitp["launches"]
+    fit_ab = fit_packet_ab(libs, fitp["inv"], fitp["target"]) if len(libs) > 1 else None
     del fitp
+    # with --parent: [knear_ab]'s packet cells
+    knear = knear_packet_ab(libs, scene, cam, bscene, bcam) if len(libs) > 1 else None
     # the wavefront engine: the bunny's hard frame, bitwise the "bvh" frame
     with torch.no_grad():
         wave, s_wave = sync_time(lambda: render(bscene, bcam, method="wave"))
@@ -3730,7 +4062,8 @@ def packet_phase(scene, cam: Camera, bscene, bcam: Camera, beside: dict,
     if not same:
         FAILURES.append("the wave frame differs from the bvh frame")
     phase("packet", seconds=f"{time.perf_counter() - t0:.1f}")
-    return dict(views=views, launches=launches, fit_launches=launches_fit, ab=ab)
+    return dict(views=views, launches=launches, fit_launches=launches_fit, ab=ab,
+                knear_ab=knear, fit_ab=fit_ab)
 
 
 def main() -> None:
@@ -3740,8 +4073,9 @@ def main() -> None:
                          "the kernels): time its k-nearest kernels against these in "
                          "turns ([knear_ab], [walk_ab]); repeatable")
     ap.add_argument("--packet-ab", action="store_true",
-                    help="after [build], run only [walk_ab]'s packet cells against the "
-                         "--parent trees, and print no result line")
+                    help="after [build], run only [walk_ab]'s and [knear_ab]'s packet cells "
+                         "and [segsum_ab] against the --parent trees, and print no result "
+                         "line")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         fail("torch.cuda.is_available() is False: this script needs an NVIDIA GPU")
@@ -3884,6 +4218,7 @@ def main() -> None:
     # -- the gather backward: segsum on the fit's own inputs, both backends --
     seg_inputs = record_segsum(fit["inv"], fit["target"], "fit")
     seg = {k: segsum_input(k, *x) for k, x in seg_inputs.items()}
+    seg_ab = segsum_ab(walk_libs, seg_inputs) if others else None
     del seg_inputs
     seg_rule = {"fit": segsum_rule("fit", fit["inv"], fit["target"])}
     # -- the distributed paths at world 1 (NCCL): the data-parallel fit --
@@ -3925,7 +4260,11 @@ def main() -> None:
     profile_fit(fit_b["inv"], fit_b["target"], name="profile_fit_bin", kernel="knear_bin")
     seg_inputs = record_segsum(fit_b["inv"], fit_b["target"], "bunny")
     seg_inputs.update(segsum_patterns(dev))
+    seg_inputs.update(segsum_nonfinite(dev))
+    seg_inputs.update(segsum_above_rule(dev))
     seg.update({k: segsum_input(k, *x) for k, x in seg_inputs.items()})
+    if others:
+        seg_ab.update(segsum_ab(walk_libs, seg_inputs))
     del seg_inputs
     seg_rule["fit_bin"] = segsum_rule("fit_bin", fit_b["inv"], fit_b["target"])
     seg_picks = ("segsum" if all(r["ratio"] <= SEGSUM_RULE for r in seg_rule.values())
@@ -4155,9 +4494,12 @@ def main() -> None:
             "bound_ms": round(one["bound"]["bound_ms"], 6), "bound_by": one["bound"]["bound_by"],
             "library_ms": None, "device_ms": round(one["device_ms"], 4),
             "view": f"{view}_{call}", "calls": calls,
-            # with --parent: [walk_ab]'s cells of this kernel, each tree's ms
-            # and device ms in turns (null without)
-            "parent": {cell: v for cell, v in pk["ab"].items() if cell.startswith(name)}
+            # with --parent: [walk_ab]'s cells of this kernel ([knear_ab]'s
+            # for packet_knear, with [fit_packet]'s step seconds), each
+            # tree's ms and device ms in turns (null without)
+            "parent": ({cell: v for cell, v in pk["ab"].items() if cell.startswith(name)}
+                       if name != "packet_knear" else
+                       {**pk["knear_ab"], "fit_packet": pk["fit_ab"]})
             if pk["ab"] else None,
             # launches on the ring's packet engine, each read from its run
             "dist_launches": {cell: counts[name] for cell, counts in {
@@ -4169,10 +4511,12 @@ def main() -> None:
             **({f"ring_frame_5m_{k}": v for k, v in ring5p["ring_packet"]["twin"].items()
                 if k.startswith(name)} if name != "packet_knear" else {})})
     # segsum: the soft_surface gather of [fit]'s first chunk (K x R rows,
-    # 12 of 15 columns) as ms (the three kernels' device ms by bare
-    # launches), plain_ms the twin's, library_ms index_add_'s (atomic);
+    # 12 of 15 columns) as ms (the memset's and the kernels' device ms by
+    # bare launches), plain_ms the twin's, library_ms index_add_'s (atomic);
     # launches from [fit] (3 steps), the bunny's fit, the soft area renders
-    # and the dist paths; every recorded input's ms and bound under inputs
+    # and the dist paths; kernel_launches_per_call as the profiler counted
+    # one call's (device_launches); every recorded input's ms and bound
+    # under inputs
     main_seg = seg["fit_soft_surface"]
     kernels.append({
         "name": "segsum", "route": "cuda", "source": SEGSUM_SRC, "replaces": REPLACES["segsum"],
@@ -4185,6 +4529,7 @@ def main() -> None:
         "call_bound_ms": round(main_seg["call_bound_ms"], 6),
         "design_bound_ms": round(main_seg["design_bound_ms"], 6),
         "differing": sum(r["differ"] for r in seg.values()),
+        "kernel_launches_per_call": main_seg["launches"],
         "launches_per_fit_step": fit_launches["segsum"] / FIT_STEPS,
         "fit_bin_launches": seg_fit_bin_launches,
         "area_launches": {v: area[v]["launches"]["segsum"] for v in ("bunny_soft",
@@ -4199,7 +4544,12 @@ def main() -> None:
                      "ratio": round(r["ratio"], 4), "repeat_differing": r["differing"]}
                  for k, r in seg_rule.items()},
         "inputs": {k: {**{m: round(x, 4) for m, x in r["ms"].items()},
-                       "bound_ms": round(r["bound_ms"], 6)} for k, r in seg.items()}})
+                       "bound_ms": round(r["bound_ms"], 6), "launches": r["launches"]}
+                   for k, r in seg.items()},
+        # with --parent: [segsum_ab]'s device ms of each tree's kernels on
+        # every input, in turns (null without)
+        "parent": ({cell: {t: round(x["device_ms"], 4) for t, x in r.items()}
+                    for cell, r in seg_ab.items()} if seg_ab else None)})
     phase("done", seconds=f"{time.perf_counter() - t_start:.1f}")
     dist.destroy_process_group()
     if FAILURES:

@@ -43,9 +43,22 @@
 // on the any-hit and bunny frames; 3 packets an SM spill).  At the card's
 // f32 instruction rate the closest-hit walk runs at ~60% of the operations
 // its function needs on the 1M frames, the any-hit walk at 30-45% (short
-// walks, a barrier at every leaf).  The k-nearest walk keeps one
-// 1,024-thread CTA a packet: its lists (up to 16 (t, id) pairs a ray) live
-// in shared memory, slot-major, one bank per thread.
+// walks, a barrier at every leaf).
+//
+// The k-nearest walk is the same walk with a list of up to 16 (t, id)
+// pairs a ray.  The lists live in dynamic shared memory, slot-major, a
+// warp's lanes on distinct banks: KM x 8 KB a packet (KM = 4, 8 or 16, the
+// smallest >= k), so two packets and their windows fit an SM at KM 4 and 8
+// (~35 and ~67 KB a packet) and one at KM 16 (~131 KB; 1,024 threads of
+// one ray there).  A visit's bound and a candidate's reject test read the
+// k-th entry there; an accepted candidate runs tpurt's insertion over the
+// live slots.  Its bound is the same count of slab and Möller–Trumbore
+// tests as the hard-frame walks' (PERF.md).  Measured in turns and left
+// out (PERF.md): each ray's k-th entry kept in registers (~1% slower on 5
+// of 6 cells at 64 registers), the KM 4 list wholly in registers (up to
+// 17% slower), a leaf's accepted slots collected first and inserted after
+// (faster on the bunny, slower on the sponza cells), and 512 threads of 2
+// rays at KM 16 (18% slower than 1,024 of one).
 //
 // The arithmetic is tpurt's packet engine's: _safe_inv, the slab as
 // (lo - o) * inv with NaN-propagating min/max (slab_bin_n), and
@@ -118,12 +131,14 @@ struct PacketShared {
 // copies, then a barrier.  node and base are uniform over the CTA, so the
 // refill is too; the visit before read its record before its vote's
 // barrier, so nothing reads the window while it is rewritten.
+// THREADS: the CTA's threads, which share the copies.
+template <int THREADS = kThreads>
 __device__ __forceinline__ NodeRec window_record(NodeRec* win, int& base, int node,
                                                  const float4* __restrict__ nf,
                                                  const int4* __restrict__ ni, int num_nodes) {
   if ((unsigned)(node - base) >= (unsigned)kWindow) {
     base = node;
-    for (int q = threadIdx.x; q < 3 * kWindow; q += kThreads) {
+    for (int q = threadIdx.x; q < 3 * kWindow; q += THREADS) {
       const int m = base + q / 3, part = q % 3;
       if (m < num_nodes) {
         const void* src = part < 2 ? static_cast<const void*>(nf + 2 * (size_t)m + part)
@@ -250,86 +265,124 @@ packet_occluded_kernel(const float4* __restrict__ nf, const int4* __restrict__ n
   }
 }
 
-// The k nearest band hits of each ray by (t, id), tpurt's insertion, the
-// lists slot-major in dynamic shared memory: ts[s * kPacket + thread], then
-// ids the same.  KM (4, 8 or 16, the smallest >= k) bounds the unrolled
-// loops; k <= KM entries are live.
+// The k-nearest walk's shape for a list bound KM: rays a thread and packets
+// resident on an SM.  Two packets' lists (2 x KM x 1,024 x 8 bytes) and
+// windows fit an SM's shared memory at KM 4 and 8, not at 16, where one
+// packet runs alone on its SM, 1,024 threads of one ray (faster there than
+// 512 of two, PERF.md).
 template <int KM>
-__global__ void __launch_bounds__(kPacket, 1)
+struct KnearShape {
+  static constexpr int rays = KM <= 8 ? kRays : 1;
+  static constexpr int threads = kPacket / rays;
+  static constexpr int ctas = KM <= 8 ? kCtas : 1;
+};
+
+// tpurt's insertion of a candidate (t, id) that sorts before the k-th entry
+// into one ray's list, whose slot s is lt[s * kPacket], li[s * kPacket]:
+// position = the count of live entries lexicographically below (t, id),
+// the later live entries shifted up one slot (the last falls off).
+template <int KM>
+__device__ __forceinline__ void list_insert(float* lt, int* li, int k, float t, int id) {
+  int pos = 0;
+#pragma unroll
+  for (int s = 0; s < KM; ++s) {
+    const float e = lt[s * kPacket];
+    pos += (s < k) && ((e < t) || ((e == t) && (li[s * kPacket] < id)));
+  }
+#pragma unroll
+  for (int s = KM - 1; s > 0; --s) {
+    if (s < k && s > pos) {
+      lt[s * kPacket] = lt[(s - 1) * kPacket];
+      li[s * kPacket] = li[(s - 1) * kPacket];
+    }
+  }
+  lt[pos * kPacket] = t;
+  li[pos * kPacket] = id;
+}
+
+// The k nearest band hits of each ray by (t, id), tpurt's insertion.  The
+// walk is the hard-frame walks' (R rays a thread, the window of records,
+// the staged leaf), the lists slot-major in dynamic shared memory: slot s
+// of ray j of thread t at ts[s * kPacket + j * threads + t], then ids the
+// same, so a warp's lanes read distinct banks for each of a thread's rays.
+// The k-th entry gives the visit's bound min(k-th t, t_max) and a
+// candidate's reject test.  KM (4, 8 or 16, the smallest >= k) bounds the
+// unrolled loops; k <= KM entries are live.
+template <int KM>
+__global__ void __launch_bounds__(KnearShape<KM>::threads, KnearShape<KM>::ctas)
 packet_knear_kernel(const float4* __restrict__ nf, const int4* __restrict__ ni,
                     const float* __restrict__ rows, const int* __restrict__ ids,
                     const float* __restrict__ o, const float* __restrict__ d,
-                    const float* __restrict__ tm, int n, float t_min, int k,
+                    const float* __restrict__ tm, int n, int num_nodes, float t_min, int k,
                     float neg_band, float band_hi, int* __restrict__ ids_out) {
+  constexpr int R = KnearShape<KM>::rays, T = KnearShape<KM>::threads;
+  __shared__ PacketShared s;
   extern __shared__ float s_dyn[];
-  __shared__ float s_tri[kRowFloats];
-  __shared__ int s_id[kLeafCap];
   float* ts = s_dyn + threadIdx.x;
   int* li = reinterpret_cast<int*>(s_dyn + KM * kPacket) + threadIdx.x;
-  const size_t i = (size_t)blockIdx.x * kPacket + threadIdx.x;
-  const Ray r = packet_ray(o, d, i, n);
-  const float tmax = i < (size_t)n ? tm[i] : 0.0f;
+  const size_t i0 = (size_t)blockIdx.x * kPacket + threadIdx.x;
+  const float* kt = ts + (k - 1) * kPacket;  // ray j's k-th entry: kt[j * T], kid[j * T]
+  const int* kid = li + (k - 1) * kPacket;
+  Ray r[R];
+  float tmax[R];
 #pragma unroll
-  for (int s = 0; s < KM; ++s) {
-    ts[s * kPacket] = kTMax;
-    li[s * kPacket] = -1;
+  for (int j = 0; j < R; ++j) {
+    const size_t i = i0 + (size_t)j * T;
+    r[j] = packet_ray(o, d, i, n);
+    tmax[j] = i < (size_t)n ? tm[i] : 0.0f;
+#pragma unroll
+    for (int q = 0; q < KM; ++q) {
+      ts[q * kPacket + j * T] = kTMax;
+      li[q * kPacket + j * T] = -1;
+    }
   }
-  int node = 0;
+  int node = 0, base = -kWindow;
   while (node >= 0) {
-    const float4 a = __ldg(nf + 2 * node), b = __ldg(nf + 2 * node + 1);
-    const int4 rec = __ldg(ni + node);
-    const float upper = jmin(ts[(k - 1) * kPacket], tmax);
-    const bool want = __syncthreads_or(slab_bin_n(a, b, r, t_min, upper));
-    const bool leaf = rec.w > 0;
+    const NodeRec c = window_record<T>(s.win, base, node, nf, ni, num_nodes);
+    bool any = false;
+#pragma unroll
+    for (int j = 0; j < R; ++j)
+      any |= slab_bin_n(c.a, c.b, r[j], t_min, jmin(kt[j * T], tmax[j]));
+    const bool want = __syncthreads_or(any);
+    const bool leaf = c.r.w > 0;
     if (want && leaf) {
-      stage_leaf(rows, ids, rec.y, s_tri, s_id);
+      stage_leaf(rows, ids, c.r.y, s.tri, s.id);
 #pragma unroll 1
-      for (int j = 0; j < kLeafCap; ++j) {
-        float t, u, v, det;
-        mt(s_tri + 9 * j, r, t, u, v, det);
-        const int tid = s_id[j];
-        const float lt = ts[(k - 1) * kPacket];
-        const int lid = li[(k - 1) * kPacket];
-        const bool ok = (fabsf(det) > kDetEps) && (u >= neg_band) && (v >= neg_band) &&
-                        (u + v <= band_hi) && (t > t_min) && (t < tmax) && (tid >= 0) &&
-                        ((t < lt) || ((t == lt) && (tid < lid)));
-        if (ok) {
-          int pos = 0;
+      for (int q = 0; q < kLeafCap; ++q) {
+        const int tid = s.id[q];
 #pragma unroll
-          for (int s = 0; s < KM; ++s) {
-            const float e = ts[s * kPacket];
-            pos += (s < k) && ((e < t) || ((e == t) && (li[s * kPacket] < tid)));
-          }
-#pragma unroll
-          for (int s = KM - 1; s > 0; --s) {
-            if (s < k && s > pos) {
-              ts[s * kPacket] = ts[(s - 1) * kPacket];
-              li[s * kPacket] = li[(s - 1) * kPacket];
-            }
-          }
-          ts[pos * kPacket] = t;
-          li[pos * kPacket] = tid;
+        for (int j = 0; j < R; ++j) {
+          float t, u, v, det;
+          mt(s.tri + 9 * q, r[j], t, u, v, det);
+          if ((fabsf(det) > kDetEps) && (u >= neg_band) && (v >= neg_band) &&
+              (u + v <= band_hi) && (t > t_min) && (t < tmax[j]) && (tid >= 0) &&
+              ((t < kt[j * T]) || ((t == kt[j * T]) && (tid < kid[j * T]))))
+            list_insert<KM>(ts + j * T, li + j * T, k, t, tid);
         }
       }
     }
-    node = (want && !leaf) ? node + 1 : rec.x;
+    node = (want && !leaf) ? node + 1 : c.r.x;
   }
-  if (i < (size_t)n) {
-    for (int s = 0; s < k; ++s) ids_out[i * k + s] = li[s * kPacket];
+#pragma unroll
+  for (int j = 0; j < R; ++j) {
+    const size_t i = i0 + (size_t)j * T;
+    if (i < (size_t)n) {
+      for (int q = 0; q < k; ++q) ids_out[i * k + q] = li[q * kPacket + j * T];
+    }
   }
 }
 
 template <int KM>
 int launch_knear(int grid, const float4* nf, const int4* ni, const float* rows,
                  const int* ids, const float* o, const float* d, const float* tm, int n,
-                 float t_min, int k, float neg_band, float band_hi, int* out,
+                 int num_nodes, float t_min, int k, float neg_band, float band_hi, int* out,
                  cudaStream_t stream) {
   const int smem = 2 * KM * kPacket * (int)sizeof(float);
   cudaError_t err = cudaFuncSetAttribute(packet_knear_kernel<KM>,
                                          cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err != cudaSuccess) return (int)err;
-  packet_knear_kernel<KM><<<grid, kPacket, smem, stream>>>(
-      nf, ni, rows, ids, o, d, tm, n, t_min, k, neg_band, band_hi, out);
+  packet_knear_kernel<KM><<<grid, KnearShape<KM>::threads, smem, stream>>>(
+      nf, ni, rows, ids, o, d, tm, n, num_nodes, t_min, k, neg_band, band_hi, out);
   return (int)cudaGetLastError();
 }
 
@@ -337,8 +390,8 @@ int launch_knear(int grid, const float4* nf, const int4* ni, const float* rows,
 
 extern "C" {
 
-// Every entry point launches one CTA a packet on `stream` (the hard-frame
-// walks kThreads threads, the k-nearest walk 1,024), never synchronises, and
+// Every entry point launches one CTA a packet on `stream` (kThreads
+// threads; the k-nearest walk KnearShape's), never synchronises, and
 // returns cudaGetLastError() of the launch (0 on success).  node_f32 is
 // (num_nodes, 8) f32, node_i32 (num_nodes, 4) i32, rows (L, 128) f32 and
 // ids (L, 8) i32, all contiguous and 16-byte aligned (the wrapper checks);
@@ -372,20 +425,20 @@ int tpurt_packet_occluded(const float* node_f32, const int* node_i32, const floa
 int tpurt_packet_knear(const float* node_f32, const int* node_i32, const float* rows,
                        const int* ids, const float* o, const float* d, const float* tm, int n,
                        float t_min, int k, float neg_band, float band_hi, int* out,
-                       cudaStream_t stream) {
+                       int num_nodes, cudaStream_t stream) {
   if (n <= 0) return 0;
   if (k < 1 || k > kKMax) return (int)cudaErrorInvalidValue;
   const int grid = (n + kPacket - 1) / kPacket;
   const float4* nf = reinterpret_cast<const float4*>(node_f32);
   const int4* ni = reinterpret_cast<const int4*>(node_i32);
   if (k <= 4)
-    return launch_knear<4>(grid, nf, ni, rows, ids, o, d, tm, n, t_min, k, neg_band, band_hi,
-                           out, stream);
+    return launch_knear<4>(grid, nf, ni, rows, ids, o, d, tm, n, num_nodes, t_min, k,
+                           neg_band, band_hi, out, stream);
   if (k <= 8)
-    return launch_knear<8>(grid, nf, ni, rows, ids, o, d, tm, n, t_min, k, neg_band, band_hi,
-                           out, stream);
-  return launch_knear<16>(grid, nf, ni, rows, ids, o, d, tm, n, t_min, k, neg_band, band_hi,
-                          out, stream);
+    return launch_knear<8>(grid, nf, ni, rows, ids, o, d, tm, n, num_nodes, t_min, k,
+                           neg_band, band_hi, out, stream);
+  return launch_knear<16>(grid, nf, ni, rows, ids, o, d, tm, n, num_nodes, t_min, k,
+                          neg_band, band_hi, out, stream);
 }
 
 }  // extern "C"

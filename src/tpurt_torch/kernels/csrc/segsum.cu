@@ -7,44 +7,51 @@
 // segment_accumulate_ref is the twin); the kernels built with -fmad=false
 // agree with it bit for bit, +0 and -0 aside.  The wrapper sorts the ids
 // first (torch.sort, stable, int32 keys: the library sort, as tpurt's
-// lax.sort), then:
+// lax.sort), then four launches:
 //
-// (a) segsum_scan_kernel: one CTA a block of 256 sorted rows.  It reads
-//     each row's `use` columns through the permutation (no permuted copy
-//     in HBM; a row is `use` consecutive floats at stride ld, so 12 of 15
-//     columns or 9 of a 9-wide slice, neither 16-byte aligned, are read as
-//     single floats, neighbouring threads on neighbouring columns of a
-//     row), runs tpurt's 8 Hillis-Steele passes (y = blk ? y : y + y[j -
-//     sh], then blk |= blk[j - sh]) in double-buffered shared memory, 16
-//     columns at a time, and writes the scanned rows.  A thread whose
-//     sorted row ends a segment writes end[id] = its row (the ids' last
-//     positions, which tpurt gets from cumsum(counts) - 1), into an end
-//     array set to -1 first.
-// (b) segsum_carry_init and segsum_carry_pass: the block carries, carry[b]
-//     = g[b] + a[b] * carry[b - 1] with g the previous block's last
-//     scanned row where its tail id continues into b and a = 1 where the
-//     previous block is one whole segment that continues, solved by
-//     tpurt's log-shift composition (g = g + a * g[b - sh]; a = a *
-//     a[b - sh]) in ceil(log2 nb) passes, one launch a pass over (nb, use)
-//     threads, ping-ponging between two buffers.  The order is tpurt's,
-//     not a sequential loop's.  The head, tail and full flags of a block
-//     are read from the sorted ids where needed, not stored.
-// (c) segsum_ends_kernel: one thread an output element (v, c): e =
-//     end[v]; out = y[e] + carry[e / 256] * first, first = 1 where e's id
-//     is its block's head id, else 0, or 0 where no row has id v.  tpurt
-//     adds the carries to every row and then gathers the end rows; only
-//     the end rows are read here, with the same two operations.
+// (a) a memset of the output: 0 for every id that no row has.
+// (b) segsum_scan_kernel: one CTA a block of 256 sorted rows.  It reads
+//     each row's `use` columns through the permutation into shared memory
+//     (no permuted copy in HBM; neighbouring threads on neighbouring
+//     columns of a row, since 12 of 15 or 9 of a 9-wide slice are not
+//     16-byte aligned), 16 columns at a time, then gives each column to one
+//     warp, each lane holding 8 consecutive rows and their segment-start
+//     flags in registers.  tpurt's 8 Hillis-Steele passes (y = blk ? y : y
+//     + y[j - sh], then blk |= blk[j - sh]) take y[j - sh] from the lane's
+//     own registers or from lane - ceil(sh / 8) by __shfl_up_sync, every
+//     pass reading the previous pass's values only, so no barrier separates
+//     the passes.  Nothing scanned goes back to HBM but what is read later:
+//     each segment's last row into out[id] (the block's end rows,
+//     compacted, so a warp writes whole rows), and the block's last row as
+//     block b + 1's g (0 where b + 1 does not continue its tail id) with
+//     a[b + 1] = 1 where block b also is one whole segment (tpurt's cont
+//     and full).
+// (c) segsum_carry_kernel: the block carries, carry[b] = g[b] + a[b] *
+//     carry[b - 1], by tpurt's log-shift composition (g = g + a * g[b -
+//     sh]; a = a * a[b - sh]) in ceil(log2 nb) passes: one CTA a column,
+//     g and a ping-ponging in shared memory, a barrier between passes, the
+//     carries written back over g.  The order is tpurt's, not a sequential
+//     loop's.  g and a take 16 bytes a block: up to kCarryMaxBlocks blocks
+//     (3,719,168 rows) they fit the 227 KB a CTA may use.  Above that size
+//     (a rule on nb alone, stated here only)
+//     segsum_carry_pass runs one launch a pass over global buffers: the
+//     same operations in the same order.
+// (d) segsum_ends_kernel: one thread a sorted row; at a segment's last row
+//     out[v] = out[v] + carry[b] * first, in place, with first = 1 where v
+//     is block b's head id (its first piece) and 0 for the other ids that
+//     end in b.  For those, y + carry * 0 is y (+0 and -0 aside) unless the
+//     carry is inf or NaN, so they are rewritten only then: a non-finite
+//     carry reaches every end row of its block, as in tpurt.
 //
-// Bound: bytes.  The three kernels' function reads the sorted ids and the
-// permutation once (12 bytes a row) and the `use` columns of every row once,
-// and writes (num_rows, use): 12 + 4 use bytes a row plus 4 use a table row.
-// The arithmetic (8 adds a column a row, and the carry's on nb rows) is far
-// below the f32 rate.  What this design moves beyond that: the scanned rows
-// written and the end rows read back (4 use bytes a row, and up to 4 use a
-// table row), the gather of the input rows in sorted order (scattered
-// rows, a 32-byte sector for 12 to 48 bytes), and the carry's launches, one
-// a pass (12 to 15 at the fit's shapes), each over a few hundred KB that
-// stay in the L2.
+// Bound: bytes.  The function reads the sorted ids and the permutation once
+// (12 bytes a row) and the `use` columns of every row once, and writes
+// (num_rows, use): 12 + 4 use bytes a row plus 4 use a table row.  The
+// arithmetic (8 adds a column a row, and the carry's on nb rows) is far
+// below the f32 rate.  What this design moves beyond that: the gather of
+// the input rows in sorted order (scattered rows, a 32-byte sector for 12
+// to 48 bytes), the output's rows with ids written twice (the memset,
+// then the end row), the ids read again by (d), g and a (a few hundred KB,
+// in the L2), and the head rows read and rewritten by (d).
 
 #include <cuda_runtime.h>
 
@@ -52,111 +59,220 @@
 
 namespace {
 
-constexpr int kB = 256;         // rows of a scan block (tpurt's B)
-constexpr int kCols = 16;       // columns scanned at a time
-constexpr int kStride = kB + 1; // shared row of a column, padded against bank conflicts
-constexpr int kThreads = 256;   // carry and ends
+constexpr int kB = 256;                      // rows of a scan block (tpurt's B)
+constexpr int kLaneRows = 8;                 // consecutive rows a lane scans
+constexpr int kWarps = kB / 32;              // warps of a scan CTA (one thread a row)
+constexpr int kCols = 16;                    // columns scanned at a time
+constexpr int kBatch = 4;                    // rows' loads a thread issues together
+constexpr int kColStride = kB + kB / kLaneRows;  // a column in shared memory
+constexpr int kCarryThreads = 1024;          // the one-CTA carry
+constexpr int kCarryMaxBlocks = 14528;       // 227 KB / 16 bytes a block
+constexpr int kThreads = 256;                // the pass kernels above it
+static_assert(kB == 32 * kLaneRows && kB == 256, "a warp's lanes hold a block's 8 passes");
+
+// Row r of a column in shared memory, one word of padding every 8 rows, so
+// the 32 lanes of a warp, each reading its own row 8 lane + i, hit 32
+// distinct banks.
+__device__ __forceinline__ int srow(int r) { return r + r / kLaneRows; }
 
 __global__ void __launch_bounds__(kB)
 segsum_scan_kernel(const int* __restrict__ sid, const int64_t* __restrict__ perm,
-                   const float* __restrict__ cot, long long ld, int n, int use,
-                   int num_rows, float* __restrict__ y, int* __restrict__ end) {
-  __shared__ float s[2][kCols * kStride];
-  __shared__ unsigned char f[2][kB];
-  __shared__ int64_t srow[kB];
-  const int j = threadIdx.x;
-  const long long base = (long long)blockIdx.x * kB;
+                   const float* __restrict__ cot, long long ld, int n, int nb, int use,
+                   int num_rows, float* __restrict__ out, float* __restrict__ g,
+                   float* __restrict__ a) {
+  __shared__ float s[kCols * kColStride];
+  __shared__ int s_sid[kB];
+  __shared__ int64_t s_perm[kB];
+  __shared__ int s_end[kB];
+  __shared__ int s_count[kWarps + 1];
+  const int j = threadIdx.x, lane = j % 32, warp = j / 32, b = blockIdx.x;
+  const long long base = (long long)b * kB;
   const int rows = (int)min((long long)kB, n - base);  // real rows of the block
-  const long long i = base + j;
-  const int id = j < rows ? sid[i] : num_rows;         // padded rows: id num_rows
-  srow[j] = j < rows ? perm[i] : 0;
-  if (j < rows && (i + 1 == n || sid[i + 1] != id) && (unsigned)id < (unsigned)num_rows)
-    end[id] = (int)i;
-  // row 0 of a block always starts a segment (tpurt's prev = -1)
-  const int prev = j == 0 ? -1 : (j - 1 < rows ? sid[i - 1] : num_rows);
-  const bool start = id != prev;
+  const int id = j < rows ? sid[base + j] : num_rows;  // padded rows: id num_rows
+  s_sid[j] = id;
+  s_perm[j] = j < rows ? perm[base + j] : 0;
+  // the block's rows that end their id's segment, compacted in order into
+  // s_end[0, ends): a warp's by ballot, the warps' offsets by a prefix of
+  // their counts
   __syncthreads();
+  const bool is_end = j < rows && (unsigned)id < (unsigned)num_rows &&
+                      (base + j + 1 == n || (j + 1 < kB ? s_sid[j + 1] : sid[base + kB]) != id);
+  const unsigned ballot = __ballot_sync(0xFFFFFFFFu, is_end);
+  if (lane == 0) s_count[warp] = __popc(ballot);
+  __syncthreads();
+  if (j == 0) {
+    int sum = 0;
+    for (int w = 0; w < kWarps; ++w) {
+      const int c = s_count[w];
+      s_count[w] = sum;
+      sum += c;
+    }
+    s_count[kWarps] = sum;
+  }
+  __syncthreads();
+  if (is_end) s_end[s_count[warp] + __popc(ballot & ((1u << lane) - 1u))] = j;
+  const int ends = s_count[kWarps];
+  // the lane's rows 8 lane + i that start a segment, as bits i (row 0 of a
+  // block always starts one: tpurt's prev = -1)
+  unsigned start = 0;
+#pragma unroll
+  for (int i = 0; i < kLaneRows; ++i) {
+    const int r = kLaneRows * lane + i;
+    start |= (unsigned)(r == 0 || s_sid[r] != s_sid[r - 1]) << i;
+  }
+  // tpurt's cont and full for block b + 1's carry
+  const bool cont_next = b + 1 < nb && s_sid[kB - 1] == sid[base + kB];
+  const bool full = s_sid[0] == s_sid[kB - 1];
   for (int c0 = 0; c0 < use; c0 += kCols) {
     const int cg = min(kCols, use - c0);
-    for (int k = j; k < kB * cg; k += kB) {
-      const int r = k / cg, c = k - r * cg;
-      s[0][c * kStride + r] = r < rows ? cot[srow[r] * ld + c0 + c] : 0.0f;
-    }
-    bool blk = start;
-    f[0][j] = blk;
-    __syncthreads();
-    int cur = 0;
-    for (int sh = 1; sh < kB; sh <<= 1) {
-      const bool bpad = j >= sh ? f[cur][j - sh] != 0 : true;
-      for (int c = 0; c < cg; ++c) {
-        const float v = s[cur][c * kStride + j];
-        const float w = j >= sh ? s[cur][c * kStride + j - sh] : 0.0f;
-        s[cur ^ 1][c * kStride + j] = blk ? v : v + w;
+    // element m of this thread, m < cg, is q = j + m kB: row q / cg, column
+    // q % cg (stepping q by kB steps the row by dr and the column by dc);
+    // kBatch loads are issued before their stores
+    const int dr = kB / cg, dc = kB % cg;
+    int r = j / cg, c = j % cg;
+    for (int m0 = 0; m0 < cg; m0 += kBatch) {
+      float v[kBatch];
+      int at[kBatch];
+#pragma unroll
+      for (int i = 0; i < kBatch; ++i) {
+        at[i] = c * kColStride + srow(r);
+        if (m0 + i < cg) v[i] = r < rows ? cot[s_perm[r] * ld + c0 + c] : 0.0f;
+        r += dr;
+        c += dc;
+        if (c >= cg) { c -= cg; ++r; }
       }
-      blk = blk || bpad;
-      f[cur ^ 1][j] = blk;
-      cur ^= 1;
-      __syncthreads();
+#pragma unroll
+      for (int i = 0; i < kBatch; ++i)
+        if (m0 + i < cg) s[at[i]] = v[i];
     }
-    for (int k = j; k < rows * cg; k += kB) {
-      const int r = k / cg, c = k - r * cg;
-      y[(base + r) * use + c0 + c] = s[cur][c * kStride + r];
+    __syncthreads();
+    for (int c = warp; c < cg; c += kWarps) {
+      float* col = s + c * kColStride;
+      float y[kLaneRows];
+#pragma unroll
+      for (int i = 0; i < kLaneRows; ++i) y[i] = col[srow(kLaneRows * lane + i)];
+      unsigned blk = start;
+#pragma unroll
+      for (int p = 0; p < 8; ++p) {  // sh = 1, 2, ..., 128
+        const int sh = 1 << p;
+        // w[i] = y[8 lane + i - sh] and bpad's bits, from before this pass;
+        // rows below sh are segment starts by now, so what lane 0 reads
+        // there is never added
+        float w[kLaneRows];
+        unsigned bpad;
+        if (sh < kLaneRows) {
+#pragma unroll
+          for (int i = 0; i < kLaneRows; ++i)
+            w[i] = i >= sh ? y[(i - sh + kLaneRows) % kLaneRows]
+                           : __shfl_up_sync(0xFFFFFFFFu, y[(i - sh + kLaneRows) % kLaneRows], 1);
+          const unsigned prev = __shfl_up_sync(0xFFFFFFFFu, blk, 1);
+          bpad = (blk << sh) | ((lane > 0 ? prev : 0xFFu) >> (kLaneRows - sh));
+        } else {
+          const int q = sh / kLaneRows;
+#pragma unroll
+          for (int i = 0; i < kLaneRows; ++i) w[i] = __shfl_up_sync(0xFFFFFFFFu, y[i], q);
+          const unsigned prev = __shfl_up_sync(0xFFFFFFFFu, blk, q);
+          bpad = lane >= q ? prev : 0xFFu;
+        }
+#pragma unroll
+        for (int i = 0; i < kLaneRows; ++i) y[i] = (blk >> i) & 1u ? y[i] : y[i] + w[i];
+        blk = (blk | bpad) & 0xFFu;
+      }
+#pragma unroll
+      for (int i = 0; i < kLaneRows; ++i) col[srow(kLaneRows * lane + i)] = y[i];
     }
-    __syncthreads();  // the next column group overwrites s[0]
+    __syncthreads();
+    // the block's last scanned row: block b + 1's g
+    if (b + 1 < nb) {
+      for (int c = j; c < cg; c += kB)
+        g[(long long)(c0 + c) * nb + b + 1] = cont_next ? s[c * kColStride + srow(kB - 1)] : 0.0f;
+    }
+    if (b == 0) {
+      for (int c = j; c < cg; c += kB) g[(long long)(c0 + c) * nb] = 0.0f;
+    }
+    // each end row into out[its id], element q = j + m kB of ends x cg
+    for (int m = j / cg, c = j % cg; m < ends;) {
+      const int e = s_end[m];
+      out[(long long)s_sid[e] * use + c0 + c] = s[c * kColStride + srow(e)];
+      m += dr;
+      c += dc;
+      if (c >= cg) { c -= cg; ++m; }
+    }
+    __syncthreads();  // the next column group overwrites s
+  }
+  if (j == 0) {
+    if (b + 1 < nb) a[b + 1] = (cont_next && full) ? 1.0f : 0.0f;
+    if (b == 0) a[0] = 0.0f;
   }
 }
 
-// carry[b] before the passes: g = the previous block's last scanned row
-// where its tail id is b's head id (tpurt's cont), else 0; a = 1 where
-// also the previous block is full (one id throughout).  Block b - 1 is
-// whole whenever block b exists, so its tail is a real row.
-__global__ void __launch_bounds__(kThreads)
-segsum_carry_init(const int* __restrict__ sid, const float* __restrict__ y, int nb,
-                  int use, float* __restrict__ g, float* __restrict__ a) {
-  const long long t = (long long)blockIdx.x * kThreads + threadIdx.x;
-  if (t >= (long long)nb * use) return;
-  const int b = (int)(t / use), c = (int)(t - (long long)b * use);
-  bool cont = false, full_prev = false;
-  if (b > 0) {
-    const long long tail_row = (long long)b * kB - 1;
-    const int tail_prev = sid[tail_row];
-    cont = tail_prev == sid[(long long)b * kB];
-    full_prev = sid[(long long)(b - 1) * kB] == tail_prev;
+// One CTA a column c: the carry's passes over g[c], a in shared memory
+// (g, then a, each two buffers of nb), the carries written back over g[c].
+__global__ void __launch_bounds__(kCarryThreads)
+segsum_carry_kernel(int nb, float* __restrict__ g, const float* __restrict__ a0) {
+  extern __shared__ float sm[];
+  float* gs = sm;
+  float* as = sm + 2 * nb;
+  const int c = blockIdx.x, t = threadIdx.x;
+  float* gc = g + (long long)c * nb;
+  for (int b = t; b < nb; b += kCarryThreads) {
+    gs[b] = gc[b];
+    as[b] = a0[b];
   }
-  g[t] = cont ? y[((long long)b * kB - 1) * use + c] : 0.0f;
-  if (c == 0) a[b] = (cont && full_prev) ? 1.0f : 0.0f;
+  __syncthreads();
+  int cur = 0;
+  for (int sh = 1; sh < nb; sh <<= 1) {
+    const float* gi = gs + cur * nb;
+    const float* ai = as + cur * nb;
+    float* go = gs + (cur ^ 1) * nb;
+    float* ao = as + (cur ^ 1) * nb;
+    for (int b = t; b < nb; b += kCarryThreads) {
+      const float av = ai[b];
+      const float gp = b >= sh ? gi[b - sh] : 0.0f;
+      go[b] = gi[b] + av * gp;
+      ao[b] = av * (b >= sh ? ai[b - sh] : 0.0f);
+    }
+    cur ^= 1;
+    __syncthreads();
+  }
+  for (int b = t; b < nb; b += kCarryThreads) gc[b] = gs[cur * nb + b];
 }
 
-// One log-shift pass: g = g + a * g[b - sh]; a = a * a[b - sh] (0 past
-// the front, as tpurt's pad).
+// Above kCarryMaxBlocks: one log-shift pass over every (column, block) of
+// the global buffers, g = g + a * g[b - sh]; a = a * a[b - sh] (0 past the
+// front, as tpurt's pad).
 __global__ void __launch_bounds__(kThreads)
-segsum_carry_pass(const float* __restrict__ g_in, const float* __restrict__ a_in,
-                  int nb, int use, int sh, float* __restrict__ g_out,
-                  float* __restrict__ a_out) {
+segsum_carry_pass(const float* __restrict__ g_in, const float* __restrict__ a_in, int nb,
+                  int use, int sh, float* __restrict__ g_out, float* __restrict__ a_out) {
   const long long t = (long long)blockIdx.x * kThreads + threadIdx.x;
   if (t >= (long long)nb * use) return;
-  const int b = (int)(t / use);
+  const int b = (int)(t % nb);
   const float av = a_in[b];
-  const float gp = b >= sh ? g_in[t - (long long)sh * use] : 0.0f;
+  const float gp = b >= sh ? g_in[t - sh] : 0.0f;
   g_out[t] = g_in[t] + av * gp;
-  if (t - (long long)b * use == 0) a_out[b] = av * (b >= sh ? a_in[b - sh] : 0.0f);
+  if (t < nb) a_out[b] = av * (b >= sh ? a_in[b - sh] : 0.0f);
 }
 
+// (d): at sorted row r, the last of id v's segment, in block b: out[v] =
+// out[v] + carry[b] * first, first = 1 for b's head id; for the others
+// (first = 0) only where the carry is not finite, since otherwise y + carry
+// * 0 is y, +0 and -0 aside.
 __global__ void __launch_bounds__(kThreads)
-segsum_ends_kernel(const int* __restrict__ sid, const int* __restrict__ end,
-                   const float* __restrict__ y, const float* __restrict__ carry,
-                   int num_rows, int use, float* __restrict__ out) {
-  const long long t = (long long)blockIdx.x * kThreads + threadIdx.x;
-  if (t >= (long long)num_rows * use) return;
-  const int v = (int)(t / use), c = (int)(t - (long long)v * use);
-  const int e = end[v];
-  if (e < 0) {
-    out[t] = 0.0f;
-    return;
+segsum_ends_kernel(const int* __restrict__ sid, int n, int nb, int use, int num_rows,
+                   const float* __restrict__ carry, float* __restrict__ out) {
+  const long long r = (long long)blockIdx.x * kThreads + threadIdx.x;
+  if (r >= n) return;
+  const int v = sid[r];
+  if ((unsigned)v >= (unsigned)num_rows || (r + 1 < n && sid[r + 1] == v)) return;
+  const int b = (int)(r / kB);
+  const bool first = v == sid[(long long)b * kB];
+  for (int c = 0; c < use; ++c) {
+    const float cv = carry[(long long)c * nb + b];
+    if (first || !isfinite(cv)) {
+      float* p = out + (long long)v * use + c;
+      *p = *p + cv * (first ? 1.0f : 0.0f);
+    }
   }
-  const int b = e / kB;
-  const float first = sid[e] == sid[(long long)b * kB] ? 1.0f : 0.0f;
-  out[t] = y[(long long)e * use + c] + carry[(long long)b * use + c] * first;
 }
 
 int grid_of(long long threads) { return (int)((threads + kThreads - 1) / kThreads); }
@@ -165,45 +281,46 @@ int grid_of(long long threads) { return (int)((threads + kThreads - 1) / kThread
 
 extern "C" {
 
-// Every entry point launches on `stream`, never synchronises, and returns
-// cudaGetLastError() of its launches (0 on success).  sid (n,) int32 sorted
-// ids; perm (n,) int64, sorted row -> input row; cot rows of `use` f32 at
-// row stride ld; y (n, use) f32; end (num_rows,) int32; n >= 1, use >= 1.
-int tpurt_segsum_scan(const int* sid, const int64_t* perm, const float* cot,
-                      long long ld, int n, int use, int num_rows, float* y, int* end,
+// Both entry points launch on `stream`, never synchronise, and return
+// cudaGetLastError() of their launches (0 on success).  sid (n,) int32
+// sorted ids; perm (n,) int64, sorted row -> input row; cot rows of `use`
+// f32 at row stride ld; out (num_rows, use) f32; g (use, nb) f32 and a
+// (nb,) f32, nb = ceil(n / 256); n >= 1, use >= 1.
+int tpurt_segsum_scan(const int* sid, const int64_t* perm, const float* cot, long long ld,
+                      int n, int use, int num_rows, float* out, float* g, float* a,
                       cudaStream_t stream) {
-  cudaError_t err = cudaMemsetAsync(end, 0xFF, sizeof(int) * (size_t)num_rows, stream);
+  cudaError_t err = cudaMemsetAsync(out, 0, sizeof(float) * (size_t)num_rows * use, stream);
   if (err != cudaSuccess) return (int)err;
-  int nb = (n + kB - 1) / kB;
-  segsum_scan_kernel<<<nb, kB, 0, stream>>>(sid, perm, cot, ld, n, use, num_rows, y,
-                                            end);
+  const int nb = (n + kB - 1) / kB;
+  segsum_scan_kernel<<<nb, kB, 0, stream>>>(sid, perm, cot, ld, n, nb, use, num_rows, out, g,
+                                            a);
   return (int)cudaGetLastError();
 }
 
-// g0, g1 (nb, use) f32 and a0, a1 (nb,) f32, nb = ceil(n / 256); the
-// carries end in g0 after an even number of passes, in g1 after an odd
-// one (passes = ceil(log2 nb)).
-int tpurt_segsum_carry(const int* sid, const float* y, int n, int use, float* g0,
-                       float* g1, float* a0, float* a1, cudaStream_t stream) {
-  int nb = (n + kB - 1) / kB;
-  int grid = grid_of((long long)nb * use);
-  segsum_carry_init<<<grid, kThreads, 0, stream>>>(sid, y, nb, use, g0, a0);
-  cudaError_t err = cudaGetLastError();
-  for (int sh = 1; sh < nb && err == cudaSuccess; sh <<= 1) {
-    segsum_carry_pass<<<grid, kThreads, 0, stream>>>(g0, a0, nb, use, sh, g1, a1);
+// (c) and (d): g0 and a0 as the scan left them; g1 and a1 the same sizes,
+// used above kCarryMaxBlocks blocks only (the passes' other buffers).
+int tpurt_segsum_carry(const int* sid, int n, int use, int num_rows, float* g0, float* g1,
+                       float* a0, float* a1, float* out, cudaStream_t stream) {
+  const int nb = (n + kB - 1) / kB;
+  cudaError_t err = cudaSuccess;
+  if (nb <= kCarryMaxBlocks) {
+    const int smem = 4 * nb * (int)sizeof(float);
+    err = cudaFuncSetAttribute(segsum_carry_kernel,
+                               cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+    if (err != cudaSuccess) return (int)err;
+    segsum_carry_kernel<<<use, kCarryThreads, smem, stream>>>(nb, g0, a0);
     err = cudaGetLastError();
-    float* t = g0; g0 = g1; g1 = t;
-    t = a0; a0 = a1; a1 = t;
+  } else {
+    const int grid = grid_of((long long)nb * use);
+    for (int sh = 1; sh < nb && err == cudaSuccess; sh <<= 1) {
+      segsum_carry_pass<<<grid, kThreads, 0, stream>>>(g0, a0, nb, use, sh, g1, a1);
+      err = cudaGetLastError();
+      float* t = g0; g0 = g1; g1 = t;
+      t = a0; a0 = a1; a1 = t;
+    }
   }
-  return (int)err;
-}
-
-// carry: the buffer the passes ended in; out (num_rows, use) f32.
-int tpurt_segsum_ends(const int* sid, const int* end, const float* y, const float* carry,
-                      int num_rows, int use, float* out, cudaStream_t stream) {
-  if (num_rows <= 0) return 0;
-  segsum_ends_kernel<<<grid_of((long long)num_rows * use), kThreads, 0, stream>>>(
-      sid, end, y, carry, num_rows, use, out);
+  if (err != cudaSuccess) return (int)err;
+  segsum_ends_kernel<<<grid_of(n), kThreads, 0, stream>>>(sid, n, nb, use, num_rows, g0, out);
   return (int)cudaGetLastError();
 }
 

@@ -56,8 +56,7 @@ from tpurt_torch.kernels.traverse import _check_inputs, _packed_args, _raise_on
 # CUDA launch counts.
 LAUNCHES = {"packet_closest": 0, "packet_occluded": 0, "packet_knear": 0}
 # Rays a packet (tpurt's PACKET_RAYS: an (8, 128) tile on the TPU, a thread
-# block here: 512 threads of 2 rays for the closest-hit and any-hit walks,
-# 1,024 threads for the k-nearest walk).
+# block of 512 threads of 2 rays here).
 PACKET_RAYS = 1024
 # Largest k of the k-nearest kernel (its longest list).
 KMAX = 16
@@ -333,7 +332,7 @@ def k_nearest_ids_packet(rays: Rays, packed: PackedBVH, k: int, band: float,
         err = lib.tpurt_packet_knear(
             *_packed_args(packed), _ptr(o), _ptr(d), _ptr(tmax), n,
             ctypes.c_float(t_min), k, ctypes.c_float(-band), ctypes.c_float(1.0 + band),
-            _ptr(ids), _stream(o.device))
+            _ptr(ids), packed.num_nodes, _stream(o.device))
     _raise_on(err, "packet_knear")
     LAUNCHES["packet_knear"] += 1
     return ids

@@ -11,10 +11,16 @@ sum repeats bit for bit, which ``index_add_``'s atomics do not.
 
 For CUDA tensors the sort is ``torch.sort(stable=True)`` on int32 keys (a
 library sort, as tpurt's ``lax.sort`` is) and the rest runs in the
-hand-written kernels of ``csrc/segsum.cu``: (a) the in-block scan, (b) the
-carry, one launch per log-shift pass, and (c) the end rows.  For CPU
-tensors ``segment_accumulate_ref`` runs: tpurt's algorithm in tpurt's order
-of additions, written in whole-tensor torch ops, so that the kernels and it
+hand-written kernels of ``csrc/segsum.cu``, four launches: a memset of the
+output, the in-block scan (a warp a column), which writes each segment's
+last row straight into the output and each block's last row for the
+carry, the carry, all its log-shift passes in one CTA a column, and the
+carries added in place at the end rows.  Above kCarryMaxBlocks blocks
+(csrc/segsum.cu, which alone states the rule) the carry's buffers outgrow a
+CTA's shared memory and it runs one launch a pass instead: a rule on the
+size alone, the same operations in the same order.  For CPU tensors
+``segment_accumulate_ref`` runs: tpurt's algorithm in tpurt's order of
+additions, written in whole-tensor torch ops, so that the kernels and it
 agree bit for bit (+0 and -0 aside), and it agrees with tpurt as floats.
 There is no other route: a CUDA tensor either reaches the kernels or the
 call raises.
@@ -35,7 +41,7 @@ BLOCK = 256
 MAX_ROWS = (1 << 31) - 1
 
 # Kernel launches since the last reset_launches(): one a segment_accumulate
-# call that launches the three kernels; only a real CUDA launch counts.
+# call that launches the kernels; only a real CUDA launch counts.
 LAUNCHES = {"segsum": 0}
 
 
@@ -111,15 +117,13 @@ def segment_accumulate_ref(idx: torch.Tensor, cot: torch.Tensor,
 @dataclasses.dataclass
 class Work:
     """One segment_accumulate on the card: the sorted ids and their
-    permutation, the input, and the kernels' outputs and scratch."""
+    permutation, the input, and the kernels' output and scratch."""
 
     sid: torch.Tensor    # (N,) int32, sorted
     perm: torch.Tensor   # (N,) int64, sorted position -> input row
     cot: torch.Tensor    # (N, use) f32, unit column stride
     num_rows: int
-    y: torch.Tensor      # (N, use) f32: the scanned sorted rows
-    end: torch.Tensor    # (num_rows,) int32: a segment's last sorted row, -1 if none
-    g: torch.Tensor      # (2, nb * use) f32: the carry's ping-pong buffers
+    g: torch.Tensor      # (2, use * nb) f32: the carry's g (column-major) and its other buffer
     a: torch.Tensor      # (2, nb) f32
     out: torch.Tensor    # (num_rows, use) f32
 
@@ -127,22 +131,17 @@ class Work:
     def nb(self) -> int:
         return self.a.shape[1]
 
-    @property
-    def carry(self) -> torch.Tensor:
-        """The buffer that holds the carries after the last pass."""
-        return self.g[carry_passes(self.nb) % 2]
-
 
 def prepare(idx: torch.Tensor, cot: torch.Tensor, num_rows: int) -> Work:
     """The sort (torch.sort, stable, on int32 keys) and the kernels'
-    outputs and scratch, allocated uninitialised."""
+    output and scratch, allocated uninitialised (the second carry buffers
+    are read only above the carry's size rule, csrc/segsum.cu's
+    kCarryMaxBlocks)."""
     n, use = cot.shape
     sid, perm = torch.sort(idx.to(torch.int32), stable=True)
     nb = -(-n // BLOCK)
     f32 = dict(dtype=torch.float32, device=cot.device)
     return Work(sid=sid, perm=perm, cot=cot, num_rows=num_rows,
-                y=torch.empty((n, use), **f32),
-                end=torch.empty(num_rows, dtype=torch.int32, device=cot.device),
                 g=torch.empty((2, nb * use), **f32), a=torch.empty((2, nb), **f32),
                 out=torch.empty((num_rows, use), **f32))
 
@@ -153,33 +152,25 @@ def _raise_on(err: int, stage: str) -> None:
 
 
 def launch_scan(w: Work) -> None:
-    """(a): -1 into every end, then one CTA a block of 256 sorted rows:
-    the rows read through the permutation, 8 log-shift passes, the scanned
-    rows and each segment's last row written."""
+    """0 into w.out, then one CTA a block of 256 sorted rows: the rows read
+    through the permutation, 8 log-shift passes a warp a column, each
+    segment's last row into w.out, the block's last row into w.g[0] and
+    w.a[0] for the next block's carry."""
     n, use = w.cot.shape
     with _build.on_device(w.cot):
         _raise_on(_build.load().tpurt_segsum_scan(
             _ptr(w.sid), _ptr(w.perm), _ptr(w.cot), w.cot.stride(0), n, use, w.num_rows,
-            _ptr(w.y), _ptr(w.end), _stream(w.cot.device)), "scan")
+            _ptr(w.out), _ptr(w.g[0]), _ptr(w.a[0]), _stream(w.cot.device)), "scan")
 
 
 def launch_carry(w: Work) -> None:
-    """(b): each block's carry, one launch to set up and one a log-shift
-    pass, ping-ponging between w.g[0] and w.g[1] (the result in w.carry)."""
+    """Each block's carry by the log-shift passes, then added in place to
+    the block's end rows in w.out (after launch_scan)."""
     n, use = w.cot.shape
     with _build.on_device(w.cot):
         _raise_on(_build.load().tpurt_segsum_carry(
-            _ptr(w.sid), _ptr(w.y), n, use, _ptr(w.g[0]), _ptr(w.g[1]), _ptr(w.a[0]),
-            _ptr(w.a[1]), _stream(w.cot.device)), "carry")
-
-
-def launch_ends(w: Work) -> None:
-    """(c): one thread an output element, the end row plus its carry, or 0."""
-    use = w.cot.shape[1]
-    with _build.on_device(w.cot):
-        _raise_on(_build.load().tpurt_segsum_ends(
-            _ptr(w.sid), _ptr(w.end), _ptr(w.y), _ptr(w.carry), w.num_rows, use,
-            _ptr(w.out), _stream(w.cot.device)), "ends")
+            _ptr(w.sid), n, use, w.num_rows, _ptr(w.g[0]), _ptr(w.g[1]), _ptr(w.a[0]),
+            _ptr(w.a[1]), _ptr(w.out), _stream(w.cot.device)), "carry")
 
 
 def segment_accumulate(idx: torch.Tensor, cot: torch.Tensor,
@@ -216,6 +207,5 @@ def segment_accumulate(idx: torch.Tensor, cot: torch.Tensor,
     w = prepare(idx, cot, num_rows)
     launch_scan(w)
     launch_carry(w)
-    launch_ends(w)
     LAUNCHES["segsum"] += 1
     return w.out

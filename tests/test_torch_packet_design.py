@@ -31,8 +31,21 @@ from the window is also held to the node's own record in the layout, and
 a window slot past the layout's rows is never read.  The designs that
 lost their turns on the card (PERF.md: successors' records and the
 leaf row fetched before the vote, persistent CTAs) are not rendered.
+
+(3) packet_knear's loop, the same walk with each ray's list of k (t, id)
+pairs: the lists slot-major in the kernel's shared memory (slot s of ray j
+of thread t at word s * 1024 + j * kThreads + t), each ray's k-th entry
+read there (the visit's bound min(k-th t, t_max) and the candidate's
+reject test), an accepted candidate inserted by tpurt's rule (position =
+the count of live entries below it, the later ones shifted up).  Rendered at the kernel's R for each list bound KM (read
+from packet.cu) and at the other R, at k = 1, 4, 8 and 16 on cornell 64^2 and
+bunny-3K 48^2 (the bunny's last packet ragged), and on the bunny groups
+at k = 4, where P3's band-corner candidates are found through the packet;
+held bitwise to k_nearest_ids_packet_ref on the band-0.08 tree, with its
+visit and leaf-visit counts.
 """
 
+import functools
 import pathlib
 import re
 
@@ -50,6 +63,7 @@ from tpurt_torch.accel.traverse_ref import safe_inv
 from tpurt_torch.core.geometry import T_MAX, Triangles
 from tpurt_torch.core.scene import make_bunny_scene, make_cornell_box, make_sponza_scene
 from tpurt_torch.kernels import packet as kp
+from tpurt_torch.kernels import traverse as kb
 
 f32 = np.float32
 T_MIN = f32(DEFAULT_T_MIN)
@@ -64,6 +78,24 @@ def _kernel_constant(name: str) -> int:
 
 
 RAYS, WINDOW = _kernel_constant("kRays"), _kernel_constant("kWindow")
+BAND = 0.08
+
+
+def knear_shape(km: int) -> tuple[int, int]:
+    """(rays a thread, packets an SM) of packet_knear_kernel<km>, read from
+    packet.cu's KnearShape."""
+    src = PACKET_CU.read_text()
+    body = src[src.index("struct KnearShape {"):]
+    body = body[:body.index("};")]
+    env = {"kRays": RAYS, "kPacket": kp.PACKET_RAYS, "kCtas": _kernel_constant("kCtas"),
+           "KM": km}
+
+    def value(name):
+        expr = re.search(rf"{name} = (.+?);", body).group(1)
+        expr = re.sub(r"(.+?) \? (.+?) : (.+)", r"(\2 if \1 else \3)", expr)
+        return eval(expr, {}, env)  # noqa: S307 - a constant expression of the source
+
+    return value("rays"), value("ctas")
 
 
 @pytest.fixture(scope="module", autouse=True)
@@ -320,3 +352,116 @@ def test_walk_ab_holds_packet_cells_bitwise():
     assert chip_smoke.differing_bits(ref, (tri, t2, uv, uv)) == 2
     flags = torch.tensor([1, 0, 1], dtype=torch.uint8)
     assert chip_smoke.differing_bits((flags,), (torch.tensor([1, 1, 1], dtype=torch.uint8),)) == 1
+
+
+# ---------------------------------------------------------------------------
+# (3) packet_knear's loop
+# ---------------------------------------------------------------------------
+def knear_loop(lay: Layout, pk: Packet, k: int, km: int, counts):
+    """packet_knear_kernel<km>'s walk: ids (kThreads, R, k)."""
+    threads, rays = pk.o.shape[:2]
+    # s_dyn: ts then li, slot s of ray j of thread t at s * 1024 + j * T + t
+    word = np.arange(rays)[None, :] * threads + np.arange(threads)[:, None]
+    ts = np.full(km * kp.PACKET_RAYS, f32(T_MAX))
+    li = np.full(km * kp.PACKET_RAYS, -1, np.int32)
+    kth = (k - 1) * kp.PACKET_RAYS + word  # each ray's k-th entry, (kThreads, R)
+    neg_band, band_hi = f32(-BAND), f32(1.0 + BAND)
+
+    def insert(th, j, t, tid):
+        """list_insert for the threads th of ray j, each with candidate t."""
+        at = [s * kp.PACKET_RAYS + j * threads + th for s in range(km)]
+        pos = np.zeros(th.size, np.int64)
+        for s in range(km):
+            e = ts[at[s]]
+            pos += (s < k) & ((e < t) | ((e == t) & (li[at[s]] < tid)))
+        for s in range(km - 1, 0, -1):
+            m = (s < k) & (s > pos)
+            ts[at[s][m]] = ts[at[s - 1][m]]
+            li[at[s][m]] = li[at[s - 1][m]]
+        ts[pos * kp.PACKET_RAYS + j * threads + th] = t
+        li[pos * kp.PACKET_RAYS + j * threads + th] = tid
+
+    def on_leaf(tri, sid):
+        for q in range(LEAF_CAP):
+            tid = sid[q]
+            t, u, v, det = _mt(tri[q], pk)
+            for j in range(rays):  # the kernel's unrolled loop over a thread's rays
+                tj, kt, kid = t[:, j], ts[kth[:, j]], li[kth[:, j]]
+                ok = ((np.abs(det[:, j]) > f32(1e-12)) & (u[:, j] >= neg_band)
+                      & (v[:, j] >= neg_band) & (u[:, j] + v[:, j] <= band_hi) & (tj > T_MIN)
+                      & (tj < pk.tmax[:, j]) & (tid >= 0)
+                      & ((tj < kt) | ((tj == kt) & (tid < kid))))
+                th = np.nonzero(ok)[0]
+                if th.size:
+                    insert(th, j, tj[th], tid)
+
+    _walk(lay, pk, lambda: np.minimum(ts[kth], pk.tmax), None, on_leaf, None, counts)
+    return np.stack([li[s * kp.PACKET_RAYS + word] for s in range(k)], axis=-1)
+
+
+@functools.cache
+def _band_frame(name: str) -> dict:
+    jt, o, d, tmax, groups = _inputs(name)
+    tris = _port_tris(jt)
+    packed = pack_bvh(tris, build_lbvh(tris, band=BAND), max_cut_leaves(tris.num_tris, LEAF_CAP))
+    return dict(name=name, o=o, d=d, tmax=tmax, packed=packed, groups=groups)
+
+
+@pytest.mark.parametrize("name,k", [(name, k) for name in ("cornell64", "bunny48")
+                                    for k in (1, 4, 8, 16)] + [("groups", 4)])
+def test_knear_loop_matches_twin(name, k):
+    """The lists at the kernel's R for k's list bound; the k-nearest walk's
+    t_max is each ray's own (seeded), so some rays take no candidate.  The
+    bunny groups at k = 4 hold P3."""
+    km = next(m for m in (4, 8, 16) if k <= m)
+    _knear_matches_twin(_band_frame(name), k, km, knear_shape(km)[0])
+
+
+@pytest.mark.parametrize("name,km", [(name, km) for name in ("cornell64", "bunny48")
+                                     for km in (4, 16)])
+def test_knear_loop_at_the_other_ray_count(name, km):
+    """The lists at the R the kernel does not take for km (1 for KM 4, 2
+    for KM 16): the results do not depend on which thread walks which
+    ray."""
+    _knear_matches_twin(_band_frame(name), km, km, 3 - knear_shape(km)[0])
+
+
+def _knear_matches_twin(frame, k: int, km: int, rays: int) -> None:
+    o, d, tmax, packed = frame["o"], frame["d"], np.abs(frame["tmax"]), frame["packed"]
+    n = o.shape[0]
+    lay, counts = Layout(packed), dict(visits=0, rows=0)
+    got = np.zeros((n, k), np.int32)
+    for p in range(-(-n // kp.PACKET_RAYS)):
+        pk = Packet(o, d, tmax, p, rays)
+        _scatter(pk, got, knear_loop(lay, pk, k, km, counts))
+    stats = {}
+    ref = kp.k_nearest_ids_packet_ref(_trays(o, d), packed, k, BAND,
+                                      t_max=torch.from_numpy(tmax), stats=stats)
+    assert np.array_equal(got, ref.numpy())
+    assert counts == {"visits": stats["visits"], "rows": int(stats["rows"])}
+    assert (got[:, 0] >= 0).any() and (got[:, -1] < 0).any()
+    if frame["groups"] is not None:  # P3: band hits found through the packet
+        per_ray = kb.k_nearest_ids_packed_ref(_trays(o, d), packed, k, BAND,
+                                              t_max=torch.from_numpy(tmax)).numpy()
+        p1 = np.zeros(n, bool)
+        p1[frame["groups"]["tiny_neg31"]] = True
+        assert ((got != per_ray).any(axis=1) & ~p1).any()
+
+
+def test_knear_lists_take_the_rendered_layout():
+    """The k-nearest kernel's shape: two packets an SM where two packets'
+    lists (KM x 8 KB each) and windows fit the SM's 228 KB, one at KM 16;
+    R rays a thread, kPacket / R threads; slot s of ray j of thread t at
+    word s * 1024 + j * T + t puts a warp's 32 lanes on 32 banks for every
+    s and j."""
+    window = 48 * WINDOW + 4 * (72 + LEAF_CAP)
+    for km in (4, 8, 16):
+        rays, ctas = knear_shape(km)
+        threads = kp.PACKET_RAYS // rays
+        assert threads * rays == kp.PACKET_RAYS and threads >= 72 + LEAF_CAP
+        assert ctas * (2 * km * kp.PACKET_RAYS * 4 + window + 1024) <= 228 * 1024
+        assert ctas == (2 if km <= 8 else 1)
+        lanes = np.arange(32)
+        for s in range(km):
+            for j in range(rays):
+                assert np.unique((s * kp.PACKET_RAYS + j * threads + lanes) % 32).size == 32

@@ -9,12 +9,20 @@ stable on the CPU; the twin sorts with torch.sort(stable=True).  The
 gather backward under 'scatter' sums in index_add_'s order and is held to
 tpurt at rtol 1e-5, as tests/test_torch_diff.py holds it.  The CUDA
 kernels run on the card only (chip_smoke.py [segsum] holds them to the
-twin there); here their wrapper's route is checked by reading its source.
+twin there); here their wrapper's route is checked by reading its source,
+and their dataflow is rendered in numpy float32 and held to the twin:
+the scan a warp a column (each lane 8 consecutive sorted rows in registers,
+y[j - sh] from the lane itself or from lane - ceil(sh / 8) by a shuffle
+up), the output zeroed and each segment's last row written straight into
+it, the carry's passes (in one CTA a column, or one launch a pass above
+segsum.cu's kCarryMaxBlocks: the same operations) and the carries added in place at
+the end rows.
 """
 
 import ast
 import dataclasses
 import pathlib
+import re
 
 import jax
 import jax.numpy as jnp
@@ -32,7 +40,8 @@ from tpurt_torch.diff import gather_grad
 from tpurt_torch.diff.gather_grad import (
     gather_verts, get_grad_backend, segment_accumulate, set_grad_backend)
 from tpurt_torch.kernels import segsum
-from tpurt_torch.kernels.segsum import BLOCK, carry_passes, segment_accumulate_ref
+from tpurt_torch.kernels.segsum import (
+    BLOCK, carry_passes, segment_accumulate_ref)
 from tpurt_torch.render.pipeline import render
 
 V = 257  # tpurt's table rows in tests/grad/test_gather_grad.py
@@ -44,6 +53,14 @@ PATTERNS = {
     "sorted": lambda rng, n, v: np.sort(rng.integers(0, v, n)),
     "clustered": lambda rng, n, v: rng.integers(0, 5, n) * (v // 7),
 }
+
+
+@pytest.fixture(scope="module", autouse=True)
+def one_thread():
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
 
 
 @pytest.fixture(autouse=True)
@@ -179,7 +196,7 @@ SEGSUM_PY = pathlib.Path(segsum.__file__)
 
 
 def test_every_launch_is_on_its_tensors_card_and_nothing_falls_back():
-    """The wrapper's three entry points are each called inside
+    """The wrapper's two entry points are each called inside
     _build.on_device (the scan of tests/launch_scan.py, which
     tests/test_torch_closest_design.py also runs), and
     the module has no try: a failed build or launch raises."""
@@ -187,7 +204,7 @@ def test_every_launch_is_on_its_tensors_card_and_nothing_falls_back():
     launches = {n.attr for n in ast.walk(tree)
                 if isinstance(n, ast.Attribute) and n.attr.startswith("tpurt_")
                 and n.attr != "tpurt_error_string"}
-    assert launches == {"tpurt_segsum_scan", "tpurt_segsum_carry", "tpurt_segsum_ends"}
+    assert launches == {"tpurt_segsum_scan", "tpurt_segsum_carry"}
     assert launches_outside_on_device(SEGSUM_PY) == []
     assert not any(isinstance(n, ast.Try) for n in ast.walk(tree))
 
@@ -199,3 +216,186 @@ def test_a_tensor_off_the_cpu_never_reaches_the_twin(monkeypatch):
     with pytest.raises(ValueError, match="unsupported device"):
         segment_accumulate(idx, torch.zeros(4, 3, device="meta"), 2)
     assert segsum.LAUNCHES["segsum"] == 0
+
+
+# -- the kernels' dataflow in numpy (csrc/segsum.cu) --------------------------
+SEGSUM_CU = SEGSUM_PY.parent / "csrc" / "segsum.cu"
+f32 = np.float32
+LANE_ROWS = 8  # consecutive sorted rows a lane holds
+
+
+def _shfl_up(x: np.ndarray, q: int) -> np.ndarray:
+    """__shfl_up_sync over the lane axis (1): lane l gets lane l - q's value,
+    lanes below q their own."""
+    return np.concatenate([x[:, :q], x[:, :-q]], axis=1)
+
+
+def _scan_warps(y: np.ndarray, start: np.ndarray) -> np.ndarray:
+    """segsum_scan_kernel's passes: y (nb, 32 lanes, 8 rows, C) and the
+    segment starts (nb, 32, 8); each lane's rows in registers, w = y[j - sh]
+    from before the pass (own registers, or a shuffle up by 1 or sh / 8
+    lanes), blk from before the pass choosing y or y + w, then blk |=
+    bpad.  Rows below sh are starts by then, so what lane 0 reads there
+    is never added; its bpad bits there are set."""
+    blk = start.copy()
+    for p in range(8):
+        sh = 1 << p
+        if sh < LANE_ROWS:
+            w = np.empty_like(y)
+            w[:, :, sh:] = y[:, :, :LANE_ROWS - sh]
+            w[:, :, :sh] = _shfl_up(y, 1)[:, :, LANE_ROWS - sh:]
+            prev = _shfl_up(blk, 1)[:, :, LANE_ROWS - sh:].copy()
+            prev[:, 0] = True
+            bpad = np.concatenate([prev, blk[:, :, :LANE_ROWS - sh]], axis=2)
+        else:
+            q = sh // LANE_ROWS
+            w = _shfl_up(y, q)
+            bpad = _shfl_up(blk, q).copy()
+            bpad[:, :q] = True
+        with np.errstate(invalid="ignore", over="ignore"):
+            y = np.where(blk[..., None], y, y + w)
+        blk = blk | bpad
+    return y
+
+
+def _carry_passes(g: np.ndarray, a: np.ndarray) -> np.ndarray:
+    """The carry's log-shift passes, every column at once: g (C, nb), a
+    (nb,); g = g + a * g[b - sh]; a = a * a[b - sh], 0 past the front
+    (segsum_carry_kernel's shared buffers and segsum_carry_pass's global
+    ones compute the same)."""
+    nb = a.shape[0]
+    sh = 1
+    while sh < nb:
+        gp = np.concatenate([np.zeros_like(g[:, :sh]), g[:, :nb - sh]], axis=1)
+        ap = np.concatenate([np.zeros(sh, f32), a[:nb - sh]])
+        with np.errstate(invalid="ignore", over="ignore"):
+            g = g + a[None] * gp
+        a = a * ap
+        sh *= 2
+    return g
+
+
+def segsum_kernels(idx: np.ndarray, cot: np.ndarray, num_rows: int) -> np.ndarray:
+    """The memset, the scan, the carry (both routes: the passes are the same
+    operations) and the end rows, as csrc/segsum.cu runs them."""
+    order = np.argsort(idx.astype(np.int32), kind="stable")
+    sid = idx.astype(np.int32)[order]
+    n, use = cot.shape
+    nb = -(-n // BLOCK)
+    pad = nb * BLOCK - n
+    s_sid = np.concatenate([sid, np.full(pad, num_rows, np.int32)]).reshape(nb, BLOCK)
+    rows = np.concatenate([cot[order], np.zeros((pad, use), f32)]).reshape(nb, BLOCK, use)
+    out = np.zeros((num_rows, use), f32)  # the memset
+    # the scan: the segment starts as each lane's bits, a warp a column
+    start = np.ones((nb, BLOCK), bool)
+    start[:, 1:] = s_sid[:, 1:] != s_sid[:, :-1]
+    y = _scan_warps(rows.reshape(nb, 32, LANE_ROWS, use),
+                    start.reshape(nb, 32, LANE_ROWS)).reshape(nb, BLOCK, use)
+    # each segment's last row into out[its id] (a row whose next sorted row,
+    # in its block or the next, has another id)
+    nxt = np.concatenate([sid[1:], [np.iinfo(np.int32).max]])
+    is_end = (sid != nxt) & (sid >= 0) & (sid < num_rows)
+    ends = np.nonzero(is_end)[0]
+    out[sid[ends]] = y.reshape(-1, use)[ends]
+    # cont, full; the last row into the next block's g and a
+    head, tail = s_sid[:, 0], s_sid[:, -1]
+    cont_next = np.zeros(nb, bool)
+    cont_next[:-1] = tail[:-1] == head[1:]
+    g = np.zeros((use, nb), f32)
+    a = np.zeros(nb, f32)
+    g[:, 1:] = np.where(cont_next[:-1, None], y[:-1, -1], f32(0)).T
+    a[1:] = (cont_next[:-1] & (head[:-1] == tail[:-1])).astype(f32)
+    # the carry, then the end rows: out[v] + carry * first, first = 1 for
+    # the block's head id; first = 0 only where the carry is not finite
+    carry = _carry_passes(g, a).T  # (nb, use)
+    b = ends // BLOCK
+    first = sid[ends] == head[b]
+    cv = carry[b]
+    touch = first[:, None] | ~np.isfinite(cv)
+    with np.errstate(invalid="ignore", over="ignore"):
+        new = out[sid[ends]] + cv * first[:, None].astype(f32)
+    out[sid[ends]] = np.where(touch, new, out[sid[ends]])
+    return out
+
+
+def _kernels_hold(idx: np.ndarray, cot: np.ndarray, v: int) -> np.ndarray:
+    got = segsum_kernels(idx, cot, v)
+    assert np.array_equal(got, _twin(idx, cot, v), equal_nan=True)
+    return got
+
+
+@pytest.mark.parametrize("n", [4096, 4096 + 37])
+@pytest.mark.parametrize("pattern", list(PATTERNS))
+def test_kernels_dataflow_equals_twin(pattern, n):
+    rng = np.random.default_rng(7)
+    idx = PATTERNS[pattern](rng, n, V).astype(np.int32)
+    _kernels_hold(idx, rng.normal(size=(n, 3)).astype(f32), V)
+
+
+@pytest.mark.parametrize("nb", [1, 2, 3, 257, 4080])
+def test_kernels_dataflow_equals_twin_at_block_counts(nb):
+    """nb blocks of 256 rows, the last one ragged (but for nb = 1, 2: 1 and
+    511 rows), ids over a table larger than the rows (gaps of empty ids),
+    12 columns as the soft-surface gather."""
+    n = {1: 1, 2: 511}.get(nb, nb * BLOCK - 77)
+    rng = np.random.default_rng(nb)
+    v = max(2 * n // 3, 5)
+    idx = np.sort(rng.integers(0, v, n)).astype(np.int32)[rng.permutation(n)]
+    out = _kernels_hold(idx, rng.normal(size=(n, 12)).astype(f32), v)
+    assert -(-n // BLOCK) == nb and (out == 0).all(axis=1).any()
+
+
+def test_kernels_dataflow_on_a_segment_over_many_blocks():
+    rng = np.random.default_rng(3)
+    n = 4096 + 37
+    idx = rng.integers(0, 200, n).astype(np.int32)
+    idx[rng.permutation(n)[:3000]] = 100
+    out = _kernels_hold(idx, rng.normal(size=(n, 9)).astype(f32), V)
+    assert not out[200:].any()
+
+
+@pytest.mark.parametrize("use", [3, 9, 12])
+def test_kernels_dataflow_on_the_first_columns_of_wide_rows(use):
+    rng = np.random.default_rng(use)
+    n = 4096 + 37
+    idx = PATTERNS["clustered"](rng, n, V).astype(np.int32)
+    rows = rng.normal(size=(n, 15)).astype(f32)
+    _kernels_hold(idx, np.ascontiguousarray(rows[:, :use]), V)
+
+
+@pytest.mark.parametrize("pattern", ["uniform", "clustered"])
+def test_kernels_dataflow_with_inf_nan_and_negative_zero(pattern):
+    """inf, -inf and NaN in column 0 of some rows (a carry that is not
+    finite reaches every end row of its block through carry * 0, and the
+    blocks after it through the passes' a * g), -0 in column 1; column 2
+    finite: every element equal to the twin's, NaN where it is NaN."""
+    rng = np.random.default_rng(5)
+    n = 16 * BLOCK + 9
+    idx = PATTERNS[pattern](rng, n, V).astype(np.int32)
+    cot = rng.normal(size=(n, 3)).astype(f32)
+    bad = rng.permutation(n)[:6]
+    cot[bad, 0] = [np.inf, -np.inf, np.nan, np.inf, np.nan, -np.inf]
+    # and the last sorted row of block 3: its carry into block 4 is inf
+    cot[np.argsort(idx, kind="stable")[4 * BLOCK - 1], 0] = np.inf
+    cot[rng.permutation(n)[:n // 4], 1] = -0.0
+    out = _kernels_hold(idx, cot, V)
+    # uniform: the carries' NaN reaches ids with no bad row of their own
+    assert np.isnan(out[:, 0]).sum() > (7 if pattern == "uniform" else 0)
+    assert np.isfinite(out[:, 1:]).all()
+
+
+def test_carry_size_rule():
+    """The rule is on the block count alone and stated in segsum.cu only:
+    the carry in one CTA a column while g and a (2 buffers each, 4 bytes a
+    block) fit the 227 KB of shared memory a CTA may use, which holds the
+    fit's shapes (4,080, 8,160 and 11,719 blocks), one launch a pass above;
+    the carry's entry point chooses by that constant and nothing else, and
+    the wrapper does not restate it.  (chip_smoke.py [segsum] counts the
+    launches of each call on the card.)"""
+    src = SEGSUM_CU.read_text()
+    limit = int(re.search(r"constexpr int kCarryMaxBlocks = (\d+);", src).group(1))
+    assert limit == 227 * 1024 // 16 and 11719 <= limit
+    carry = src[src.index("int tpurt_segsum_carry("):]
+    carry = carry[:carry.index("\n}\n")]
+    assert re.findall(r"\bif \((.*?)\) \{", carry) == ["nb <= kCarryMaxBlocks"]
+    assert str(limit) not in pathlib.Path(segsum.__file__).read_text().replace("_", "")
