@@ -97,3 +97,56 @@ def occluded_brute(rays: Rays, tris: Triangles, t_min: float = DEFAULT_T_MIN,
                                      t_min)
         blocked.append((hit & (t < tmax[s:s + step])).any(dim=1))
     return torch.cat(blocked).reshape(rays.shape)
+
+
+# ---------------------------------------------------------------------------
+# All-pairs Möller–Trumbore as one contraction (tpurt's MXU formulation).
+# With e1 = v1 - v0, e2 = v2 - v0 and n = e1 x e2, each of det, u·det, v·det
+# and t·det is linear in the ray features [d, o x d, o, 1], with per-triangle
+# coefficients (scalar triple products), so for all pairs at once
+#   [det, u·det, v·det, t·det] = ray_features @ tri_features.
+# ---------------------------------------------------------------------------
+def ray_features(o: torch.Tensor, d: torch.Tensor) -> torch.Tensor:
+    """(..., 10) features: [d, o x d, o, 1]."""
+    one = torch.ones((*o.shape[:-1], 1), dtype=o.dtype, device=o.device)
+    return torch.cat([d, cross(o, d), o, one], dim=-1)
+
+
+def tri_features(v0: torch.Tensor, v1: torch.Tensor, v2: torch.Tensor) -> torch.Tensor:
+    """(T, 10, 4) coefficients such that ray_features @ tri_features gives
+    [det, u·det, v·det, t·det]: det = -d·n, u·det = (o x d)·e2 - d·(e2 x v0),
+    v·det = -(o x d)·e1 - d·(v0 x e1), t·det = o·n - e2·(v0 x e1)."""
+    e1 = v1 - v0
+    e2 = v2 - v0
+    n = cross(e1, e2)
+    z3 = torch.zeros_like(e1)
+    z1 = torch.zeros(e1.shape[:-1] + (1,), dtype=e1.dtype, device=e1.device)
+    const_t = -dot(e2, cross(v0, e1))[..., None]
+
+    def col(d_blk, oxd_blk, o_blk, c_blk):
+        return torch.cat([d_blk, oxd_blk, o_blk, c_blk], dim=-1)
+
+    det_col = col(-n, z3, z3, z1)
+    u_col = col(-cross(e2, v0), e2, z3, z1)
+    v_col = col(-cross(v0, e1), -e1, z3, z1)
+    t_col = col(z3, z3, n, const_t)
+    return torch.stack([det_col, u_col, v_col, t_col], dim=-1)
+
+
+def intersect_pairs_mm(o: torch.Tensor, d: torch.Tensor, v0: torch.Tensor,
+                       v1: torch.Tensor, v2: torch.Tensor,
+                       t_min: float = DEFAULT_T_MIN):
+    """All-pairs Möller–Trumbore through one (R, 10) x (T, 10, 4) f32
+    contraction, then the smooth inverse and the accept test of
+    intersect_tri.  Returns (t, u, v, hit), each (R, T); t is T_MAX where
+    hit is False.  The products round otherwise than intersect_tri's, so a
+    pair on an accept threshold can flip (tpurt's own test allows 0.1%)."""
+    q = torch.einsum("rk,tkc->rtc", ray_features(o, d), tri_features(v0, v1, v2))
+    det, u_det, v_det, t_det = q[..., 0], q[..., 1], q[..., 2], q[..., 3]
+    inv_det = det / (det * det + DET_EPS)
+    u = u_det * inv_det
+    v = v_det * inv_det
+    t = t_det * inv_det
+    hit = ((det.abs() > DET_EPS) & (u >= 0.0) & (v >= 0.0) & (u + v <= 1.0)
+           & (t > t_min))
+    return torch.where(hit, t, torch.full_like(t, T_MAX)), u, v, hit

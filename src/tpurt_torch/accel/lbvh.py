@@ -24,6 +24,7 @@ from dataclasses import dataclass
 import torch
 
 from tpurt_torch.accel.morton import triangle_morton_codes
+from tpurt_torch.accel.sort_ref import sort_pairs
 from tpurt_torch.core.geometry import Triangles
 from tpurt_torch.kernels.treebuild import clz32, radix_tree
 from tpurt_torch.obs.trace import trace_span
@@ -101,6 +102,28 @@ def range_minmax_sparse(leaf_lo: torch.Tensor, leaf_hi: torch.Tensor,
     return m[:, 0:3].contiguous(), (-m[:, 3:6]).contiguous()
 
 
+def refit_node_aabbs(left: torch.Tensor, right: torch.Tensor, leaf_lo: torch.Tensor,
+                     leaf_hi: torch.Tensor, max_depth: int):
+    """Node boxes by level-synchronous passes (tpurt's reference fold): every
+    internal node takes the min / max of its children's boxes, all nodes at
+    once, until a pass changes nothing or after max_depth passes.  leaf_lo,
+    leaf_hi are in sorted order; returns (2N-1, 3) boxes, internal nodes
+    first, equal to range_minmax_sparse's bit for bit where it converged."""
+    n = leaf_lo.shape[0]
+    big = 3.0e38
+    lo = torch.cat([leaf_lo.new_full((n - 1, 3), big), leaf_lo])
+    hi = torch.cat([leaf_hi.new_full((n - 1, 3), -big), leaf_hi])
+    left, right = left.long(), right.long()
+    for _ in range(max_depth):
+        new_lo = torch.cat([torch.minimum(lo[left], lo[right]), leaf_lo])
+        new_hi = torch.cat([torch.maximum(hi[left], hi[right]), leaf_hi])
+        changed = bool((new_lo != lo).any() or (new_hi != hi).any())
+        lo, hi = new_lo, new_hi
+        if not changed:
+            break
+    return lo, hi
+
+
 def _thread_dfs(parent: torch.Tensor, first: torch.Tensor, last: torch.Tensor,
                 leaf_size: int):
     """Treelet cut, DFS numbering and escape links in closed form (tpurt's
@@ -130,13 +153,16 @@ def _thread_dfs(parent: torch.Tensor, first: torch.Tensor, last: torch.Tensor,
     return dfs.to(torch.int32), esc.to(torch.int32), live, is_eff_leaf
 
 
-def build_lbvh(tris: Triangles, leaf_size: int = 8, band: float = 0.0) -> BVH:
+def build_lbvh(tris: Triangles, leaf_size: int = 8, band: float = 0.0,
+               sort_backend: str = "xla") -> BVH:
     """Morton sort -> radix tree -> node boxes -> DFS thread over the
     treelet cut at leaf_size triangles.  Each stage runs in a named span
     (``lbvh.*``), so a torch.profiler trace splits the build by stage.
 
     band > 0 inflates the triangle boxes so the soft path's extended
-    barycentric-band hits are still found by traversal."""
+    barycentric-band hits are still found by traversal.  sort_backend:
+    sort_pairs' route for the Morton sort ("xla": torch.sort; "ref": the
+    radix sort, the same tree)."""
     n = tris.num_tris
     with trace_span("lbvh.boxes"):
         v0, v1, v2 = tris.corners()
@@ -163,7 +189,9 @@ def build_lbvh(tris: Triangles, leaf_size: int = 8, band: float = 0.0) -> BVH:
 
     raw = triangle_morton_codes(tris)
     with trace_span("lbvh.sort"):
-        codes, order = torch.sort(raw, stable=True)
+        codes, tri_order = sort_pairs(raw, torch.arange(n, dtype=torch.int32, device=dev),
+                                      backend=sort_backend)
+        order = tri_order.long()
     with trace_span("lbvh.radix"):
         left, right, parent, first, last = radix_tree(codes)
     with trace_span("lbvh.rmq"):
@@ -188,5 +216,5 @@ def build_lbvh(tris: Triangles, leaf_size: int = 8, band: float = 0.0) -> BVH:
                     flat_count=scatter(0, torch.where(is_eff_leaf, last - first + 1, 0)))
     return BVH(left=left, right=right, parent=parent, first=first, last=last,
                node_lo=node_lo, node_hi=node_hi, codes=codes,
-               tri_order=order.to(torch.int32), dfs=dfs, leaf_size=leaf_size,
+               tri_order=tri_order, dfs=dfs, leaf_size=leaf_size,
                band=band, **flat)

@@ -28,6 +28,11 @@ Rows, each with its scene's own camera and its rays in Morton pixel order:
 - ``--parity``: each kernel against its twin on the same inputs: closest8,
   occluded8 and knear8 on rays spread over the headline frame, the binary
   and the packet kernels on the bunny; any differing ray fails the row.
+- ``--sort-bench``: the build's key-value sort (``accel/sort_ref.py``
+  ``sort_pairs("xla")``, torch.sort) of 2^20 and 5 x 2^20 seeded random
+  uint32 keys (held in int64, as the Morton codes are) with int32 values
+  on the card, 2^14 on the CPU; one row each on stderr with tpurt's keys
+  (``compile_s`` is the first call's seconds) and ``sorted``.
 
 Each call is timed on the card by CUDA events around batches of ``--iters``
 calls, at least ``--iters`` calls and half a second in all, after a first
@@ -50,8 +55,10 @@ import time
 import traceback
 from typing import Callable
 
+import numpy as np
 import torch
 
+from tpurt_torch.accel.sort_ref import sort_pairs
 from tpurt_torch.api.config import FitConfig, RenderConfig
 from tpurt_torch.api.inverse import InverseRenderer, refit_tracer
 from tpurt_torch.core.geometry import T_MAX, Rays
@@ -77,6 +84,8 @@ STAGED = (("1-cornell", "cornell", {}), ("2-bunny", "bunny", {}),
 FIT_RES, FIT_PERTURB = 64, 1.02
 FIT = dict(steps=6, lr=1e-3, grad_chunks=2)
 FIT_METHOD = "bvh"
+# --sort-bench: tpurt's key counts on a chip and on the CPU.
+SORT_SIZES, SORT_SIZES_CPU = (1 << 20, 5 << 20), (1 << 14,)
 # --parity: at most PARITY_RAYS rays, evenly strided over the headline frame
 # and over the bunny's (PARITY_BUNNY, its 512x512 camera); for the packet
 # kernels the bunny frame's first PARITY_RAYS.
@@ -322,6 +331,28 @@ def run_staged(args, dev: torch.device) -> None:
              compile_s=round(compile_s, 2), final_loss=res.losses[-1])
 
 
+def run_sort_bench(args, dev: torch.device) -> None:
+    """tpurt's sort bench on the port's route: sort_pairs("xla") of seeded
+    random uint32 keys and their int32 positions, at SORT_SIZES on the card
+    (SORT_SIZES_CPU on the CPU); a row each on stderr.  Fails unless the
+    first call's keys are in order and its values the permutation that
+    puts them there."""
+    rng = np.random.default_rng(0)
+    for n in SORT_SIZES if dev.type == "cuda" else SORT_SIZES_CPU:
+        keys = torch.from_numpy(rng.integers(0, 2**32, n, dtype=np.uint32).astype(np.int64))
+        keys = keys.to(dev)
+        vals = torch.arange(n, dtype=torch.int32, device=dev)
+        keys_s, ms, compile_s, (sk, sv) = time_calls(
+            lambda: sort_pairs(keys, vals, backend="xla"), n, args.iters, args.warmup, dev)
+        ok = bool((sk[1:] >= sk[:-1]).all()) and torch.equal(keys[sv.long()], sk)
+        ok = ok and torch.equal(torch.sort(sv).values, vals)
+        emit_row(sys.stderr, sort_bench="xla", keys=n, ms=round(ms, 3),
+                 mkeys_per_s=round(keys_s / 1e6, 1), compile_s=round(compile_s, 2),
+                 sorted=ok)
+        if not ok:
+            raise RuntimeError(f"sort_pairs at {n} keys did not sort them")
+
+
 def _strided(o: torch.Tensor, d: torch.Tensor) -> Rays:
     step = max(1, o.shape[0] // PARITY_RAYS)
     return Rays(o=o[::step][:PARITY_RAYS].contiguous(), d=d[::step][:PARITY_RAYS].contiguous())
@@ -409,7 +440,8 @@ def build_parser() -> argparse.ArgumentParser:
     ap.add_argument("--profile-dir", default=None,
                     help="write a torch.profiler trace of 3 headline calls there")
     ap.add_argument("--sort-bench", action="store_true",
-                    help="not ported (ROADMAP.md rule-3 queue: sort_ref)")
+                    help="also time the build's key-value sort (sort_pairs) at 1M and 5M "
+                         "keys (2^14 on the CPU; rows on stderr)")
     return ap
 
 
@@ -417,10 +449,6 @@ def main(argv=None) -> int:
     """Run the rows; print the headline row last on stdout.  Returns 0, or 1
     when a row failed (its error is in the headline row)."""
     args = build_parser().parse_args(argv)
-    if args.sort_bench:
-        raise NotImplementedError(
-            "--sort-bench times tpurt's sort_ref, which is not ported (ROADMAP.md, "
-            "rule-3 queue: sort_ref); the port sorts with torch.sort")
     if args.method == "auto":
         args.method = "wide8"
     dev = torch.device(args.device)
@@ -451,6 +479,8 @@ def main(argv=None) -> int:
             run_5m(args, row, dev)
         if args.staged:
             run_staged(args, dev)
+        if args.sort_bench:
+            run_sort_bench(args, dev)
     except Exception as e:  # the row's error goes into the headline row
         traceback.print_exc()
         row["error"] = f"{type(e).__name__}: {e}"[:500]

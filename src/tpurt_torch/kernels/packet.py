@@ -36,6 +36,15 @@ kernels and twins agree bit for bit.  Given a
 ``stats`` dict, a twin counts its walk in packet units (node visits, leaf
 visits, distinct nodes and leaves; traverse8.walk_counts reads it): each
 visit is 1,024 slab tests, each leaf visit 1,024 x LEAF_CAP triangle tests.
+
+A walk's last steps, once few packets are left, cost the host a few hundred
+launches a node while the card idles.  On the card the twins therefore take
+their last TAIL_PACKETS packets in fixed-shape steps: every such packet
+steps each time, a mask keeps a finished packet and a packet that enters no
+leaf from changing anything, and TAIL_STEPS steps at a time replay as one
+CUDA graph.  Each packet still meets the same nodes and leaves in the same
+order, so the outputs and counts are bit for bit those of the compacting
+loop (``tail=`` forces the masked steps, without a graph, on the CPU).
 """
 
 from __future__ import annotations
@@ -133,13 +142,22 @@ def _mt(o, d, tri):
     return t, u, v, det
 
 
+# Packets left when a twin on the card turns to its masked steps, and the
+# steps a CUDA graph replays at once.
+TAIL_PACKETS = 64
+TAIL_STEPS = 32
+
+
 def packet_walk(pk: Packets, packed: PackedBVH, t_min: float, upper, on_leaf, voters=None,
-                done=None, stats: dict | None = None) -> None:
+                done=None, stats: dict | None = None, tail: int | None = None) -> None:
     """All packets' walks in lockstep, one node a step each.  upper(live) is
     each ray's bound (L, 1024) at the start of the visit, voters(live) the
-    rays that may vote (None: all), on_leaf(sel, o, d, tri, tid) tests the
-    wanted leaves' (S, 8, 9) triangles with ids (S, 8) against all rays of
-    packets sel, and done(live) ends packets before a visit."""
+    rays that may vote (None: all), on_leaf(sel, o, d, tri, tid, mask) tests
+    the wanted leaves' (S, 8, 9) triangles with ids (S, 8) against all rays
+    of packets sel (mask: the packets of sel that entered their leaf; None:
+    all), and done(live) ends packets before a visit.  tail: the packets
+    left at which the masked steps take over (default TAIL_PACKETS on the
+    card, none on the CPU)."""
     box = packed.node_f32[:, :6]
     escape = packed.node_i32[:, 0].long()
     is_leaf = packed.node_i32[:, 3] > 0
@@ -153,11 +171,16 @@ def packet_walk(pk: Packets, packed: PackedBVH, t_min: float, upper, on_leaf, vo
         stats.update(visits=0, rows=torch.zeros((), dtype=torch.int64, device=dev),
                      seen_nodes=torch.zeros(box.shape[0], dtype=torch.bool, device=dev),
                      seen_rows=torch.zeros(rows.shape[0], dtype=torch.bool, device=dev))
+    if tail is None:
+        tail = TAIL_PACKETS if dev.type == "cuda" else 0
     while live.numel():
         if done is not None:
             live = live[~done(live)]
             if not live.numel():
                 break
+        if live.numel() <= tail:
+            _masked_walk(pk, packed, live, node, tmin, upper, on_leaf, voters, done, stats)
+            return
         nd = node[live]
         boxed = _slab(pk.o[live], pk.inv[live], box[nd], tmin, upper(live))
         if voters is not None:
@@ -165,18 +188,98 @@ def packet_walk(pk: Packets, packed: PackedBVH, t_min: float, upper, on_leaf, vo
         want = boxed.any(dim=1)
         leaf = is_leaf[nd]
         enter = want & leaf
+        nxt = torch.where(want & ~leaf, nd + 1, escape[nd])
+        keep = nxt >= 0
+        # one host sync a step: both masks' counts at once
+        n_enter, n_keep = torch.stack([enter.sum(), keep.sum()]).tolist()
+        pos = torch.nonzero_static(enter, size=n_enter)[:, 0]
+        r = leaf_row[nd[pos]]
         if stats is not None:
             stats["visits"] += live.numel()
             stats["seen_nodes"][nd] = True
-            stats["rows"] += enter.sum()
-            stats["seen_rows"][leaf_row[nd[enter]]] = True
-        sel = live[enter]
-        if sel.numel():
-            r = leaf_row[nd[enter]]
-            on_leaf(sel, pk.o[sel], pk.d[sel], rows[r], packed.tri_ids[r])
-        nxt = torch.where(want & ~leaf, nd + 1, escape[nd])
+            stats["rows"] += n_enter
+            stats["seen_rows"][r] = True
+        if n_enter:
+            sel = live[pos]
+            on_leaf(sel, pk.o[sel], pk.d[sel], rows[r], packed.tri_ids[r], None)
         node[live] = nxt
-        live = live[nxt >= 0]
+        live = live[torch.nonzero_static(keep, size=n_keep)[:, 0]]
+
+
+def _masked_walk(pk: Packets, packed: PackedBVH, live: torch.Tensor, node: torch.Tensor,
+                 tmin: torch.Tensor, upper, on_leaf, voters, done, stats) -> None:
+    """packet_walk's steps for the packets `live`, in fixed shapes: a packet
+    steps while its cursor is >= 0 and done() does not end it, and only a
+    stepping packet that wants a leaf enters it (on_leaf's mask).  On the
+    card TAIL_STEPS steps replay as one CUDA graph (a finished walk's steps
+    change nothing); the live packets are compacted, and the graph made
+    again, once at most a quarter of them still step."""
+    box = packed.node_f32[:, :6]
+    escape = packed.node_i32[:, 0].long()
+    is_leaf = packed.node_i32[:, 3] > 0
+    leaf_row = packed.node_i32[:, 1].long()
+    rows = packed.tri_rows[:, :LEAF_CAP * 9].unflatten(1, (LEAF_CAP, 9))
+    dev = pk.o.device
+    n_nodes, n_rows = box.shape[0], rows.shape[0]
+    if stats is not None:
+        # one slot past the end takes the marks of packets that do not count
+        visits = torch.zeros((), dtype=torch.int64, device=dev)
+        seen_nodes = torch.zeros(n_nodes + 1, dtype=torch.bool, device=dev)
+        seen_rows = torch.zeros(n_rows + 1, dtype=torch.bool, device=dev)
+        true = torch.ones((), dtype=torch.bool, device=dev)  # no host copy in a graph
+
+    def stepping(live):
+        act = node[live] >= 0
+        return act if done is None else act & ~done(live)
+
+    def step(live):
+        act = stepping(live)
+        nd_raw = node[live]
+        nd = torch.clamp_min(nd_raw, 0)
+        boxed = _slab(pk.o[live], pk.inv[live], box[nd], tmin, upper(live))
+        if voters is not None:
+            boxed &= voters(live)
+        want = boxed.any(dim=1) & act
+        leaf = is_leaf[nd]
+        enter = want & leaf
+        r = torch.where(enter, leaf_row[nd], 0)
+        if stats is not None:
+            visits.add_(act.sum())
+            seen_nodes.index_put_((torch.where(act, nd, n_nodes),), true)
+            stats["rows"] += enter.sum()
+            seen_rows.index_put_((torch.where(enter, r, n_rows),), true)
+        on_leaf(live, pk.o[live], pk.d[live], rows[r], packed.tri_ids[r], enter)
+        node[live] = torch.where(act, torch.where(want & ~leaf, nd + 1, escape[nd]), nd_raw)
+
+    while True:
+        act = stepping(live)
+        n_act = int(act.sum())
+        if not n_act:
+            break
+        if 4 * n_act <= live.numel():
+            live = live[act]
+        if dev.type == "cuda":
+            graph = torch.cuda.CUDAGraph()
+            side = torch.cuda.Stream()
+            side.wait_stream(torch.cuda.current_stream())
+            with torch.cuda.stream(side):
+                step(live)  # a real step, which also warms the graph's kernels
+            torch.cuda.current_stream().wait_stream(side)
+            with torch.cuda.graph(graph):
+                for _ in range(TAIL_STEPS):
+                    step(live)
+            while bool(stepping(live).any()):
+                graph.replay()
+                if 4 * int(stepping(live).sum()) <= live.numel():
+                    break
+            del graph
+        else:
+            for _ in range(TAIL_STEPS):
+                step(live)
+    if stats is not None:
+        stats["visits"] += int(visits)
+        stats["seen_nodes"] |= seen_nodes[:n_nodes]
+        stats["seen_rows"] |= seen_rows[:n_rows]
 
 
 def traverse_packet_ref(rays: Rays, packed: PackedBVH, t_min: float = DEFAULT_T_MIN,
@@ -190,7 +293,7 @@ def traverse_packet_ref(rays: Rays, packed: PackedBVH, t_min: float = DEFAULT_T_
     vb = torch.zeros_like(ub)
     ib = torch.full(shape, -1, dtype=torch.int32, device=dev)
 
-    def on_leaf(sel, o, d, tri, tid):
+    def on_leaf(sel, o, d, tri, tid, mask):
         # tpurt's slot-by-slot `better` chain keeps the lexicographic (t, id)
         # minimum of the best so far and the accepted candidates (a leaf
         # holds each triangle once), taken here at once
@@ -205,6 +308,8 @@ def traverse_packet_ref(rays: Rays, packed: PackedBVH, t_min: float = DEFAULT_T_
         bt, bi = tb[sel], ib[sel]
         tk, ik = tm[..., 0], im[..., 0]
         better = ok.any(dim=-1) & ((tk < bt) | ((tk == bt) & (ik < bi) & (bi >= 0)))
+        if mask is not None:
+            better = better & mask[:, None]
         tb[sel] = torch.where(better, tk, bt)
         ub[sel] = torch.where(better, u.gather(-1, j)[..., 0], ub[sel])
         vb[sel] = torch.where(better, v.gather(-1, j)[..., 0], vb[sel])
@@ -224,12 +329,12 @@ def occluded_packet_ref(rays: Rays, packed: PackedBVH, t_max, t_min: float = DEF
     pk = Packets(rays, t_max)
     blocked = torch.zeros((pk.p, PACKET_RAYS), dtype=torch.bool, device=pk.o.device)
 
-    def on_leaf(sel, o, d, tri, tid):
+    def on_leaf(sel, o, d, tri, tid, mask):
         t, u, v, det = _mt(o, d, tri)
         tm = pk.tm[sel, :, None]
         hit = ((det.abs() > DET_EPS) & (u >= 0.0) & (v >= 0.0) & (u + v <= 1.0)
                & (t > t_min) & (t < tm) & (tid[:, None, :] >= 0))
-        blocked[sel] |= hit.any(dim=-1)
+        blocked[sel] |= hit.any(dim=-1) if mask is None else hit.any(dim=-1) & mask[:, None]
 
     packet_walk(pk, packed, t_min, lambda live: pk.tm[live], on_leaf,
                 voters=lambda live: ~blocked[live], done=lambda live: blocked[live].all(dim=1),
@@ -248,7 +353,7 @@ def k_nearest_ids_packet_ref(rays: Rays, packed: PackedBVH, k: int, band: float,
     ts = torch.full((pk.p, PACKET_RAYS, k), T_MAX, dtype=torch.float32, device=dev)
     ids = torch.full((pk.p, PACKET_RAYS, k), -1, dtype=torch.int32, device=dev)
 
-    def on_leaf(sel, o, d, tri, tid):
+    def on_leaf(sel, o, d, tri, tid, mask):
         # tpurt inserts the accepted candidates one at a time; the list that
         # leaves the leaf is the k smallest (t, id) of the list and the
         # candidates (distinct triangles), empty slots (T_MAX, -1) sorting
@@ -261,7 +366,12 @@ def k_nearest_ids_packet_ref(rays: Rays, packed: PackedBVH, k: int, band: float,
         ci = torch.cat([ids[sel], torch.where(acc, idb, BIG_ID)], dim=-1)
         p = torch.sort(ci, dim=-1, stable=True).indices
         q = p.gather(-1, torch.sort(ct.gather(-1, p), dim=-1, stable=True).indices)[..., :k]
-        ts[sel], ids[sel] = ct.gather(-1, q), ci.gather(-1, q)
+        if mask is None:
+            ts[sel], ids[sel] = ct.gather(-1, q), ci.gather(-1, q)
+        else:
+            keep = mask[:, None, None]
+            ts[sel] = torch.where(keep, ct.gather(-1, q), ct[..., :k])
+            ids[sel] = torch.where(keep, ci.gather(-1, q), ci[..., :k])
 
     packet_walk(pk, packed, t_min, lambda live: torch.minimum(ts[live, :, k - 1], pk.tm[live]),
                 on_leaf, stats=stats)

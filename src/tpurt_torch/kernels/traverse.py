@@ -160,11 +160,13 @@ def near_walk(o, d, packed: PackedBVH, t_min: float, bound: torch.Tensor, act: t
             tested(torch.cat([left, right]))
             cl, cr = position(left), position(right)
             both, left_first = pl & pr, tl <= tr
-            b = inner[both]
-            top = torch.clamp_max(sp[b], BIN_STACK - 1)
-            stack[b, top] = torch.where(left_first, cr, cl)[both]
-            stack_t[b, top] = torch.where(left_first, tr, tl)[both]
-            sp[b] += 1
+            # a ray that pushes nothing writes its own slot back: no host sync
+            top = torch.clamp_max(sp[inner], BIN_STACK - 1)
+            stack[inner, top] = torch.where(both, torch.where(left_first, cr, cl),
+                                            stack[inner, top])
+            stack_t[inner, top] = torch.where(both, torch.where(left_first, tr, tl),
+                                              stack_t[inner, top])
+            sp[inner] += both
             pos[inner] = torch.where(both, torch.where(left_first, cl, cr),
                                      torch.where(pl, cl, cr))
             dead = inner[~(pl | pr)]

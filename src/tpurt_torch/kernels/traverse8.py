@@ -161,20 +161,22 @@ class _Walk:
             self.stats["rows"] += tested.sum() if n_tested is None else n_tested
             self.stats["seen_rows"][self.ridx[tested]] = True
 
-    def push_pop(self, act, push, meta):
+    def push_pop(self, act, push, meta, keep=None):
         """Push passing internal children in entry order (LIFO), then pop
-        the next node; returns the rays that still have one."""
+        the next node; returns the rays that still have one (and, given
+        the mask keep, are kept).  A ray that does not push a child writes
+        its own stack slot back unchanged: no host sync a push."""
         sp = self.sp[act]
         for c in range(ENTRIES):
             p = push[:, c]
             idx = torch.clamp_max(sp, STACKV - 1)
-            self.stack[act[p], idx[p]] = meta[p, c]
+            self.stack[act, idx] = torch.where(p, meta[:, c], self.stack[act, idx])
             sp = sp + p
         more = sp > 0
         top = self.stack[act, torch.clamp(sp - 1, 0, STACKV - 1)].long()
         self.cur[act] = torch.where(more, top, -1)
         self.sp[act] = torch.clamp_min(sp - 1, 0)
-        return act[more]
+        return act[more if keep is None else more & keep]
 
 
 def traverse_wide8_ref(rays: Rays, wide: WideBVH, t_min: float = DEFAULT_T_MIN,
@@ -209,14 +211,16 @@ def traverse_wide8_ref(rays: Rays, wide: WideBVH, t_min: float = DEFAULT_T_MIN,
         tk, ik = tm[:, 0], im[:, 0]
         tb, ib = t_b[act], id_b[act]
         better = ok.any(dim=1) & ((tk < tb) | ((tk == tb) & (ik < ib) & (ib >= 0)))
-        sel = act[better]
-        t_b[sel] = tk[better]
-        u_b[sel] = u.gather(1, k)[better, 0]
-        v_b[sel] = v.gather(1, k)[better, 0]
-        id_b[sel] = ik[better]
+        # the rays without a better hit write their own values back: no
+        # host sync a visit
+        t_b[act] = torch.where(better, tk, tb)
+        u_b[act] = torch.where(better, u.gather(1, k)[:, 0], u_b[act])
+        v_b[act] = torch.where(better, v.gather(1, k)[:, 0], v_b[act])
+        id_b[act] = torch.where(better, ik, ib)
         if shade_out:
             sh = _shade_lanes(trow).flatten(1, 2)
-            sh_b[sel] = sh[better, k[better, 0]]
+            pick = sh.gather(1, k[:, :, None].expand(-1, 1, sh.shape[-1]))[:, 0]
+            sh_b[act] = torch.where(better[:, None], pick, sh_b[act])
         act = w.push_pop(act, push, meta)
     shape = rays.shape
     hit = Hit(t=t_b.reshape(shape), u=u_b.reshape(shape), v=v_b.reshape(shape),
@@ -257,9 +261,8 @@ def occluded_wide8_ref(rays: Rays, wide: WideBVH, t_max,
         tested = slot.repeat_interleave(2, dim=1) & (half.cumsum(dim=1) - half.long() == 0)
         w.count_rows(tested.unflatten(1, (-1, 2)).any(-1), tested.sum())
         hit = half.any(dim=1)
-        blocked[act[hit]] = True
-        act = w.push_pop(act, push, meta)
-        act = act[~blocked[act]]
+        blocked[act] |= hit
+        act = w.push_pop(act, push, meta, keep=~hit)
     return blocked.reshape(rays.shape)
 
 
@@ -307,11 +310,13 @@ def k_nearest_wide8_ref(rays: Rays, wide: WideBVH, k: int, band: float,
               & (tid >= 0))
         ok, t, tid = ok.flatten(1), t.flatten(1), tid.flatten(1)
         has = ok.any(dim=1)
-        if bool(has.any()):
-            sel, ok = act[has], ok[has]
+        n_has = int(has.sum())  # the one host sync of the merge
+        if n_has:
+            h = torch.nonzero_static(has, size=n_has)[:, 0]
+            sel, ok = act[h], ok[h]
             ts[sel], ids[sel] = _merge_k(
-                ts[sel], ids[sel], torch.where(ok, t[has], T_MAX),
-                torch.where(ok, tid[has], _BIG_ID), k)
+                ts[sel], ids[sel], torch.where(ok, t[h], T_MAX),
+                torch.where(ok, tid[h], _BIG_ID), k)
         act = w.push_pop(act, push, meta)
     return torch.where(ids == _BIG_ID, -1, ids)
 

@@ -40,6 +40,22 @@ def gen_primary_rays(cam: Camera, jitter: torch.Tensor | None = None) -> Rays:
     return Rays(o=cam.eye.expand(d.shape).contiguous(), d=d)
 
 
+def gen_tile_rays(cam: Camera, y0: int, x0: int, th: int, tw: int) -> Rays:
+    """Rays through the pixel centres of one (th x tw) tile anchored at
+    pixel (y0, x0), row-major within the tile."""
+    h, w = cam.height, cam.width
+    dev = cam.eye.device
+    right, up, fwd = camera_basis(cam)
+    tan_half = torch.tan(torch.deg2rad(cam.fov_y_deg) * 0.5)
+    aspect = w / h
+    yy = y0 + torch.arange(th, dtype=torch.float32, device=dev)[:, None].expand(th, tw)
+    xx = x0 + torch.arange(tw, dtype=torch.float32, device=dev)[None, :].expand(th, tw)
+    px = ((xx.reshape(-1) + 0.5) / w * 2.0 - 1.0) * tan_half * aspect
+    py = (1.0 - (yy.reshape(-1) + 0.5) / h * 2.0) * tan_half
+    d = normalize(px[:, None] * right + py[:, None] * up + fwd)
+    return Rays(o=cam.eye.expand(d.shape).contiguous(), d=d)
+
+
 def pixel_morton_perm(height: int, width: int):
     """Morton (Z-order) permutation of row-major pixel indices, as numpy
     int64 arrays (perm, inv): rays_morton = rays_flat[perm] and

@@ -154,15 +154,11 @@ def test_sample_square_shape_range_and_seed():
 
 
 # -- config ----------------------------------------------------------------
-# tpurt's fields the port leaves out until a ported path reads them
-UNREAD = {"RenderConfig": set(), "FitConfig": {"seed"}}
-
-
 @pytest.mark.parametrize("cls", ["RenderConfig", "FitConfig"])
 def test_config_fields_and_defaults_match_tpurt_but_the_engine(cls):
     tf = {f.name: f.default for f in dataclasses.fields(getattr(tconfig, cls))}
     jf = {f.name: f.default for f in dataclasses.fields(getattr(jconfig, cls))}
-    assert set(jf) - set(tf) == UNREAD[cls] and set(tf) <= set(jf)
+    assert list(tf) == list(jf)
     assert {k: v for k, v in tf.items() if k != "method"} == \
         {k: v for k, v in jf.items() if k != "method" and k in tf}
     if cls == "RenderConfig":

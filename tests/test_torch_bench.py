@@ -315,11 +315,6 @@ def test_5m_rows_on_a_small_scene(monkeypatch, capsys):
     assert row["engine_ran_5m"] == "wide8" and row["peak_bytes_5m_fwd_bwd"] == 0
 
 
-def test_sort_bench_is_not_ported():
-    with pytest.raises(NotImplementedError, match="sort_ref"):
-        bench.main(SMALL + ["--sort-bench"])
-
-
 def test_cli_bench_verb_runs_main(monkeypatch):
     """The verb passes its own flags that were given, --method unless
     "auto" (as tpurt's cmd_bench forwards it), then the benchmark's."""
