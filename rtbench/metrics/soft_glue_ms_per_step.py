@@ -1,0 +1,20 @@
+"""Device ms a fit step under the port's tpurt::fit.forward spans (each
+chunk's soft forward and its loss), less the walks: each forward range's
+device time less that of the tpurt::walk.* ranges inside it (knear8).
+The same whether or not the profiler credits the walks' kernels, launched
+through ctypes, to the range that was open."""
+
+SPAN = "tpurt::fit.forward"
+WALK = "tpurt::walk."
+
+
+def read(ctx):
+    if ctx.kind != "fit" or ctx.trace is None:
+        return None
+    spans = [r for r in ctx.trace.ranges if r[0] == SPAN]
+    if not spans:
+        return None
+    walks = [r for r in ctx.trace.ranges if r[0].startswith(WALK)
+             and any(s[1] <= r[1] and r[2] <= s[2] for s in spans)]
+    us = sum(r[3] for r in spans) - sum(r[3] for r in walks)
+    return us / 1e3 / ctx.steps_traced

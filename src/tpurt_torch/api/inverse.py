@@ -35,6 +35,14 @@ passes no key, does.
 With ``FitConfig.ckpt_path`` set, a fit resumes from the latest checkpoint
 there (parameters and optimizer state) and saves one every ``ckpt_every``
 steps, as tpurt's does (api/checkpoint.py).
+
+Spans (obs/trace.py; a profiler range each while a profiler runs): a step
+runs ``tpurt::fit.table`` (parameters to the table), ``tpurt::refit``, each
+chunk's ``tpurt::fit.forward`` and ``tpurt::fit.backward``
+(dist/collectives.chunked_grad) and ``tpurt::fit.update`` (the backward
+through the table and the optimizer step); ``fit`` reads the loss and the
+gradient norms back in ``tpurt::fit.readback``, the step's host syncs, and
+checks the tree in ``tpurt::fit.rebuild_check``.
 """
 
 from __future__ import annotations
@@ -56,6 +64,7 @@ from tpurt_torch.core.geometry import Camera, Rays
 from tpurt_torch.core.scene import Scene
 from tpurt_torch.dist.collectives import chunked_grad, rank_rows
 from tpurt_torch.dist.shard import replicate
+from tpurt_torch.obs.trace import spanned, trace_span
 from tpurt_torch.render.camera import gen_primary_rays
 from tpurt_torch.render.pipeline import Tracer, make_tracer, render_rays, tri_table
 
@@ -151,15 +160,16 @@ class InverseRenderer:
              d: torch.Tensor, target: torch.Tensor) -> torch.Tensor:
         """One fit step over the (padded) rays; returns the summed loss (a
         0-d tensor on the device) after updating params in place."""
-        scene = self.apply_params(params)
-        table = tri_table(scene.tris)
-        leaf = table.detach().requires_grad_(True)
-        frozen = dataclasses.replace(scene, tris=dataclasses.replace(
-            scene.tris, verts=scene.tris.verts.detach(),
-            albedo=scene.tris.albedo.detach()))
+        with trace_span("tpurt::fit.table"):
+            scene = self.apply_params(params)
+            table = tri_table(scene.tris)
+            leaf = table.detach().requires_grad_(True)
+            frozen = dataclasses.replace(scene, tris=dataclasses.replace(
+                scene.tris, verts=scene.tris.verts.detach(),
+                albedo=scene.tris.albedo.detach()))
         tracer = self.tracer0
         if "verts" in params:
-            with torch.profiler.record_function("tpurt::refit"):
+            with trace_span("tpurt::refit"):
                 tracer = refit_tracer(tracer, frozen.tris, table=leaf.detach())
         tracer = dataclasses.replace(tracer, scene=frozen, table=leaf)
         rkw = self.render_cfg.render_kwargs()
@@ -171,9 +181,10 @@ class InverseRenderer:
 
         loss, grad = chunked_grad(chunk_loss, leaf, (o, d, target),
                                   self.fit_cfg.grad_chunks, mesh=self.mesh)
-        opt.zero_grad(set_to_none=True)
-        table.backward(grad)
-        opt.step()
+        with trace_span("tpurt::fit.update"):
+            opt.zero_grad(set_to_none=True)
+            table.backward(grad)
+            opt.step()
         return loss
 
     # -- rebuild-on-drift -------------------------------------------------
@@ -194,6 +205,7 @@ class InverseRenderer:
         area = 2.0 * (d[:, 0] * d[:, 1] + d[:, 1] * d[:, 2] + d[:, 2] * d[:, 0])
         return float(torch.sum(area) / torch.clamp_min(area[0], 1e-30))
 
+    @spanned("tpurt::fit.rebuild_check")
     def _maybe_rebuild(self, params: dict[str, torch.Tensor]) -> bool:
         """Rebuild the tracer at the current vertices when the refit tree's
         quality passed rebuild_ratio x its at-build value."""
@@ -242,9 +254,10 @@ class InverseRenderer:
         losses, grad_norms = [], []
         for i in range(start, steps):
             loss = self._step(params, opt, o, d, target)
-            grad_norms.append({k: float(torch.linalg.vector_norm(v.grad))
-                               for k, v in params.items()})
-            losses.append(float(loss) / n)
+            with trace_span("tpurt::fit.readback"):
+                grad_norms.append({k: float(torch.linalg.vector_norm(v.grad))
+                                   for k, v in params.items()})
+                losses.append(float(loss) / n)
             if callback:
                 callback(i, losses[-1])
             if (cfg.rebuild_every and "verts" in params

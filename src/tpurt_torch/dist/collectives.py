@@ -22,6 +22,8 @@ import torch
 import torch.distributed as dist
 from torch.distributed.device_mesh import DeviceMesh
 
+from tpurt_torch.obs.trace import trace_span
+
 COUNTS = {"all_reduce": 0, "all_reduce_bytes": 0}
 
 
@@ -109,16 +111,19 @@ def chunked_grad(loss_fn: Callable[..., torch.Tensor], params, chunk_args: tuple
     gradient and loss travel in one flat buffer in one asynchronous
     all-reduce, issued as soon as that chunk's backward is done: n_chunks
     all-reduces a call.  Returns (loss, grads), summed over the chunks and
-    the mesh, grads shaped as params."""
+    the mesh, grads shaped as params.  Each chunk's forward and backward
+    run in the spans tpurt::fit.forward and tpurt::fit.backward."""
     leaves = list(params.values()) if isinstance(params, dict) else [params]
     sizes = [p.numel() for p in leaves]
     pending, total = [], None
     for i in range(n_chunks):
         chunk = tuple(x.reshape(n_chunks, -1, *x.shape[1:])[i] for x in chunk_args)
-        loss = loss_fn(params, *chunk)
-        grads = torch.autograd.grad(loss, leaves, allow_unused=True)
-        flat = torch.cat([(torch.zeros_like(p) if g is None else g).reshape(-1)
-                          for p, g in zip(leaves, grads)] + [loss.detach().reshape(1)])
+        with trace_span("tpurt::fit.forward"):
+            loss = loss_fn(params, *chunk)
+        with trace_span("tpurt::fit.backward"):
+            grads = torch.autograd.grad(loss, leaves, allow_unused=True)
+            flat = torch.cat([(torch.zeros_like(p) if g is None else g).reshape(-1)
+                              for p, g in zip(leaves, grads)] + [loss.detach().reshape(1)])
         if mesh is not None:
             pending.append((flat, _all_reduce(flat, mesh, async_op=True)))
         else:

@@ -48,6 +48,12 @@ render traces the candidate occluders toward the samples from layer 0
 through its k-nearest walk (knear8, knear_bin) and evaluates the soft
 transmittance of every layer, as for point lights.  Without a generator
 nothing is sampled, as tpurt samples nothing without a key.
+
+Spans (obs/trace.py; a profiler range each while a profiler runs):
+``tpurt::render_rays`` holds a render; every engine's walks run in
+``tpurt::walk.closest``, ``tpurt::walk.occluded`` and ``tpurt::walk.knear``
+(the Tracer's methods), and the area lights in ``tpurt::area``, their
+sampling in ``tpurt::area.sample``.
 """
 
 from __future__ import annotations
@@ -83,6 +89,7 @@ from tpurt_torch.kernels.traverse import (
     k_nearest_ids_packed, occluded_packed, traverse_packed)
 from tpurt_torch.kernels.traverse8 import (
     k_nearest_wide8, occluded_wide8, traverse_wide8)
+from tpurt_torch.obs.trace import spanned, trace_span
 from tpurt_torch.render.camera import gen_primary_rays, pixel_morton_perm
 from tpurt_torch.render.shade import (
     area_light_contrib, face_forward, light_dirs, sample_emitters, shade_lambert)
@@ -143,6 +150,7 @@ class Tracer:
             extra = tuple(torch.nn.functional.pad(e, (0, pad)) for e in extra)
         return Rays(o=o, d=d), n, extra
 
+    @spanned("tpurt::walk.closest")
     def closest_shaded(self, rays: Rays) -> tuple[Hit, tuple | None]:
         """(Hit, shade) where shade = (albedo, emission, raw normal) of the
         winning triangle straight from the wide8 walk, or None for the
@@ -165,6 +173,7 @@ class Tracer:
             return traverse_ref(rays, self.scene.tris, self.bvh), None
         return intersect_brute(rays, self.scene.tris), None
 
+    @spanned("tpurt::walk.occluded")
     def visibility(self, rays: Rays, t_max: torch.Tensor) -> torch.Tensor:
         """Hard transmittance in (t_min, t_max): 1 visible, 0 occluded."""
         if self.method == "brute":
@@ -186,6 +195,7 @@ class Tracer:
         return 1.0 - occ.to(torch.float32)
 
     @torch.no_grad()
+    @spanned("tpurt::walk.knear")
     def k_nearest(self, rays: Rays, k: int, band: float) -> KHits:
         """The k nearest band hits, front to back (ids only for the kernel
         engines: t, u, v are recomputed downstream and are zeros here).  No
@@ -210,6 +220,7 @@ class Tracer:
         return KHits(t=z, u=z, v=z, tri=ids.reshape(*rays.shape, k))
 
     @torch.no_grad()
+    @spanned("tpurt::walk.knear")
     def occluder_ids(self, rays: Rays, t_max, k_occ: int, band: float) -> torch.Tensor:
         """The k_occ nearest candidate occluders per flat ray in
         (t_min, 2 t_max) -> (N, k_occ) int32, -1 padded.  No gradient."""
@@ -356,10 +367,12 @@ def _shade_layer(tracer: Tracer, rays: Rays, hit: Hit, shade=None,
     color = shade_lambert(p, n, albedo, emission, scene.lights, vis,
                           scene.ambient)
     if light_samples > 0 and generator is not None:
-        lp, ln_, le, pdf, _ = sample_emitters(generator, scene.tris, light_samples)
-        al_rays, t_al = area_shadow_rays(p, n, valid, lp)
-        vis_al = tracer.visibility(al_rays, t_max=t_al).reshape(light_samples, R).T
-        color = color + area_light_contrib(p, n, albedo, lp, ln_, le, pdf, vis_al)
+        with trace_span("tpurt::area"):
+            with trace_span("tpurt::area.sample"):
+                lp, ln_, le, pdf, _ = sample_emitters(generator, scene.tris, light_samples)
+            al_rays, t_al = area_shadow_rays(p, n, valid, lp)
+            vis_al = tracer.visibility(al_rays, t_max=t_al).reshape(light_samples, R).T
+            color = color + area_light_contrib(p, n, albedo, lp, ln_, le, pdf, vis_al)
     return torch.where(valid[..., None], color, 0.0)
 
 
@@ -465,12 +478,15 @@ def _render_soft(tracer: Tracer, rays: Rays, k_layers: int, sharpness: float,
     color = shade_lambert(pf, nf, alb, aos3(surf.emission), scene.lights, vis,
                           scene.ambient)
     if light_samples > 0 and generator is not None:
-        lp, ln_, le, pdf, _ = sample_emitters(generator, scene.tris, light_samples)
-        color = color + area_light_contrib(pf, nf, alb, lp, ln_, le, pdf, shared_vis(lp))
+        with trace_span("tpurt::area"):
+            with trace_span("tpurt::area.sample"):
+                lp, ln_, le, pdf, _ = sample_emitters(generator, scene.tris, light_samples)
+            color = color + area_light_contrib(pf, nf, alb, lp, ln_, le, pdf, shared_vis(lp))
     colors = torch.where(surf.valid.T[..., None], color.reshape(r, k, 3), 0.0)
     return composite(alphas.T, colors, scene.background)
 
 
+@spanned("tpurt::render_rays")
 def render_rays(tracer: Tracer, rays: Rays, *, soft: bool = False,
                 k_layers: int = 4, sharpness: float = 100.0, band: float = 0.08,
                 k_occ: int = 8, light_samples: int = 0,
