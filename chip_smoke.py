@@ -8,12 +8,16 @@ world 1 on NCCL), the CLI and the benchmark.
 
     python3 chip_smoke.py [--parent DIR] [--parent NAME=DIR ...]
     python3 chip_smoke.py --packet-ab --parent DIR [--parent NAME=DIR ...]
+    python3 chip_smoke.py --softocc
 
 --packet-ab runs [device], [build] and then only [walk_ab]'s packet cells
 (below), with the shadow rays from this build's hits, [knear_ab]'s packet
 cells and [segsum_ab] on [segsum]'s inputs but the bunny fit's, and prints
 no result line: the quick A/B of the packet and segsum kernels against
 other trees.
+
+--softocc runs [device], [build] and then only [softocc] (below) on the 1M
+sponza, and prints no result line.
 
 Phases, one line each (any failure exits non-zero and prints no result):
   device   torch.cuda must be available; the card's name and power limit.
@@ -138,6 +142,18 @@ Phases, one line each (any failure exits non-zero and prints no result):
            SEGSUM_RULE, parameter elements that differ between the two runs
            of each backend; the ops a step under
            use_deterministic_algorithms(warn_only=True) warns about.
+  softocc  the soft shadow transmittance's kernels (csrc/softocc.cu) on the
+           fit's chunk 0 inputs, recorded from the pipeline: the forward
+           against the plain composition (within 1e-6), every gradient's
+           relative L2 error against a float64 autograd beside the plain f32
+           route's (at most twice it plus 1e-6), the elementwise gap to the
+           plain route, a backward repeated bit for bit; each kernel's device
+           ms (bare launches, profiler), the node's and the plain route's
+           forward and backward ms (CUDA events), the bytes bound; the
+           launches of a fit step (FIT_CHUNKS of each), two 3-step fits'
+           parameters (0 elements may differ), the fit step and its peak
+           memory with the kernels against the plain composition, in turns,
+           and each route's device operations in one profiled fit step.
 The binary-BVH engine (method="binary": closest_bin, occluded_bin and
 knear_bin over the packed threaded tree):
   scene_bin
@@ -374,10 +390,12 @@ from tpurt_torch.dist.scene_partition import (  # noqa: E402
     BIG_ID, alltoall_trace, build_partition_bvhs, build_partition_wides, partition_scene)
 from tpurt_torch.dist.shard import make_mesh, shard_render  # noqa: E402
 from tpurt_torch.diff import gather_grad as gg_mod  # noqa: E402
+from tpurt_torch.diff import softvis as sv_mod  # noqa: E402
 from tpurt_torch.kernels import _build  # noqa: E402
 from tpurt_torch.kernels import packet as kp  # noqa: E402
 from tpurt_torch.kernels import traverse as kb  # noqa: E402
 from tpurt_torch.kernels import segsum as ss  # noqa: E402
+from tpurt_torch.kernels import softocc as so  # noqa: E402
 from tpurt_torch.kernels import traverse8 as k8  # noqa: E402
 from tpurt_torch.kernels import treebuild as tb  # noqa: E402
 from tpurt_torch.render import pipeline as pipeline_mod  # noqa: E402
@@ -538,7 +556,8 @@ KERNEL_NAMES = ("closest8_kernel", "occluded8_kernel", "knear8_kernel",
                 "closest_bin_kernel", "occluded_bin_kernel", "knear_bin_kernel",
                 "morton_kernel", "radix_kernel", "segsum_scan_kernel", "segsum_carry_kernel",
                 "segsum_carry_pass", "segsum_ends_kernel", "packet_closest_kernel",
-                "packet_occluded_kernel", "packet_knear_kernel")
+                "packet_occluded_kernel", "packet_knear_kernel", "softocc_fwd_kernel",
+                "softocc_bwd_kernel")
 WALK_KERNELS = ("closest8", "occluded8", "knear8", "closest_bin", "occluded_bin", "knear_bin")
 # The packet engine's hard-frame kernels, which [walk_ab] also times.
 PACKET_WALKS = ("packet_closest", "packet_occluded")
@@ -1601,10 +1620,12 @@ def reset_launches() -> None:
     kp.reset_launches()
     tb.reset_launches()
     ss.reset_launches()
+    so.reset_launches()
 
 
 def launch_counts() -> dict:
-    return {**k8.LAUNCHES, **kb.LAUNCHES, **kp.LAUNCHES, **tb.LAUNCHES, **ss.LAUNCHES}
+    return {**k8.LAUNCHES, **kb.LAUNCHES, **kp.LAUNCHES, **tb.LAUNCHES, **ss.LAUNCHES,
+            **so.LAUNCHES}
 
 
 def fit_problem(scene, cam: Camera, method: str = "wide8", chunks: int = FIT_CHUNKS,
@@ -3818,6 +3839,182 @@ def record_segsum(inv: InverseRenderer, target: torch.Tensor, prefix: str) -> di
     return calls
 
 
+def softocc_inputs(inv: InverseRenderer, target: torch.Tensor) -> tuple:
+    """Chunk 0's soft_occlusion_layers_soa inputs in one fit step (the
+    pipeline's call, recorded), compact and detached: (o 3 x (K, R), d 3 x
+    (K, L, R), t_max (K, L, R), ids (L, C, R), table, sharpness, band)."""
+    with recording(pipeline_mod, ["soft_occlusion_layers_soa"], {}) as rec:
+        inv.fit(target, steps=1)
+    (o_c, d_c, tm, ids, table, sharp, band), _, _ = rec["soft_occlusion_layers_soa"][0]
+    k, n_l, _, r = d_c[0].shape
+    return ([x.detach().reshape(k, r).contiguous() for x in o_c],
+            [x.detach().reshape(k, n_l, r).contiguous() for x in d_c],
+            tm.detach().reshape(k, n_l, r).contiguous(), ids, table.detach(), sharp, band)
+
+
+def softocc_bytes(k: int, n_l: int, c: int, r: int) -> dict:
+    """The softocc kernels' bytes: every input read once (ids 4 bytes, a
+    candidate's 9 geometry floats 36, or 64 in whole 32-byte sectors;
+    origins 12 a (k, r), directions and length 16 a (k, l, r)), every
+    output written once."""
+    lcr, klr = n_l * c * r, k * n_l * r
+    fwd_in = 4 * lcr + 36 * lcr + 12 * k * r + 16 * klr
+    fwd_sec = 4 * lcr + 64 * lcr + 12 * k * r + 16 * klr
+    bwd_in = fwd_in + 4 * klr
+    bwd_out = 12 * k * r + 16 * klr + 36 * lcr
+    return {"fwd": fwd_in + 4 * klr, "fwd_sectors": fwd_sec + 4 * klr,
+            "bwd": bwd_in + bwd_out, "bwd_sectors": bwd_in - fwd_in + fwd_sec + bwd_out}
+
+
+def elementwise_gap(got: torch.Tensor, ref: torch.Tensor) -> float:
+    """max |got - ref| / max(|ref|, median of the nonzero |ref|)."""
+    nz = ref.abs()[ref != 0]
+    med = float(nz.median()) if nz.numel() else 0.0
+    return float(((got - ref).abs() / ref.abs().clamp_min(max(med, 1e-30))).max())
+
+
+def softocc_grads(fn, o, d, tm, ids, table, sharp, band, g) -> list:
+    """fn's value and [go (3), gd (3), gt_max, gtable] by autograd; fn takes
+    broadcast views (soft_occlusion_layers_soa's layout)."""
+    leaves = [x.clone().requires_grad_(True) for x in (*o, *d, tm, table)]
+    vis = fn([x[:, None, None, :] for x in leaves[0:3]],
+             [x[:, :, None, :] for x in leaves[3:6]], leaves[6][:, :, None, :], ids,
+             leaves[7], sharp, band)
+    return [vis.detach(), *torch.autograd.grad(torch.sum(vis * g), leaves)]
+
+
+def softocc_fit_ab(scene, cam: Camera, steps: int = 3) -> dict:
+    """The fit step (FIT_CHUNKS chunks) with the kernels and with the plain
+    composition swapped into the pipeline, in turns plain, kernel, kernel,
+    plain: each side's mean step seconds after its first step, and its peak
+    device memory over the fit."""
+    out = {"plain": [], "kernel": [], "plain_peak": 0, "kernel_peak": 0}
+    for side in ("plain", "kernel", "kernel", "plain"):
+        inv, target, _, _ = fit_problem(scene, cam, steps=steps)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        secs, t_last = [], [time.perf_counter()]
+
+        def on_step(i: int, loss: float) -> None:
+            torch.cuda.synchronize()
+            secs.append(time.perf_counter() - t_last[0])
+            t_last[0] = time.perf_counter()
+
+        saved = pipeline_mod.soft_occlusion_layers_soa
+        if side == "plain":
+            pipeline_mod.soft_occlusion_layers_soa = sv_mod.soft_occlusion_layers_plain
+        try:
+            t_last[0] = time.perf_counter()
+            inv.fit(target, callback=on_step)
+        finally:
+            pipeline_mod.soft_occlusion_layers_soa = saved
+        out[side].append(float(np.mean(secs[1:])) * 1e3)
+        out[side + "_peak"] = max(out[side + "_peak"], torch.cuda.max_memory_allocated())
+        del inv, target
+    return out
+
+
+def fit_device_ops(scene, cam: Camera, plain: bool) -> int:
+    """Device operations (kernels, copies, memsets) of one fit step, the
+    kernels' route or the plain composition swapped into the pipeline: a
+    profile of the second of two steps, padded with host waits so that no
+    event lands past its end."""
+    from torch.profiler import ProfilerActivity, profile
+
+    inv, target, _, _ = fit_problem(scene, cam, steps=1)
+    saved = pipeline_mod.soft_occlusion_layers_soa
+    if plain:
+        pipeline_mod.soft_occlusion_layers_soa = sv_mod.soft_occlusion_layers_plain
+    try:
+        inv.fit(target)
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            time.sleep(0.2)
+            inv.fit(target)
+            torch.cuda.synchronize()
+            time.sleep(0.5)
+    finally:
+        pipeline_mod.soft_occlusion_layers_soa = saved
+    return len(device_kernels(prof))
+
+
+def softocc_phase(scene, cam: Camera) -> None:
+    """[softocc]: csrc/softocc.cu on the 1M fit's chunk 0 inputs (recorded
+    from the pipeline in one fit step): the forward against the plain
+    composition on the card, every gradient against autograd through it and
+    against a float64 evaluation, a backward repeated bit for bit, device
+    ms of each kernel (bare launches, profiler) beside the plain route's
+    (CUDA events) and the bytes bound; then the launches of a fit step,
+    two 3-step fits' parameters bitwise, and the fit step with the kernels
+    against the plain composition in turns."""
+    inv, target, _, _ = fit_problem(scene, cam)
+    so.reset_launches()
+    o, d, tm, ids, table, sharp, band = softocc_inputs(inv, target)
+    launches = dict(so.LAUNCHES)
+    del inv, target
+    k, n_l, r = tm.shape
+    c = ids.shape[1]
+    g = torch.rand(tm.shape, device=tm.device, generator=torch.Generator(tm.device).manual_seed(5))
+    plain = softocc_grads(sv_mod.soft_occlusion_layers_plain, o, d, tm, ids, table, sharp, band, g)
+    with grad_backend("scatter"):  # segsum sums float32 only
+        truth = softocc_grads(sv_mod.soft_occlusion_layers_plain, [x.double() for x in o],
+                              [x.double() for x in d], tm.double(), ids, table.double(), sharp,
+                              band, g.double())
+    kern = softocc_grads(sv_mod.soft_occlusion_layers_soa, o, d, tm, ids, table, sharp, band, g)
+    names = ["vis", "go_x", "go_y", "go_z", "gd_x", "gd_y", "gd_z", "gt_max", "gtable"]
+    rel = lambda x, t: float((x.double() - t).norm() / t.norm().clamp_min(1e-300))  # noqa: E731
+    again = softocc_grads(sv_mod.soft_occlusion_layers_soa, o, d, tm, ids, table, sharp, band, g)
+    repeat = all(bitwise_equal(a, b) for a, b in zip(kern, again))
+    fwd_err = max_abs(kern[0], plain[0])
+    args = (o, d, tm, ids, table, sharp, band, DEFAULT_T_MIN)
+    fwd_ms = kernel_device_ms(lambda: so.forward(*args), "softocc_fwd_kernel")
+    bwd_ms = kernel_device_ms(lambda: so.backward(*args, g), "softocc_bwd_kernel")
+    node_ms = cuda_ms(lambda: softocc_grads(sv_mod.soft_occlusion_layers_soa, *args[:7], g))
+    plain_fwd_ms = cuda_ms(lambda: sv_mod.soft_occlusion_layers_plain(
+        [x[:, None, None, :] for x in o], [x[:, :, None, :] for x in d], tm[:, :, None, :],
+        ids, table, sharp, band))
+    plain_ms = cuda_ms(lambda: softocc_grads(sv_mod.soft_occlusion_layers_plain, *args[:7], g))
+    nbytes = softocc_bytes(k, n_l, c, r)
+    bound = {key: v / PEAK_BYTES_S * 1e3 for key, v in nbytes.items()}
+    rel_errs = {n: (rel(x, t), rel(y, t)) for n, x, y, t in
+                zip(names[1:], kern[1:], plain[1:], truth[1:]) if t.abs().max() > 0}
+    gaps = {n: elementwise_gap(x, y) for n, x, y in zip(names, kern, plain)}
+    del kern, plain, truth, again
+    # two 3-step fits from one start: every parameter element equal
+    fits = []
+    for _ in range(2):
+        inv2, target2, _, _ = fit_problem(scene, cam)
+        fits.append({key: v.detach().clone() for key, v in inv2.fit(target2).params.items()})
+        del inv2, target2
+    differ = sum(int((fits[0][key] != fits[1][key]).sum()) for key in fits[0])
+    ab = softocc_fit_ab(scene, cam)
+    ops = {"plain": fit_device_ops(scene, cam, True), "kernel": fit_device_ops(scene, cam, False)}
+    phase("softocc", k=k, lights=n_l, candidates=c, rays=r,
+          launches_fit_step=json.dumps(launches), fwd_max_abs_err=fwd_err,
+          rel_err=json.dumps({n: round(v[0], 9) for n, v in rel_errs.items()}),
+          plain_rel_err=json.dumps({n: round(v[1], 9) for n, v in rel_errs.items()}),
+          elementwise_gap=json.dumps({n: round(v, 9) for n, v in gaps.items()}),
+          backward_bitwise_repeat=repeat, fwd_device_ms=round(fwd_ms, 4),
+          bwd_device_ms=round(bwd_ms, 4), node_fwd_bwd_ms=round(node_ms, 4),
+          plain_fwd_ms=round(plain_fwd_ms, 4), plain_fwd_bwd_ms=round(plain_ms, 4),
+          bytes=json.dumps(nbytes), bound_ms=json.dumps({key: round(v, 5) for key, v in
+                                                         bound.items()}),
+          fits_differ_elements=differ,
+          fit_step_ms=json.dumps({"plain": [round(x, 2) for x in ab["plain"]],
+                                  "kernel": [round(x, 2) for x in ab["kernel"]]}),
+          fit_peak_bytes=json.dumps({"plain": ab["plain_peak"], "kernel": ab["kernel_peak"]}),
+          fit_step_device_ops=json.dumps(ops))
+    if launches != {"softocc_fwd": FIT_CHUNKS, "softocc_bwd": FIT_CHUNKS}:
+        fail(f"softocc: a fit step launched {launches}, not {FIT_CHUNKS} of each")
+    if fwd_err > 1e-6 or not repeat or differ:
+        fail(f"softocc: forward off by {fwd_err}, backward repeats {repeat}, "
+             f"fits differ in {differ} elements")
+    for n, (e_kern, e_plain) in rel_errs.items():
+        if e_kern > 2.0 * e_plain + 1e-6:
+            fail(f"softocc: {n} is off the float64 gradient by {e_kern}, "
+                 f"the plain route by {e_plain}")
+
+
 def segsum_patterns(dev) -> dict:
     """tpurt's five id patterns at SEGSUM_PATTERN_ROWS rows of 3 columns."""
     rng = np.random.default_rng(SEGSUM_PATTERN_SEED)
@@ -4489,6 +4686,9 @@ def main() -> None:
                     help="a checkout of the parent commit (or, named, of a variant of "
                          "the kernels): time its k-nearest kernels against these in "
                          "turns ([knear_ab], [walk_ab]); repeatable")
+    ap.add_argument("--softocc", action="store_true",
+                    help="after [build], run only [softocc] on the 1M fit and print no "
+                         "result line")
     ap.add_argument("--packet-ab", action="store_true",
                     help="after [build], run only [walk_ab]'s and [knear_ab]'s packet cells "
                          "and [segsum_ab] against the --parent trees, and print no result "
@@ -4526,6 +4726,10 @@ def main() -> None:
     walk_libs = {"new": this_library(), **others}
     if args.packet_ab:
         packet_ab(walk_libs, dev)
+        return
+    if args.softocc:
+        softocc_phase(*make_sponza_scene(num_tris=NUM_TRIS, width=WIDTH, height=HEIGHT,
+                                         device=dev))
         return
 
     # -- scene and acceleration structure, stage by stage ----------------
@@ -4641,6 +4845,7 @@ def main() -> None:
     seg_ab = segsum_ab(walk_libs, seg_inputs) if others else None
     del seg_inputs
     seg_rule = {"fit": segsum_rule("fit", fit["inv"], fit["target"])}
+    softocc_phase(scene, cam)
     # -- the distributed paths at world 1 (NCCL): the data-parallel fit --
     mesh = dist_setup()
     dfit = dist_fit(mesh, scene, cam, fit)

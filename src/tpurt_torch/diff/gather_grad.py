@@ -52,17 +52,26 @@ class _GatherVerts(torch.autograd.Function):
         (idx,) = ctx.saved_tensors
         cols = cot.shape[-1]
         use = cols if ctx.grad_cols is None else min(ctx.grad_cols, cols)
-        flat_idx, flat = idx.reshape(-1), cot.reshape(-1, cols)
-        if _BACKEND == "scatter":
-            grad = cot.new_zeros((ctx.rows, cols))
-            grad[:, :use].index_add_(0, flat_idx, flat[:, :use])
-            return grad, None, None
-        if flat.stride(-1) != 1:
-            flat = flat.contiguous()
-        grad = segment_accumulate(flat_idx, flat[:, :use], ctx.rows)
-        if use < cols:
-            grad = torch.nn.functional.pad(grad, (0, cols - use))
-        return grad, None, None
+        flat = cot.reshape(-1, cols)
+        return accumulate_rows(idx.reshape(-1), flat[:, :use], ctx.rows, cols), None, None
+
+
+def accumulate_rows(idx: torch.Tensor, cot: torch.Tensor, num_rows: int,
+                    width: int) -> torch.Tensor:
+    """The (num_rows, width) gradient of a row gather: the rows of cot (N,
+    use) summed by idx (N,) int64 into its first use columns by the
+    selected backend, the other width - use columns zero."""
+    use = cot.shape[1]
+    if _BACKEND == "scatter":
+        grad = cot.new_zeros((num_rows, width))
+        grad[:, :use].index_add_(0, idx, cot)
+        return grad
+    if cot.stride(-1) != 1:
+        cot = cot.contiguous()
+    grad = segment_accumulate(idx, cot, num_rows)
+    if use < width:
+        grad = torch.nn.functional.pad(grad, (0, width - use))
+    return grad
 
 
 def gather_verts(verts: torch.Tensor, idx: torch.Tensor,

@@ -23,8 +23,9 @@ import torch
 from tpurt_torch.accel.intersect import DEFAULT_T_MIN, DET_EPS
 from tpurt_torch.core.geometry import KHits, Rays, T_MAX, Triangles
 from tpurt_torch.core.math import cross, dot
-from tpurt_torch.diff.gather_grad import gather_verts
+from tpurt_torch.diff.gather_grad import accumulate_rows, gather_verts
 from tpurt_torch.diff.intersect_vjp import intersect_tuv
+from tpurt_torch.kernels import softocc
 
 # Grazing-incidence gate: coverage fades out for faces seen nearly edge-on
 # (|cos(ray, normal)| below ~1e-2), where the smooth pseudo-inverse drags
@@ -200,15 +201,11 @@ def cross3(a, b):
             a[0] * b[1] - a[1] * b[0]]
 
 
-def soft_occlusion_layers_soa(o_c, d_c, t_max, ids, table, sharpness,
-                              band: float = 0.08, t_min: float = DEFAULT_T_MIN):
-    """Soft transmittance of every layer's shadow segment from one shared
-    candidate list, ray index last.
-
-    o_c: 3 x (K, 1, 1, R) surface origins; d_c: 3 x (K, L, 1, R) unit
-    directions; t_max: (K, L, 1, R) segment lengths; ids: (L, C, R) int32
-    candidates (-1 padding, no gradient); table: the (T, 15) tri_table, of
-    which only the 9 geometry columns are gathered.  Returns (K, L, R)."""
+def soft_occlusion_layers_plain(o_c, d_c, t_max, ids, table, sharpness,
+                                band: float = 0.08, t_min: float = DEFAULT_T_MIN):
+    """soft_occlusion_layers_soa as a composition of torch operations over
+    (K, L, C, R) tensors, differentiated by autograd: its route for CPU
+    tensors, and the plain version the CUDA kernels are held to."""
     row = gather_verts(table[:, :9], ids.clamp_min(0))  # (L, C, R, 9)
     c = [row[..., i][None] for i in range(9)]           # 9 x (1, L, C, R)
     v0, e1, e2 = c[0:3], c[3:6], c[6:9]
@@ -226,6 +223,195 @@ def soft_occlusion_layers_soa(o_c, d_c, t_max, ids, table, sharpness,
           & (u + v <= 1.0 + band) & (t > t_min) & (t < 2.0 * t_max))
     a = coverage(u, v, sharpness, ok, band) * shadow_t_ramp(t, t_max) * det_gate(cos_dn)
     return torch.prod(1.0 - a, dim=-2)                  # over C -> (K, L, R)
+
+
+def _dsmooth01(x):
+    """Derivative of _smoothstep01."""
+    return 6.0 * x * (1.0 - x)
+
+
+def _in01(x):
+    """Where torch.clamp(x, 0, 1) passes its gradient."""
+    return (x >= 0.0) & (x <= 1.0)
+
+
+def _min_grad(a, b, g):
+    """torch.minimum(a, b)'s backward: g to the smaller, half each on a tie."""
+    half = torch.where(a == b, 0.5 * g, g)
+    return torch.where(a > b, 0.0, half), torch.where(a < b, 0.0, half)
+
+
+def soft_occlusion_layers_vjp(o, d, t_max, ids, table, sharpness: float, band: float,
+                              t_min: float, g: torch.Tensor):
+    """The backward of soft_occlusion_layers_soa as csrc/softocc.cu's
+    backward kernel computes it, in whole-tensor torch operations (its
+    plain version): o 3 x (K, R), d 3 x (K, L, R), t_max (K, L, R), ids (L,
+    C, R), g the (K, L, R) cotangent of the transmittance.  Nothing of the
+    forward is kept: a is recomputed, d vis / d a_c is g times the product
+    of the other candidates' (1 - a), the exclusive prefix times the
+    exclusive suffix product (no division, so 1 - a = 0 stays exact), and
+    the chain runs back through coverage, ramp, gate and Moller-Trumbore
+    by hand.  Returns (go 3 x (K, R) summed over L and C, gd 3 x (K, L, R)
+    and gt_max (K, L, R) summed over C, rows (L, C, R, 9): each candidate's
+    table cotangent (v0, e1, e2) summed over K, 0 for a -1 id)."""
+    ids = ids.detach()
+    row = table.detach()[:, :9][ids.clamp_min(0).long()]  # (L, C, R, 9)
+    cr = [row[..., i][None] for i in range(9)]           # 9 x (1, L, C, R)
+    v0, e1, e2 = cr[0:3], cr[3:6], cr[6:9]
+    oc = [x.detach()[:, None, None, :] for x in o]        # (K, 1, 1, R)
+    dc = [x.detach()[:, :, None, :] for x in d]           # (K, L, 1, R)
+    tm = t_max.detach()[:, :, None, :]
+    # the forward, every intermediate kept
+    nrm = cross3(e1, e2)
+    pv = cross3(dc, e2)
+    det = dot3(e1, pv)
+    den = det * det + DET_EPS
+    inv = det / den
+    tv = [oc[i] - v0[i] for i in range(3)]
+    uu, qv = dot3(tv, pv), cross3(tv, e1)
+    vv, tt = dot3(dc, qv), dot3(e2, qv)
+    u, v, t = uu * inv, vv * inv, tt * inv
+    dd, nn = dot3(dc, dc), dot3(nrm, nrm)
+    q = dd * nn
+    rs = torch.rsqrt(torch.clamp_min(q, 1e-30))
+    cos_dn = det * rs
+    ok = ((ids[None] >= 0) & (det.abs() > DET_EPS) & (u >= -band) & (v >= -band)
+          & (u + v <= 1.0 + band) & (t > t_min) & (t < 2.0 * tm))
+    w3 = 1.0 - u - v
+    m1 = torch.minimum(u, v)
+    s = torch.minimum(m1, w3)
+    sig = torch.sigmoid(sharpness * s)
+    use_band = bool(band and band > 0.0)
+    if use_band:
+        wr = (s + band) / (0.5 * band)
+        wc = torch.clamp(wr, 0.0, 1.0)
+        win = _smoothstep01(wc)
+    else:
+        win = torch.ones_like(sig)
+    cov = torch.where(ok, sig * win, 0.0)
+    tmc = torch.clamp_min(tm, 1e-12)
+    x = t / tmc
+    ur = (x - RAMP_NEAR0) / (RAMP_NEAR1 - RAMP_NEAR0)
+    dr = (RAMP_FAR1 - x) / (RAMP_FAR1 - RAMP_FAR0)
+    uc, dcl = torch.clamp(ur, 0.0, 1.0), torch.clamp(dr, 0.0, 1.0)
+    su, sd = _smoothstep01(uc), _smoothstep01(dcl)
+    ramp = su * sd
+    gr = (cos_dn.abs() - DET_GATE_LO) / (DET_GATE_HI - DET_GATE_LO)
+    gc = torch.clamp(gr, 0.0, 1.0)
+    gate = _smoothstep01(gc)
+    crm = cov * ramp
+    om = 1.0 - crm * gate                                 # (K, L, C, R)
+    # d vis / d a_c: the exclusive prefix and suffix products over C
+    ones = torch.ones_like(om[..., :1, :])
+    pre = torch.cumprod(torch.cat([ones, om[..., :-1, :]], dim=-2), dim=-2)
+    suf = torch.cumprod(torch.cat([ones, om.flip(-2)[..., :-1, :]], dim=-2), dim=-2).flip(-2)
+    ga = torch.where(ok, -(g[:, :, None, :] * (pre * suf)), 0.0)
+    # a = (cov * ramp) * gate
+    g_cr, g_gate = ga * gate, ga * crm
+    g_cov, g_ramp = g_cr * ramp, g_cr * cov
+    # coverage
+    g_s = g_cov * win * (1.0 - sig) * sig * sharpness
+    if use_band:
+        g_s = g_s + torch.where(_in01(wr), g_cov * sig * _dsmooth01(wc), 0.0) / (0.5 * band)
+    g_m1, g_w3 = _min_grad(m1, w3, g_s)
+    g_u, g_v = _min_grad(u, v, g_m1)
+    g_u, g_v = g_u - g_w3, g_v - g_w3
+    # ramp
+    g_x = (torch.where(_in01(ur), g_ramp * sd * _dsmooth01(uc), 0.0) / (RAMP_NEAR1 - RAMP_NEAR0)
+           - torch.where(_in01(dr), g_ramp * su * _dsmooth01(dcl), 0.0)
+           / (RAMP_FAR1 - RAMP_FAR0))
+    g_t = g_x / tmc
+    g_tm = torch.where(tm >= 1e-12, -g_x * t / (tmc * tmc), 0.0)
+    # gate
+    g_cos = torch.where(_in01(gr), g_gate * _dsmooth01(gc), 0.0) \
+        / (DET_GATE_HI - DET_GATE_LO) * torch.sign(cos_dn)
+    # cos_dn = det * rsqrt(max(dd * nn, 1e-30))
+    g_q = torch.where(q >= 1e-30, -0.5 * (g_cos * det) * rs * rs * rs, 0.0)
+    g_dd, g_nn = g_q * nn, g_q * dd
+    # (u, v, t) = (uu, vv, tt) * inv, inv = det / (det * det + eps)
+    g_inv = g_u * uu + g_v * vv + g_t * tt
+    g_uu, g_vv, g_tt = g_u * inv, g_v * inv, g_t * inv
+    g_det = g_cos * rs + g_inv / den - g_inv * inv / den * 2.0 * det
+
+    def axpy(a, x, *terms):  # component lists: a * x + terms
+        out = [a * xi for xi in x]
+        for y in terms:
+            out = [oi + yi for oi, yi in zip(out, y)]
+        return out
+
+    g_nrm = axpy(2.0 * g_nn, nrm)
+    g_pv = axpy(g_det, e1, axpy(g_uu, tv))
+    g_qv = axpy(g_vv, dc, axpy(g_tt, e2))
+    g_tv = axpy(g_uu, pv, cross3(e1, g_qv))                        # qv = tv x e1
+    g_d = axpy(2.0 * g_dd, dc, axpy(g_vv, qv), cross3(e2, g_pv))    # pv = d x e2
+    g_e1 = axpy(g_det, pv, cross3(g_qv, tv), cross3(e2, g_nrm))     # nrm = e1 x e2
+    g_e2 = axpy(g_tt, qv, cross3(g_pv, dc), cross3(g_nrm, e1))
+    go = [x.sum(dim=(1, 2)) for x in g_tv]                          # tv = o - v0
+    gd = [x.sum(dim=2) for x in g_d]
+    rows = torch.stack([-x for x in g_tv] + g_e1 + g_e2, dim=-1).sum(dim=0)
+    return go, gd, g_tm.sum(dim=2), rows
+
+
+class SoftOcclusion(torch.autograd.Function):
+    """soft_occlusion_layers_soa as one autograd node over compact inputs:
+    o 3 x (K, R), d 3 x (K, L, R), t_max (K, L, R), ids (L, C, R), table
+    (T, W).  It saves only those inputs.  CUDA tensors go through
+    csrc/softocc.cu's forward and backward kernels (kernels/softocc.py),
+    CPU tensors through the plain composition and
+    soft_occlusion_layers_vjp; the candidates' rows are summed into the
+    table by the gather backward (diff/gather_grad.py accumulate_rows,
+    segsum by default)."""
+
+    @staticmethod
+    def forward(ctx, ox, oy, oz, dx, dy, dz, t_max, ids, table, sharpness, band, t_min):
+        ctx.save_for_backward(ox, oy, oz, dx, dy, dz, t_max, ids, table)
+        ctx.consts = (sharpness, band, t_min)
+        if t_max.device.type == "cuda":
+            return softocc.forward([ox, oy, oz], [dx, dy, dz], t_max, ids, table,
+                                   sharpness, band, t_min)
+        return soft_occlusion_layers_plain(
+            [x[:, None, None, :] for x in (ox, oy, oz)],
+            [x[:, :, None, :] for x in (dx, dy, dz)], t_max[:, :, None, :], ids, table,
+            sharpness, band, t_min)
+
+    @staticmethod
+    def backward(ctx, g):
+        ox, oy, oz, dx, dy, dz, t_max, ids, table = ctx.saved_tensors
+        args = ([ox, oy, oz], [dx, dy, dz], t_max, ids, table, *ctx.consts)
+        if t_max.device.type == "cuda":
+            go, gd, g_tm, rows = softocc.backward(*args, g)
+        else:
+            go, gd, g_tm, rows = soft_occlusion_layers_vjp(*args, g)
+        g_table = None
+        if ctx.needs_input_grad[8]:
+            g_table = accumulate_rows(ids.clamp_min(0).reshape(-1).long(),
+                                      rows.reshape(-1, 9), table.shape[0], table.shape[1])
+        return (*go, *gd, g_tm, None, g_table, None, None, None)
+
+
+def soft_occlusion_layers_soa(o_c, d_c, t_max, ids, table, sharpness,
+                              band: float = 0.08, t_min: float = DEFAULT_T_MIN):
+    """Soft transmittance of every layer's shadow segment from one shared
+    candidate list, ray index last.
+
+    o_c: 3 x (K, 1, 1, R) surface origins; d_c: 3 x (K, L, 1, R) unit
+    directions; t_max: (K, L, 1, R) segment lengths; ids: (L, C, R) int32
+    candidates (-1 padding, no gradient); table: the (T, 15) tri_table, of
+    which only the 9 geometry columns are read.  Returns (K, L, R).
+
+    CPU tensors take soft_occlusion_layers_plain (autograd through the
+    composition); CUDA tensors the SoftOcclusion node, whose forward and
+    backward are one kernel each, or the call raises."""
+    dev = t_max.device
+    if dev.type == "cpu":
+        return soft_occlusion_layers_plain(o_c, d_c, t_max, ids, table, sharpness, band,
+                                           t_min)
+    if dev.type != "cuda":
+        raise ValueError(f"unsupported device {dev}")
+    k, n_l, _, r = d_c[0].shape
+    return SoftOcclusion.apply(*(x.reshape(k, r) for x in o_c),
+                               *(x.reshape(k, n_l, r) for x in d_c), t_max.reshape(k, n_l, r),
+                               ids.detach(), table, sharpness, band, t_min)
 
 
 def soft_occlusion_layers(o, d, t_max, ids, table, sharpness, band: float = 0.08,

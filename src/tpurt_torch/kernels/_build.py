@@ -158,6 +158,12 @@ def load() -> ctypes.CDLL:
         lib.tpurt_segsum_carry.argtypes = [
             _P, ctypes.c_int, ctypes.c_int, ctypes.c_int, _P, _P, _P, _P, _P, _P]
         lib.tpurt_segsum_carry.restype = ctypes.c_int
+        softocc_in = [_P] * 8 + [ctypes.c_longlong] * 3 + [ctypes.c_int, _P, ctypes.c_longlong] \
+            + [ctypes.c_int] * 3 + [ctypes.c_float] * 5
+        lib.tpurt_softocc_fwd.argtypes = softocc_in + [_P, _P]
+        lib.tpurt_softocc_fwd.restype = ctypes.c_int
+        lib.tpurt_softocc_bwd.argtypes = softocc_in + [_P] * 10
+        lib.tpurt_softocc_bwd.restype = ctypes.c_int
         lib.tpurt_error_string.argtypes = [ctypes.c_int]
         lib.tpurt_error_string.restype = ctypes.c_char_p
         _lib = lib

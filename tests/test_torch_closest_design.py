@@ -361,10 +361,11 @@ KERNELS = pathlib.Path(kb.__file__).resolve().parent
 
 ENTRY_POINTS = {"traverse8.py": {"tpurt_closest8", "tpurt_occluded8", "tpurt_knear8"},
                 "traverse.py": {"tpurt_closest_bin", "tpurt_occluded_bin", "tpurt_knear_bin"},
-                "treebuild.py": {"tpurt_morton", "tpurt_radix"}}
+                "treebuild.py": {"tpurt_morton", "tpurt_radix"},
+                "softocc.py": {"tpurt_softocc_fwd", "tpurt_softocc_bwd"}}
 
 
-@pytest.mark.parametrize("module", ["traverse8.py", "traverse.py", "treebuild.py"])
+@pytest.mark.parametrize("module", ["traverse8.py", "traverse.py", "treebuild.py", "softocc.py"])
 def test_every_kernel_launch_is_made_on_its_tensors_card(module):
     """Every wrapper of the module launches its entry point, and inside
     _build.on_device."""
