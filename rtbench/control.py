@@ -39,7 +39,7 @@ def reading(root: str, workload: str, seed: int, device, frames: int = 2048) -> 
     cell = harness.find_cell(root, workload)
     mix = cell.traffic
     check = mix["check"]
-    arrays = common.scene_arrays(cell.config, mix)
+    arrays = common.scene_arrays(cell)
     path = Path(cell.config, mix, seed, device)
     n_check = min(frames, int(check["pixels"]) // path.pix.shape[1])
     chosen = np.sort(views.run_rng(seed, 4).choice(frames, n_check, replace=False))
@@ -62,7 +62,7 @@ def fit_reading(cell, seed: int, device) -> dict:
     from rtbench.reference import soft
 
     mix, cfg = cell.traffic, cell.config
-    arrays = common.scene_arrays(cfg, mix)
+    arrays = common.scene_arrays(cell)
     view = camera.View.create(mix["eye"], mix["target"], mix["fov_deg"], cfg["width"],
                               cfg["height"], device)
     o, d = camera.primary_rays(view)

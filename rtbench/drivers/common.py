@@ -1,5 +1,5 @@
-"""What every driver shares: the port's scene from the frozen arrays, the
-card's clock and peak, and the device line."""
+"""What every driver shares: the port's scene from the arrays of the scene
+the configuration names, the card's clock and peak, and the device line."""
 
 from __future__ import annotations
 
@@ -9,15 +9,19 @@ import time
 import numpy as np
 import torch
 
+from rtbench import harness
 from rtbench.frozen import scene as frozen_scene
 
 GIB = float(1 << 30)
 
 
-def scene_arrays(config: dict, traffic: dict) -> frozen_scene.SceneArrays:
-    """The configuration's courtyard, with the mix's emitters if it has any."""
-    arrays = frozen_scene.sponza_arrays(config["num_tris"], config["scene_seed"])
-    em = traffic.get("emitters")
+def scene_arrays(cell) -> frozen_scene.SceneArrays:
+    """The scene that the cell's configuration names (``rtbench/scenes/<scene>.py``
+    under the cell's root), with the mix's emitters if it has any."""
+    config = cell.config
+    arrays = harness.load_scene(cell.root, config.get("scene"))(config["num_tris"],
+                                                               config["scene_seed"])
+    em = cell.traffic.get("emitters")
     if em:
         arrays = frozen_scene.with_emitters(arrays, em["count"], em["radiance"], em["seed"])
     return arrays

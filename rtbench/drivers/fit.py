@@ -79,7 +79,7 @@ def run(cell, seed: int, seconds: float, trace: bool, device, t_start: float):
     from tpurt_torch.core.geometry import Camera
 
     config, mix = cell.config, cell.traffic
-    arrays = common.scene_arrays(config, mix)
+    arrays = common.scene_arrays(cell)
     view = camera.View.create(mix["eye"], mix["target"], mix["fov_deg"], config["width"],
                               config["height"], device)
     o, d = camera.primary_rays(view)

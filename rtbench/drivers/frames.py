@@ -66,7 +66,7 @@ def run(cell, seed: int, seconds: float, trace: bool, device, t_start: float):
     from tpurt_torch.render.pipeline import make_tracer
 
     config, mix = cell.config, cell.traffic
-    arrays = common.scene_arrays(config, mix)
+    arrays = common.scene_arrays(cell)
     path = Path(config, mix, seed, device)
     scene = common.port_scene(arrays, device)
     rcfg = RenderConfig(method=config["engine"], light_samples=path.samples)

@@ -5,13 +5,16 @@ Everything a cell is made of is found by name under the benchmark's root
 (``BENCHMARK.json`` beside the ``rtbench`` folder):
 
 - ``rtbench/configs/<config>.json``: the deployment (scene, frame, engine);
+- ``rtbench/scenes/<scene>.py``: the scene that a configuration's ``scene``
+  key names, a function ``arrays(num_tris, seed)`` that returns the
+  scene's ``frozen.scene.SceneArrays``;
 - ``rtbench/traffic/<traffic>.json``: the traffic mix; its ``driver`` key
   names the general generator in ``rtbench/drivers/`` that reads it;
 - ``rtbench/metrics/<metric>.py``: one per-layer metric's reader, a
   function ``read(ctx)`` that returns a number or None (nothing to read).
 
-So a later change adds a cell, a mix or a metric by adding files and
-entries; no file here needs an edit.
+So a later change adds a cell, a scene, a mix or a metric by adding files
+and entries; no file here needs an edit.
 """
 
 from __future__ import annotations
@@ -82,13 +85,33 @@ def find_cell(root: str, name: str) -> Cell:
                 per_layer=[m for m in spec["per_layer"] if _applies(m, name)])
 
 
-def load_metric(root: str, name: str) -> Callable:
-    """The read(ctx) function of rtbench/metrics/<name>.py."""
-    path = os.path.join(root, "rtbench", "metrics", f"{name}.py")
-    spec = importlib.util.spec_from_file_location(f"rtbench_metric_{name}", path)
+def _load_module(root: str, kind: str, name: str):
+    path = os.path.join(root, "rtbench", kind, f"{name}.py")
+    spec = importlib.util.spec_from_file_location(f"rtbench_{kind}_{name}", path)
     mod = importlib.util.module_from_spec(spec)
     spec.loader.exec_module(mod)
-    return mod.read
+    return mod
+
+
+def load_metric(root: str, name: str) -> Callable:
+    """The read(ctx) function of rtbench/metrics/<name>.py."""
+    return _load_module(root, "metrics", name).read
+
+
+def load_scene(root: str, name: str | None) -> Callable:
+    """The arrays(num_tris, seed) function of rtbench/scenes/<name>.py, the
+    scene a configuration's ``scene`` key names.  A configuration without
+    the key, or naming no file, is an error that names the file looked for:
+    nothing falls back to another scene."""
+    where = os.path.join(root, "rtbench", "scenes")
+    if not name:
+        raise ValueError("the configuration names no scene: its \"scene\" key names a file "
+                         + os.path.join(where, "<scene>.py"))
+    path = os.path.join(where, f"{name}.py")
+    if not os.path.isfile(path):
+        raise FileNotFoundError(f"the configuration names the scene {name!r}, and {path} "
+                                "does not exist")
+    return _load_module(root, "scenes", name).arrays
 
 
 def driver(traffic: dict):

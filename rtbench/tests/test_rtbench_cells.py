@@ -1,44 +1,69 @@
 """Tiny cells run end to end on the CPU (the harness's look for a card
 skipped, the port's plain-torch twins in place of its kernels): the result
-line is the contract's; a config, a traffic mix and a metric added as new
-files are found by name; the check says not correct with the timed path
-broken underneath, and for the bfloat16 control."""
+line is the contract's, on the courtyard and on the bunny; a config, a
+scene, a traffic mix and a metric added as new files are found by name; a
+configuration that names no scene file stops the run; the check says not
+correct with the timed path broken underneath, and for the bfloat16
+control."""
 
 import json
 import os
+import re
 import shutil
 import subprocess
 import sys
 import time
 
+import numpy as np
 import pytest
 import torch
 
 from rtbench import control, faults, harness
+from rtbench.drivers import common
+from rtbench.frozen import scene
 
 ROOT = os.path.dirname(os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 TINY = {"num_tris": 2000, "width": 24, "height": 16}
-CELLS = {"tiny.frames": "path32", "tiny.area": "path32_area", "tiny.fit": "fit_overview"}
+TINY_BUNNY = {"name": "tinybunny", "scene": "bunny", "num_tris": 1500, "scene_seed": 0,
+              "width": 24, "height": 16, "engine": "wide8", "reduced": []}
+# Views and a fit camera around the knot, which sits at the origin.
+KNOT_VIEWS = [{"kind": "orbit", "count": 4, "radius": 5.2, "height": 1.8, "target": [0, 0, 0]},
+              {"kind": "orbit", "count": 4, "radius": 4.0, "height": 3.5, "target": [0, 0, 0]}]
+KNOT_MIXES = {"knot8": ("path32", {"views": KNOT_VIEWS, "fov_deg": 40.0}),
+              "knot8_area": ("path32_area", {"views": KNOT_VIEWS, "fov_deg": 40.0}),
+              "fit_knot": ("fit_overview", {"eye": [0.0, 1.8, 5.2], "target": [0.0, 0.0, 0.0],
+                                            "fov_deg": 40.0})}
+CELLS = {"tiny.frames": ("tiny", "path32"), "tiny.area": ("tiny", "path32_area"),
+         "tiny.fit": ("tiny", "fit_overview"), "tinybunny.frames": ("tinybunny", "knot8"),
+         "tinybunny.area": ("tinybunny", "knot8_area"), "tinybunny.fit": ("tinybunny", "fit_knot")}
 
 
 @pytest.fixture
 def tiny_root(tmp_path):
-    """A benchmark root of its own: the data files, a tiny configuration
-    added as a new file, and BENCHMARK.json naming its cells."""
-    for kind in ("configs", "traffic", "metrics"):
-        shutil.copytree(os.path.join(ROOT, "rtbench", kind), tmp_path / "rtbench" / kind)
+    """A benchmark root of its own: the data files and scenes, a tiny
+    courtyard and a tiny bunny configuration and the knot's mixes added as
+    new files, and BENCHMARK.json naming their cells."""
+    for kind in ("configs", "scenes", "traffic", "metrics"):
+        shutil.copytree(os.path.join(ROOT, "rtbench", kind), tmp_path / "rtbench" / kind,
+                        ignore=shutil.ignore_patterns("__pycache__"))
     spec = harness.load_spec(ROOT)
     cfg = json.load(open(os.path.join(ROOT, "rtbench", "configs", "sponza1m.json")))
     cfg.update(TINY, name="tiny")
-    (tmp_path / "rtbench" / "configs" / "tiny.json").write_text(json.dumps(cfg))
-    spec["configs"].append({"name": "tiny", "source": "a test", "file": "rtbench/configs/tiny.json",
-                            "reduced": [], "why": "a test"})
-    spec["workloads"] += [{"name": n, "config": "tiny", "traffic": t, "chips": 1, "why": "a test"}
-                          for n, t in CELLS.items()]
+    for c in (cfg, TINY_BUNNY):
+        (tmp_path / "rtbench" / "configs" / f"{c['name']}.json").write_text(json.dumps(c))
+        spec["configs"].append({"name": c["name"], "source": "a test",
+                                "file": f"rtbench/configs/{c['name']}.json", "reduced": [],
+                                "why": "a test"})
+    for name, (base, changes) in KNOT_MIXES.items():
+        mix = json.load(open(os.path.join(ROOT, "rtbench", "traffic", f"{base}.json")))
+        (tmp_path / "rtbench" / "traffic" / f"{name}.json").write_text(
+            json.dumps({**mix, **changes}))
+    spec["workloads"] += [{"name": n, "config": c, "traffic": t, "chips": 1, "why": "a test"}
+                          for n, (c, t) in CELLS.items()]
     for m in spec["end_to_end"] + spec["per_layer"]:
         if "workloads" in m:
             frames = any(w.endswith((".frames", ".area")) for w in m["workloads"])
-            m["workloads"] += [n for n in CELLS if (n == "tiny.fit") != frames]
+            m["workloads"] += [n for n in CELLS if n.endswith(".fit") != frames]
     (tmp_path / "BENCHMARK.json").write_text(json.dumps(spec))
     return str(tmp_path)
 
@@ -71,8 +96,14 @@ def test_same_seed_same_inputs(tiny_root):
 def test_new_files_are_found_by_name(tiny_root):
     base = os.path.join(tiny_root, "rtbench")
     cfg = json.load(open(os.path.join(base, "configs", "tiny.json")))
-    cfg.update(name="tiny2", num_tris=1500)
+    cfg.update(name="tiny2", num_tris=1500, scene="half_courtyard")
     json.dump(cfg, open(os.path.join(base, "configs", "tiny2.json"), "w"))
+    with open(os.path.join(base, "scenes", "half_courtyard.py"), "w") as f:
+        f.write("import numpy as np\n"
+                "from rtbench.frozen import scene\n"
+                "def arrays(num_tris, seed):\n"
+                "    a = scene.sponza_arrays(num_tris, seed)\n"
+                "    return scene.SceneArrays(**{**a.__dict__, 'verts': a.verts * np.float32(0.5)})\n")
     mix = json.load(open(os.path.join(base, "traffic", "path32.json")))
     mix["views"][0]["count"] = 2
     json.dump(mix, open(os.path.join(base, "traffic", "path4.json"), "w"))
@@ -90,15 +121,36 @@ def test_new_files_are_found_by_name(tiny_root):
     json.dump(spec, open(os.path.join(tiny_root, "BENCHMARK.json"), "w"))
     cell = harness.find_cell(tiny_root, "tiny2.path4")
     assert cell.config["num_tris"] == 1500 and cell.traffic["views"][0]["count"] == 2
+    assert np.array_equal(common.scene_arrays(cell).verts,
+                          scene.sponza_arrays(1500, 7).verts * np.float32(0.5))
     result, measured = _run(tiny_root, "tiny2.path4")
     assert result["correct"] and "frame_rays_per_s" in result["metrics"]
     assert harness.load_metric(tiny_root, "frames_window_s")(measured.ctx) == \
         measured.attempted
 
 
+@pytest.mark.parametrize("named", [None, "no_such_scene"])
+def test_a_configuration_must_name_a_scene_file(tiny_root, named):
+    """Without a scene, or naming no file under scenes/, the run stops with
+    the file it looked for in its message: nothing falls back to the
+    courtyard."""
+    path = os.path.join(tiny_root, "rtbench", "configs", "tiny.json")
+    cfg = json.load(open(path))
+    cfg.pop("scene")
+    if named:
+        cfg["scene"] = named
+    json.dump(cfg, open(path, "w"))
+    looked = os.path.join(tiny_root, "rtbench", "scenes", f"{named or '<scene>'}.py")
+    with pytest.raises((ValueError, FileNotFoundError), match=re.escape(looked)):
+        _run(tiny_root, "tiny.frames")
+
+
 # -- faults planted in the timed path: the check has to say not correct ----
+FRAMES_CELLS = ["tiny.frames", "tiny.area", "tinybunny.frames", "tinybunny.area"]
+
+
 @pytest.mark.parametrize("fault", faults.NAMES["frames"])
-@pytest.mark.parametrize("cell", ["tiny.frames", "tiny.area"])
+@pytest.mark.parametrize("cell", FRAMES_CELLS)
 def test_frames_check_fails_on_a_broken_path(tiny_root, cell, fault):
     with faults.planted("frames", fault):
         result, _ = _run(tiny_root, cell)
@@ -106,21 +158,23 @@ def test_frames_check_fails_on_a_broken_path(tiny_root, cell, fault):
 
 
 @pytest.mark.parametrize("fault", faults.NAMES["fit"])
-def test_fit_check_fails_on_a_broken_step(tiny_root, fault):
+@pytest.mark.parametrize("cell", ["tiny.fit", "tinybunny.fit"])
+def test_fit_check_fails_on_a_broken_step(tiny_root, cell, fault):
     with faults.planted("fit", fault):
-        result, _ = _run(tiny_root, "tiny.fit")
+        result, _ = _run(tiny_root, cell)
     assert result["correct"] is False
 
 
 # -- the control: the reference in bfloat16 in the port's place -------------
-@pytest.mark.parametrize("cell", ["tiny.frames", "tiny.area"])
+@pytest.mark.parametrize("cell", FRAMES_CELLS)
 def test_frames_control_is_not_correct(tiny_root, cell):
     r = control.reading(tiny_root, cell, 3, "cpu", frames=64)
     assert r["px_off_frac"] > r["limit"]
 
 
-def test_fit_control_is_not_correct(tiny_root):
-    cell = harness.find_cell(tiny_root, "tiny.fit")
+@pytest.mark.parametrize("name", ["tiny.fit", "tinybunny.fit"])
+def test_fit_control_is_not_correct(tiny_root, name):
+    cell = harness.find_cell(tiny_root, name)
     r = control.fit_reading(cell, 3, "cpu")
     assert any(r[k] > cell.traffic["check"][k] for k in ("loss_gap", "grad1_gap", "change_gap"))
 

@@ -1,6 +1,7 @@
 """The benchmark's files: every name in BENCHMARK.json finds its file, the
 contract's limits on names and units hold, and no module of the benchmark
-imports JAX or the JAX package (nor a reference module the port)."""
+imports JAX or the JAX package (nor a module of the yardstick, reference,
+frozen copies or scenes, the port)."""
 
 import ast
 import json
@@ -45,16 +46,25 @@ def test_every_cell_finds_its_pieces(cell):
     assert "setup_s" in reported and len(reported) >= 2 and c.per_layer
 
 
-@pytest.mark.parametrize("kind", ["configs", "traffic", "metrics"])
+@pytest.mark.parametrize("kind", ["configs", "scenes", "traffic", "metrics"])
 def test_every_file_loads_by_name(kind):
+    code = kind in ("metrics", "scenes")
     names = sorted(os.path.splitext(f)[0] for f in os.listdir(os.path.join(BENCH, kind))
-                   if f.endswith(".json" if kind != "metrics" else ".py"))
+                   if f.endswith(".py" if code else ".json"))
     assert names
     for name in names:
         if kind == "metrics":
             assert callable(harness.load_metric(ROOT, name))
+        elif kind == "scenes":
+            assert callable(harness.load_scene(ROOT, name))
         else:
             assert isinstance(harness._load_json(ROOT, kind, name), dict)
+
+
+@pytest.mark.parametrize("config", SPEC["configs"], ids=lambda c: c["name"])
+def test_every_configuration_names_a_scene_that_resolves(config):
+    scene = json.load(open(os.path.join(ROOT, config["file"])))["scene"]
+    assert callable(harness.load_scene(ROOT, scene))
 
 
 def test_contract_names_and_units():
@@ -81,7 +91,7 @@ def test_contract_names_and_units():
 def test_no_module_imports_jax_or_the_jax_package(path):
     tops = {name.split(".")[0] for name in _imports(path)}
     assert not tops & {"jax", "jaxlib", "flax", "tpurt"}, tops
-    if os.sep + "reference" + os.sep in path:
+    if any(os.sep + d + os.sep in path for d in ("reference", "frozen", "scenes")):
         assert "tpurt_torch" not in tops
 
 

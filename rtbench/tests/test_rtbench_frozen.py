@@ -1,19 +1,16 @@
-"""The frozen yardstick equals what users get today: the courtyard's arrays
-bitwise the port's generator, the camera rays bitwise the port's."""
+"""The frozen yardstick equals what users get today: the courtyard's and the
+bunny's arrays bitwise the port's generators, the camera rays bitwise the
+port's."""
 
 import numpy as np
 import pytest
 import torch
 
 from rtbench.frozen import camera, scene, views
+from rtbench.scenes import bunny
 
 
-@pytest.mark.parametrize("num_tris", [1, 3000, 20_000])
-def test_scene_arrays_bitwise_the_ports(num_tris):
-    from tpurt_torch.core.scene import make_sponza_scene
-
-    port, _ = make_sponza_scene(num_tris=num_tris, seed=7, device="cpu")
-    a = scene.sponza_arrays(num_tris, 7)
+def _assert_bitwise(a, port):
     for got, want in ((a.verts, port.tris.verts), (a.faces, port.tris.faces),
                       (a.albedo, port.tris.albedo), (a.emission, port.tris.emission),
                       (a.light_pos, port.lights.pos), (a.light_intensity, port.lights.intensity),
@@ -21,6 +18,26 @@ def test_scene_arrays_bitwise_the_ports(num_tris):
         want = want.numpy()
         assert got.dtype == want.dtype and got.shape == want.shape
         assert got.tobytes() == want.tobytes()
+
+
+@pytest.mark.parametrize("num_tris", [1, 3000, 20_000])
+def test_scene_arrays_bitwise_the_ports(num_tris):
+    from tpurt_torch.core.scene import make_sponza_scene
+
+    port, _ = make_sponza_scene(num_tris=num_tris, seed=7, device="cpu")
+    _assert_bitwise(scene.sponza_arrays(num_tris, 7), port)
+
+
+@pytest.mark.parametrize("num_tris,made", [(200, 202), (5_000, 5_002), (70_000, 69_940)])
+def test_bunny_arrays_bitwise_the_ports(num_tris, made):
+    """The port's generator draws the knot's bumps with seed 0."""
+    from tpurt_torch.core.scene import make_bunny_scene
+
+    port, _ = make_bunny_scene(num_tris=num_tris, device="cpu")
+    a = bunny.arrays(num_tris, 0)
+    assert a.num_tris == made
+    _assert_bitwise(a, port)
+    assert not np.array_equal(bunny.arrays(num_tris, 1).verts, a.verts)
 
 
 @pytest.mark.parametrize("eye,target,size", [
